@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
 
-    python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --profile  # where a round's time goes
+    python3 chip_smoke.py                 # from the root of a checkout
+    python3 chip_smoke.py --profile       # where a federated round's time goes
+    python3 chip_smoke.py --serving-only  # skip the federated-round phases
 
-Three phases; any failure raises and the script exits non-zero:
+All three kernels (``fed_reduce``, ``decode_attention``,
+``flash_attention``) are built first from ``src/repro_torch/csrc`` with
+``nvcc`` for ``sm_90a``, one compiler per source, all at once.  Six phases;
+any failure raises and the script exits non-zero:
 
-1. **Kernel.**  Builds ``fed_reduce`` from ``src/repro_torch/csrc`` with
-   ``nvcc`` for ``sm_90a`` and runs it on the card against its plain
+1. **Kernel.**  Runs ``fed_reduce`` on the card against its plain
    PyTorch version at every shape the slice's ``RoundPlan`` gives it: each
    distinct cohort-chunk row count (full 8192-row chunks and each ragged
    last chunk) x {the 256-wide ``w`` leaf, the 1-wide ``b`` leaf} x {f32,
@@ -29,16 +32,46 @@ Three phases; any failure raises and the script exits non-zero:
    CPU (plain ``fed_reduce``): after every round the params agree within
    1e-6 absolute and the round's update within 1e-3 relative; aggregation
    counts, arrival times and shelf bytes are identical.
+4. **Attention kernels.**  ``decode_attention`` and ``flash_attention`` on
+   the card against their plain versions on the card, at the serving run's
+   shapes (decode: q (16, 24, 128) vs a (16, 577, 8, 128) bf16 cache with
+   ragged lengths including 0 and 577; prefill: q (16, 512, 24, 128) vs
+   k/v (16, 512, 8, 128), causal) and at the reference test cases
+   (``tests/test_kernels.py`` FLASH_CASES, DECODE_CASES) in f32 and bf16:
+   error within 3e-5 (f32) / 2e-2 (bf16), exact zeros for empty slots,
+   stale-KV invariance of a reused slot (1e-6), bitwise repeatability.
+   Times the serving shapes with CUDA events: kernel, plain version,
+   ``F.scaled_dot_product_attention`` (GQA; a boolean length mask for
+   decode) as the library yardstick, and the bound.
+5. **Serving slice.**  llama3.2-3b at full width (28 layers, d_model 3072,
+   24 query / 8 KV heads, vocab 128256 padded to 129024) in bf16, params
+   from ``transformer.init`` with a seeded CUDA generator: a 64-request
+   ``diurnal`` trace, prompts of 512 tokens, 64 decode tokens each, through
+   ``ContinuousServer(ContinuousBatchingEngine(slots=16))`` and then
+   ``BatchedServer(batch_size=16)``.  Per mode: the virtual-time report
+   (which must equal the same trace's CPU run), wall ms per prefill call
+   and per decode iteration, decode tokens/s and peak device memory; the
+   launch counters are zeroed before each mode and must read 28 per decode
+   iteration (``decode_attention``) and 28 per prefill (``flash_attention``)
+   after it, at shapes phase 4 checked; the continuous p99 must be >= 2x
+   better than the fixed batch's.  A short profiled window gives the
+   device's idle share.
+6. **Serving cross-check.**  Full width at 2 layers, the same params and
+   prompts: the kernel path against the plain path (``attention_impl=
+   "einsum"``, decode ``impl="ref"``), both on the card, prefill then 16
+   teacher-forced decode steps: last-position logits within 2e-2 relative
+   in bf16 (greedy-token agreement printed, not gated), and within 1e-4
+   with identical greedy tokens in f32.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``, and before that one JSON
-line with the kernel's numbers.
+line with the kernels' numbers.
 
-``--profile`` runs the slice alone instead: per wire, round 1 under
-``torch.profiler`` (device busy time as the union of kernel intervals,
-device idle share, device time by kernel) and round 2 under ``cProfile``
-(host time by function).  It prints one JSON line per profiled round and
-writes the full tables and a Chrome trace of the f32 round under
+``--profile`` runs the federated slice alone instead: per wire, round 1
+under ``torch.profiler`` (device busy time as the union of kernel
+intervals, device idle share, device time by kernel) and round 2 under
+``cProfile`` (host time by function).  It prints one JSON line per profiled
+round and writes the full tables and a Chrome trace of the f32 round under
 ``chiprun_out/``.
 """
 from __future__ import annotations
@@ -61,8 +94,10 @@ L2_BYTES = 50 * 2**20
 RECORDS = 20  # paper: 2 M records over 100 000 devices
 COHORT = 8192
 LEAF_WIDTHS = (256, 1)  # avazu_lr's w and b leaves
+BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor-core peak
 KERNEL_SOURCE = "src/repro_torch/csrc/fed_reduce.cu"
 KERNEL_REPLACES = "src/repro/kernels/fed_reduce/fed_reduce.py:41"
+KERNELS = ("fed_reduce", "decode_attention", "flash_attention")
 PROFILE_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -320,38 +355,18 @@ class RoundProfiler:
         import io
         import pstats
 
-        from torch.autograd import DeviceType
-
         prof = self.profs.get((wire, "torch"))
         if prof is not None:
-            kern = [e for e in prof.events()
-                    if getattr(e, "device_type", None) == DeviceType.CUDA]
-            busy, cur_s, cur_e = 0.0, None, None  # union of kernel spans, us
-            for s, e in sorted((e.time_range.start, e.time_range.end)
-                               for e in kern):
-                if cur_e is None or s > cur_e:
-                    busy += 0.0 if cur_e is None else cur_e - cur_s
-                    cur_s, cur_e = s, e
-                else:
-                    cur_e = max(cur_e, e)
-            busy += 0.0 if cur_e is None else cur_e - cur_s
-            by_name: dict[str, list] = {}
-            for e in kern:
-                rec = by_name.setdefault(e.name, [0.0, 0])
-                rec[0] += e.time_range.end - e.time_range.start
-                rec[1] += 1
-            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-            fed = [v for k, v in by_name.items() if "fed_reduce" in k]
+            busy, n, by_name = kernel_time(prof)
+            fed = [r for r in by_name if "fed_reduce" in r[0]]
             log(json.dumps({"round_profile": {
                 "wire": wire, "round": 1, "wall_ms": wall_ms[1],
-                "kernels": len(kern), "device_busy_ms": busy / 1e3,
-                "device_idle_share": 1.0 - busy / 1e3 / wall_ms[1],
-                "fed_reduce_ms": sum(v[0] for v in fed) / 1e3,
+                "kernels": n, "device_busy_ms": busy,
+                "device_idle_share": 1.0 - busy / wall_ms[1],
+                "fed_reduce_ms": sum(r[1] for r in fed),
                 "fed_reduce_partial_launches": sum(
-                    v[1] for k, v in by_name.items()
-                    if "fed_reduce_partial" in k),
-                "top_kernels_ms": [[k[:90], v[0] / 1e3, v[1]]
-                                   for k, v in top[:12]],
+                    r[2] for r in fed if "fed_reduce_partial" in r[0]),
+                "top_kernels_ms": by_name[:12],
                 "card": self.card}}))
             with open(os.path.join(PROFILE_DIR, f"profile_{wire}_kernels.txt"),
                       "w") as f:
@@ -555,6 +570,547 @@ def cross_check_phase(n_devices: int, rounds: int) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 4: the attention kernels against their plain versions
+
+SERVE_ARCH = "llama3_2_3b"
+SERVE_SLOTS = 16
+SERVE_REQUESTS = 64
+SERVE_PROMPT = 512
+SERVE_DECODE = 64
+SERVE_MAX_LEN = SERVE_PROMPT + SERVE_DECODE + 1
+SERVE_SEED = 0
+# (b, s, h, kv, d) and (b, sq, sk, h, kv, d, causal, q_offset): the serving
+# run's shapes first, then tests/test_kernels.py's DECODE_CASES (l.65) and
+# FLASH_CASES (l.27).
+DECODE_SERVE = (SERVE_SLOTS, SERVE_MAX_LEN, 24, 8, 128)
+FLASH_SERVE = (SERVE_SLOTS, SERVE_PROMPT, SERVE_PROMPT, 24, 8, 128, True, 0)
+DECODE_CASES = [DECODE_SERVE, (2, 256, 8, 2, 64), (1, 512, 4, 4, 128),
+                (3, 300, 6, 1, 64), (2, 64, 16, 16, 32)]
+FLASH_CASES = [FLASH_SERVE, (2, 256, 256, 4, 2, 64, True, 0),
+               (1, 128, 384, 8, 8, 128, False, 0),
+               (2, 96, 200, 6, 2, 64, True, 104),
+               (1, 1, 256, 4, 1, 64, True, 255),
+               (1, 512, 512, 2, 1, 32, True, 0)]
+DECODE_SOURCE = "src/repro_torch/csrc/decode_attention.cu"
+DECODE_REPLACES = "src/repro/kernels/decode_attention/decode_attention.py:31"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:33"
+
+
+def _attn_tol(dtype) -> float:
+    import torch
+
+    return 3e-5 if dtype == torch.float32 else 2e-2
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _check_close(name: str, out, plain, dtype) -> float:
+    """Max |out - plain|; raises unless |out - plain| <= tol (1 + |plain|)
+    everywhere (the reference tests' atol = rtol = tol)."""
+    tol = _attn_tol(dtype)
+    err = (out.float() - plain.float()).abs()
+    if not bool((err <= tol * (1.0 + plain.float().abs())).all()):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"max abs error {float(err.max()):.3e} "
+                             f"(tol {tol})")
+    return float(err.max())
+
+
+def _copies(nbytes: int) -> int:
+    """Copies to cycle through so the timed calls find their inputs cold in
+    the 50 MB L2, as the serving path does layer after layer."""
+    return max(1, min(16, math.ceil(3 * L2_BYTES / nbytes)))
+
+
+def decode_cases(dev) -> tuple[dict, set]:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, scatter_prefill_rows)
+
+    gen = torch.Generator().manual_seed(1)
+    checked, errs, serve_row = set(), [], None
+    for case in DECODE_CASES:
+        b, s, h, kv, d = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, h, d), generator=gen).to(dtype).to(dev)
+            kc = torch.randn((b, s, kv, d), generator=gen).to(dtype).to(dev)
+            vc = torch.randn((b, s, kv, d), generator=gen).to(dtype).to(dev)
+            lens = torch.randint(1, s + 1, (b,), generator=gen,
+                                 dtype=torch.int32)
+            lens[0], lens[-1] = 0, s  # an empty slot and a full one
+            lens = lens.to(dev)
+            name = f"decode_attention{case} {_dtype_name(dtype)}"
+            out = decode_attention(q, kc, vc, lens, impl="cuda")
+            out2 = decode_attention(q, kc, vc, lens, impl="cuda")
+            plain = decode_attention(q, kc, vc, lens, impl="ref")
+            torch.cuda.synchronize()
+            err = _check_close(name, out, plain, dtype)
+            if not torch.equal(out, out2):
+                raise AssertionError(f"{name} is not repeatable")
+            if not bool((out[lens == 0] == 0).all()):
+                raise AssertionError(f"{name}: an empty slot is not zeros")
+            # A reused slot: rows past its new length hold the previous
+            # occupant's K/V, and attention must not see them.
+            new_len = max(1, s // 3)
+            sid = torch.tensor([b - 1], dtype=torch.int32, device=dev)
+            dk = scatter_prefill_rows(kc.clone(), kc[:1, :new_len], sid)
+            dv = scatter_prefill_rows(vc.clone(), vc[:1, :new_len], sid)
+            ck, cv = dk.clone(), dv.clone()
+            ck[b - 1, new_len:] = 0
+            cv[b - 1, new_len:] = 0
+            lens2 = lens.clone()
+            lens2[-1] = new_len
+            stale = float((decode_attention(q, dk, dv, lens2, impl="cuda")
+                           .float() - decode_attention(
+                               q, ck, cv, lens2, impl="cuda").float())
+                          .abs().max())
+            if not stale <= 1e-6:
+                raise AssertionError(f"{name} reads stale KV: {stale:.3e}")
+            errs.append(err)
+            checked.add(("decode", case, _dtype_name(dtype)))
+            row = {"case": list(case), "dtype": _dtype_name(dtype),
+                   "max_abs_err": err, "stale_kv_diff": stale,
+                   "bitwise_repeatable": True, "empty_slots_zero": True}
+            if case == DECODE_SERVE and dtype == torch.bfloat16:
+                n = _copies(2 * kc.numel() * kc.element_size())
+                ks = [kc.clone() for _ in range(n)]
+                vs = [vc.clone() for _ in range(n)]
+                kts = [k.transpose(1, 2).contiguous() for k in ks]
+                vts = [v.transpose(1, 2).contiguous() for v in vs]
+                q4 = q[:, :, None, :]
+                mask = (torch.arange(s, device=dev)[None] < lens[:, None])[
+                    :, None, None, :]
+                row["ms"] = time_ms(lambda i: decode_attention(
+                    q, ks[i % n], vs[i % n], lens, impl="cuda"))
+                row["plain_ms"] = time_ms(lambda i: decode_attention(
+                    q, ks[i % n], vs[i % n], lens, impl="ref"), iters=10)
+                row["library_ms"] = time_ms(
+                    lambda i: F.scaled_dot_product_attention(
+                        q4, kts[i % n], vts[i % n], attn_mask=mask,
+                        enable_gqa=True))
+                rows_read = int(lens.sum())
+                moved = (2 * rows_read * kv * d * kc.element_size()
+                         + 2 * q.numel() * q.element_size() + 4 * b)
+                ops = 4 * rows_read * h * d
+                bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+                ops_ms = ops / BF16_FLOPS * 1e3
+                row.update(bound_ms=max(bytes_ms, ops_ms),
+                           bound_by="bytes" if bytes_ms >= ops_ms
+                           else "operations", bytes=moved, flops=ops)
+                serve_row = row
+                del ks, vs, kts, vts
+            log(json.dumps({"decode_attention_case": row}))
+    entry = {"name": "decode_attention", "route": "cuda",
+             "source": DECODE_SOURCE, "replaces": DECODE_REPLACES,
+             "launches": 0, "max_abs_err": max(errs),
+             **{k: serve_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}}
+    return entry, checked
+
+
+def causal_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs attention must score: the causal triangle with
+    its offset, cut at the key length."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, q_offset + i + 1) for i in range(sq))
+
+
+def flash_cases(dev) -> tuple[dict, set]:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    gen = torch.Generator().manual_seed(2)
+    checked, errs, serve_row = set(), [], None
+    for case in FLASH_CASES:
+        b, sq, sk, h, kv, d, causal, off = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, sq, h, d), generator=gen).to(dtype).to(dev)
+            k = torch.randn((b, sk, kv, d), generator=gen).to(dtype).to(dev)
+            v = torch.randn((b, sk, kv, d), generator=gen).to(dtype).to(dev)
+            kw = dict(causal=causal, q_offset=off)
+            name = f"flash_attention{case} {_dtype_name(dtype)}"
+            out = flash_attention(q, k, v, impl="cuda", **kw)
+            out2 = flash_attention(q, k, v, impl="cuda", **kw)
+            plain = flash_attention(q, k, v, impl="ref", **kw)
+            torch.cuda.synchronize()
+            err = _check_close(name, out, plain, dtype)
+            if not torch.equal(out, out2):
+                raise AssertionError(f"{name} is not repeatable")
+            errs.append(err)
+            checked.add(("flash", case, _dtype_name(dtype)))
+            row = {"case": list(case), "dtype": _dtype_name(dtype),
+                   "max_abs_err": err, "bitwise_repeatable": True}
+            if case == FLASH_SERVE and dtype == torch.bfloat16:
+                qt = q.transpose(1, 2).contiguous()
+                kt = k.transpose(1, 2).contiguous()
+                vt = v.transpose(1, 2).contiguous()
+                row["ms"] = time_ms(lambda i: flash_attention(
+                    q, k, v, impl="cuda", **kw), iters=20)
+                row["plain_ms"] = time_ms(lambda i: flash_attention(
+                    q, k, v, impl="ref", **kw), iters=5)
+                row["library_ms"] = time_ms(
+                    lambda i: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True),
+                    iters=20)
+                moved = 2 * (q.numel() + k.numel()) * q.element_size()
+                ops = 4 * d * h * b * causal_pairs(sq, sk, causal, off)
+                bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+                ops_ms = ops / BF16_FLOPS * 1e3
+                row.update(bound_ms=max(bytes_ms, ops_ms),
+                           bound_by="bytes" if bytes_ms >= ops_ms
+                           else "operations", bytes=moved, flops=ops)
+                serve_row = row
+            log(json.dumps({"flash_attention_case": row}))
+    entry = {"name": "flash_attention", "route": "cuda",
+             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+             "launches": 0, "max_abs_err": max(errs),
+             **{k: serve_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}}
+    return entry, checked
+
+
+# --------------------------------------------------------------------------
+# phase 5/6: continuous-batching serving at llama3.2-3b width
+
+class WallTimer:
+    """Host wall ms of each call of a wrapped function, the card drained
+    before and after (so a call's time is its own)."""
+
+    def __init__(self):
+        self.ms: dict[str, list[float]] = {}
+
+    def wrap(self, name: str, fn):
+        import torch
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms.setdefault(name, []).append(
+                (time.perf_counter() - t) * 1e3)
+            return out
+        return timed
+
+
+@contextlib.contextmanager
+def timed_arena_ops(timer: WallTimer):
+    """The continuous engine's arena_prefill/arena_decode, wall-timed."""
+    from repro_torch.core import serving
+
+    saved = serving.arena_prefill, serving.arena_decode
+    serving.arena_prefill = timer.wrap("prefill", saved[0])
+    serving.arena_decode = timer.wrap("decode", saved[1])
+    try:
+        yield
+    finally:
+        serving.arena_prefill, serving.arena_decode = saved
+
+
+def _trace_kw(cfg) -> dict:
+    from repro_torch.core.traffic_curves import diurnal
+
+    return dict(requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+                vocab_size=cfg.vocab_size, curve=diurnal(), interval=60.0,
+                seed=SERVE_SEED)
+
+
+def cpu_reports() -> dict:
+    """The same trace on the CPU: the virtual-time reports depend on the
+    arrivals and the cost model only, so the continuous engine runs without
+    a model and the fixed batches with the smoke-size model."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.deviceflow import VirtualClock
+    from repro_torch.core.serving import (ContinuousBatchingEngine,
+                                          ContinuousServer)
+    from repro_torch.launch import serve
+
+    cfg = get_config(SERVE_ARCH, smoke=True)
+    eng = ContinuousBatchingEngine(slots=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
+                                   decode_tokens=SERVE_DECODE,
+                                   max_len=SERVE_MAX_LEN, simulate_only=True)
+    clock = VirtualClock()
+    serve.run_trace(ContinuousServer(eng, clock), clock=clock,
+                    **_trace_kw(cfg))
+    fixed = serve.BatchedServer(cfg, batch_size=SERVE_SLOTS,
+                                prompt_len=SERVE_PROMPT,
+                                decode_tokens=SERVE_DECODE,
+                                max_len=SERVE_MAX_LEN, device="cpu")
+    serve.run_trace(fixed, **_trace_kw(cfg))
+    return {"continuous": eng.report(), "fixed": fixed.report()}
+
+
+def kernel_time(prof) -> tuple[float, int, list]:
+    """Device busy time of a ``torch.profiler`` window (the union of kernel
+    intervals, ms), its kernel count, and ``[name, ms, calls]`` per kernel
+    name (first 90 characters), most device time first."""
+    from torch.autograd import DeviceType
+
+    kern = [e for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in kern):
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += 0.0 if cur_e is None else cur_e - cur_s
+    by_name: dict[str, list] = {}
+    for e in kern:
+        rec = by_name.setdefault(e.name[:90], [0.0, 0])
+        rec[0] += (e.time_range.end - e.time_range.start) / 1e3
+        rec[1] += 1
+    rows = sorted(([k, *v] for k, v in by_name.items()), key=lambda r: -r[1])
+    return busy / 1e3, len(kern), rows
+
+
+def serving_profile(cfg, params, prompts, card: str) -> dict:
+    """Device idle share of the continuous engine: one step admitting three
+    requests (the trace's usual occupancy: prefill + decode), then 20
+    decode-only steps, each window under ``torch.profiler`` (CUDA activity
+    only) with its host wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.serving import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(cfg, slots=SERVE_SLOTS,
+                                   prompt_len=SERVE_PROMPT,
+                                   decode_tokens=SERVE_DECODE,
+                                   max_len=SERVE_MAX_LEN, params=params,
+                                   device=params["ln_f"].device)
+    for i in range(3):
+        eng.submit(i, prompts[i], 0.0)
+    out, t = {}, 0.0
+    for window, steps in (("prefill_step", 1), ("decode_steps", 20)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            for _ in range(steps):
+                t += eng.step(t)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+        busy, n, by_name = kernel_time(prof)
+        out[window] = {"steps": steps, "wall_ms": wall,
+                       "device_busy_ms": busy, "kernels": n,
+                       "device_idle_share": 1.0 - busy / wall,
+                       "top_kernels_ms": by_name[:8]}
+    log(json.dumps({"serving_profile": out, "card": card}))
+    del eng
+    return out
+
+
+def serving_phase(dev, checked: set, card: str) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.deviceflow import VirtualClock
+    from repro_torch.core.serving import (ContinuousBatchingEngine,
+                                          ContinuousServer)
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.init(
+        torch.Generator(device=dev).manual_seed(SERVE_SEED), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{cfg.name}: {n_params} params ({n_params * 2 / 1e9:.2f} GB bf16) "
+        f"initialized on the card in {time.perf_counter() - t0:.1f}s")
+    L = cfg.num_layers
+
+    def flash_shape(b):  # what a prefill of b prompts gives the kernel
+        return (b, SERVE_PROMPT, SERVE_PROMPT, cfg.num_heads,
+                cfg.num_kv_heads, cfg.head_dim, True, 0)
+
+    def decode_shape(b):  # what a decode step over b rows gives it
+        return (b, SERVE_MAX_LEN, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim)
+
+    cpu = cpu_reports()
+    reports, results = {}, {}
+    for mode in ("continuous", "fixed"):
+        timer = WallTimer()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        decode_attention.launches = 0  # zeroed just before the main path ...
+        flash_attention.launches = 0
+        w0 = time.perf_counter()
+        if mode == "continuous":
+            engine = ContinuousBatchingEngine(
+                cfg, slots=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
+                decode_tokens=SERVE_DECODE, max_len=SERVE_MAX_LEN,
+                params=params, device=dev)
+            clock = VirtualClock()
+            with timed_arena_ops(timer):
+                serve.run_trace(ContinuousServer(engine, clock), clock=clock,
+                                **_trace_kw(cfg))
+            rep = engine.report()
+            n_prefill = sum(1 for it in engine.iterations if it.admitted)
+            n_decode = sum(1 for it in engine.iterations if it.n_active)
+            tokens = sum(it.n_active for it in engine.iterations)
+            shapes = {("flash", flash_shape(SERVE_SLOTS), "bfloat16"),
+                      ("decode", decode_shape(SERVE_SLOTS), "bfloat16")}
+            occupancy = max(it.n_active for it in engine.iterations)
+        else:
+            server = serve.BatchedServer(
+                cfg, batch_size=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
+                decode_tokens=SERVE_DECODE, max_len=SERVE_MAX_LEN,
+                params=params, device=dev)
+            server.api = dataclasses.replace(
+                server.api, prefill=timer.wrap("prefill", server.api.prefill),
+                decode_step=timer.wrap("decode", server.api.decode_step))
+            serve.run_trace(server, **_trace_kw(cfg))
+            rep = server.report()
+            n_prefill = len(server.metrics)
+            n_decode = n_prefill * SERVE_DECODE
+            tokens = sum(m.tokens_decoded for m in server.metrics)
+            shapes = set()
+            for m in server.metrics:
+                shapes.add(("flash", flash_shape(m.batch_size), "bfloat16"))
+                shapes.add(("decode", decode_shape(m.batch_size), "bfloat16"))
+            occupancy = max(m.batch_size for m in server.metrics)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - w0
+        launches = {"decode_attention": decode_attention.launches,
+                    "flash_attention": flash_attention.launches}  # ... read
+        expected = {"decode_attention": L * n_decode,
+                    "flash_attention": L * n_prefill}
+        peak = torch.cuda.max_memory_allocated()
+        s = rep.summary(30.0)
+        if s != cpu[mode].summary(30.0):
+            raise AssertionError(f"[{mode}] the card's virtual-time report "
+                                 f"{s} differs from the CPU run's "
+                                 f"{cpu[mode].summary(30.0)}")
+        if launches != expected or min(launches.values()) <= 0:
+            raise AssertionError(f"[{mode}] launches {launches}, expected "
+                                 f"{expected}")
+        if not shapes <= checked:
+            raise AssertionError(f"[{mode}] launched shapes the kernel phase "
+                                 f"did not check: {sorted(shapes - checked)}")
+        toks = {r.request_id: r.tokens for r in rep.records}
+        if len(rep.finished()) != SERVE_REQUESTS or any(
+                len(t) != SERVE_DECODE + 1 for t in toks.values()):
+            raise AssertionError(f"[{mode}] not every request finished")
+        pre, dec = timer.ms["prefill"], timer.ms["decode"]
+        res = {"mode": mode, "report": s, "prefill_calls": n_prefill,
+               "decode_iterations": n_decode,
+               "wall_ms_per_prefill": sum(pre) / len(pre),
+               "wall_ms_per_decode_iteration": sum(dec) / len(dec),
+               "decode_tokens_per_s": tokens / (sum(dec) / 1e3),
+               "peak_memory_gb": peak / 1e9, "wall_s": wall_s,
+               "launches": launches, "expected_launches": expected,
+               "peak_occupancy": occupancy, "card": card}
+        log(json.dumps({"serving": res}))
+        log(f"  {mode:10s} p50={s['p50_latency_s'] * 1e3:.1f}ms "
+            f"p99={s['p99_latency_s'] * 1e3:.1f}ms "
+            f"ttft_p99={s['p99_ttft_s'] * 1e3:.1f}ms "
+            f"goodput={s['goodput_rps']:.4f} req/s (= CPU run) | "
+            f"{res['wall_ms_per_prefill']:.1f} ms/prefill, "
+            f"{res['wall_ms_per_decode_iteration']:.2f} ms/decode "
+            f"iteration, {res['decode_tokens_per_s']:.0f} decode tok/s, "
+            f"peak {peak / 1e9:.2f} GB; launches {launches} = expected")
+        reports[mode], results[mode] = rep, res
+        results[mode]["tokens"] = toks
+    c, f = reports["continuous"], reports["fixed"]
+    cut = f.p99_latency_s / c.p99_latency_s
+    log(f"p99 latency cut: {cut:.2f}x (>= 2 required)")
+    if not cut >= 2.0:
+        raise AssertionError(f"continuous p99 cut {cut:.2f}x < 2x")
+    tc, tf = results["continuous"].pop("tokens"), results["fixed"].pop(
+        "tokens")
+    same = sum(tc[i] == tf[i] for i in tc)
+    log(f"continuous vs fixed tokens: {same}/{len(tc)} requests identical "
+        "(bf16; not gated)")
+    prompts = np.random.default_rng(SERVE_SEED).integers(
+        1, cfg.vocab_size, size=(SERVE_REQUESTS, SERVE_PROMPT))
+    profile = serving_profile(cfg, params, prompts, card)
+    return {"params": params, "cfg": cfg, "prompts": prompts,
+            "results": results, "p99_cut": cut, "profile": profile,
+            "launches": {k: sum(r["launches"][k] for r in results.values())
+                         for k in ("decode_attention", "flash_attention")}}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serving_cross_check(params, cfg, prompts, steps: int = 16) -> dict:
+    """The kernel path against the plain path at full width and 2 layers,
+    teacher-forced: both paths get the plain path's greedy token."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer
+
+    two = {"embed": params["embed"], "ln_f": params["ln_f"],
+           "layers": params["layers"][:2]}
+    toks = torch.as_tensor(prompts[:SERVE_SLOTS], dtype=torch.int32,
+                           device=params["ln_f"].device)
+    out = {}
+    for dtype, tol in (("bfloat16", 2e-2), ("float32", 1e-4)):
+        cfg2 = dataclasses.replace(cfg, num_layers=2, dtype=dtype)
+        p = two if dtype == "bfloat16" else {
+            "embed": {k: v.float() for k, v in two["embed"].items()},
+            "ln_f": two["ln_f"].float(),
+            "layers": [{k: ({kk: vv.float() for kk, vv in v.items()}
+                            if isinstance(v, dict) else v.float())
+                        for k, v in lp.items()} for lp in two["layers"]]}
+        cfg_plain = dataclasses.replace(cfg2, attention_impl="einsum")
+        lk, ck = transformer.prefill(p, toks, cfg2, SERVE_MAX_LEN)
+        lp_, cp = transformer.prefill(p, toks, cfg_plain, SERVE_MAX_LEN)
+        worst, agree, total = 0.0, 0, 0
+        for step in range(steps + 1):
+            rel = float((lk - lp_).abs().max() / lp_.abs().max())
+            worst = max(worst, rel)
+            gk = lk[:, : cfg.vocab_size].argmax(-1)
+            gp = lp_[:, : cfg.vocab_size].argmax(-1)
+            agree += int((gk == gp).sum())
+            total += gk.numel()
+            if step == steps:
+                break
+            nxt = gp.to(torch.int32)
+            lk, ck = transformer.decode_step(p, nxt, cfg2, ck)
+            lp_, cp = transformer.decode_step(p, nxt, cfg_plain, cp)
+        rate = agree / total
+        out[dtype] = {"max_rel_logit_diff": worst, "tol": tol,
+                      "greedy_agreement": rate, "steps": steps}
+        log(f"serving cross-check [{dtype}] 2 layers at full width: kernel "
+            f"vs plain max relative logit diff {worst:.3e} (tol {tol}), "
+            f"greedy tokens agree {agree}/{total} ({rate:.4f})")
+        if not worst <= tol:
+            raise AssertionError(f"serving cross-check [{dtype}] failed")
+        if dtype == "float32" and agree != total:
+            raise AssertionError("serving cross-check [float32]: greedy "
+                                 "tokens differ")
+        del ck, cp, lk, lp_
+    return out
+
+
+# --------------------------------------------------------------------------
 
 def card_line() -> str:
     return subprocess.run(
@@ -573,9 +1129,13 @@ def main(argv=None) -> int:
                    help="q_i per grade (the quickstart's 1; 0 runs every "
                         "aggregation on buffer rows alone)")
     p.add_argument("--kernel-only", action="store_true",
-                   help="build and check the kernel, skip the round phases")
+                   help="build and check the kernels, skip the round and "
+                        "serving phases")
+    p.add_argument("--serving-only", action="store_true",
+                   help="skip the federated-round phases (1-3)")
     p.add_argument("--profile", action="store_true",
-                   help="profile the slice's rounds 1 and 2 instead")
+                   help="profile the federated slice's rounds 1 and 2 "
+                        "instead")
     args = p.parse_args(argv)
 
     import torch
@@ -593,9 +1153,13 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    lib = _build.build("fed_reduce")
-    log(f"built {lib.name} in {time.perf_counter() - t0:.1f}s")
-    log(_build.BUILD_LOGS.get("fed_reduce", "").strip())
+    libs = _build.build_all(KERNELS)
+    log(f"built {', '.join(lib.name for lib in libs.values())} in "
+        f"{time.perf_counter() - t0:.1f}s (one nvcc per source, in parallel)")
+    for name in KERNELS:
+        log(f"--- {name}: ptxas")
+        log("\n".join(line for line in _build.BUILD_LOGS.get(name, "")
+                      .splitlines() if "Used" in line or "spill" in line))
     if args.profile:
         run_slice(dev, args.devices, dim=CONFIG.dim, cohort=COHORT,
                   rounds=max(3, args.rounds), bench=args.benchmarking_devices,
@@ -603,25 +1167,44 @@ def main(argv=None) -> int:
         log(card)
         return 0
 
-    _, _, plan = calibrated_plan(
-        grade_specs(args.devices, args.benchmarking_devices))
-    rows = chunk_rows(plan, COHORT)
-    log(f"chunk rows of the round's update buffers: {rows}")
+    entries = []
+    if not args.serving_only:
+        _, _, plan = calibrated_plan(
+            grade_specs(args.devices, args.benchmarking_devices))
+        rows = chunk_rows(plan, COHORT)
+        log(f"chunk rows of the round's update buffers: {rows}")
+        t0 = time.perf_counter()
+        entry, checked = kernel_phase(dev, rows)
+        log(f"kernel phase passed in {time.perf_counter() - t0:.1f}s")
+        entry["launches"] = None
+        if not args.kernel_only:
+            t0 = time.perf_counter()
+            res = slice_phase(dev, args.devices, args.rounds, checked,
+                              args.benchmarking_devices)
+            entry["launches"] = res["launches"]
+            log(f"slice phase passed in {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            cross_check_phase(args.cross_devices, args.rounds)
+            log(f"cross-check phase passed in "
+                f"{time.perf_counter() - t0:.1f}s")
+        entries.append(entry)
     t0 = time.perf_counter()
-    entry, checked = kernel_phase(dev, rows)
-    log(f"kernel phase passed in {time.perf_counter() - t0:.1f}s")
+    dec_entry, dec_checked = decode_cases(dev)
+    flash_entry, flash_checked = flash_cases(dev)
+    log(f"attention kernel phase passed in {time.perf_counter() - t0:.1f}s")
+    dec_entry["launches"] = flash_entry["launches"] = None
     if not args.kernel_only:
         t0 = time.perf_counter()
-        res = slice_phase(dev, args.devices, args.rounds, checked,
-                          args.benchmarking_devices)
-        entry["launches"] = res["launches"]
-        log(f"slice phase passed in {time.perf_counter() - t0:.1f}s")
+        srv = serving_phase(dev, dec_checked | flash_checked, card)
+        dec_entry["launches"] = srv["launches"]["decode_attention"]
+        flash_entry["launches"] = srv["launches"]["flash_attention"]
+        log(f"serving phase passed in {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
-        cross_check_phase(args.cross_devices, args.rounds)
-        log(f"cross-check phase passed in {time.perf_counter() - t0:.1f}s")
-    else:
-        entry["launches"] = None
-    log(json.dumps({"kernels": [entry]}))
+        serving_cross_check(srv["params"], srv["cfg"], srv["prompts"])
+        log(f"serving cross-check passed in {time.perf_counter() - t0:.1f}s")
+        del srv
+    entries += [dec_entry, flash_entry]
+    log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """SimDC core on PyTorch: the federated round of the paper, end to end.
 
-Exports what the first slice of the port covers — calibration, allocation,
-DeviceFlow, update buffers, aggregation and the grade-partitioned round
-engine.  The scheduler, serving and monitoring modules are not ported yet.
+Exports what the port covers so far — calibration, allocation, DeviceFlow,
+update buffers, aggregation, the grade-partitioned round engine (slice 1)
+and continuous-batching serving (slice 2).  The scheduler and monitoring
+modules are not ported yet (ROADMAP P8, P1).
 """
 from repro_torch.core.allocation import (
     AllocationResult,
@@ -34,6 +35,13 @@ from repro_torch.core.federation import (
     handles_align,
     polynomial_staleness,
     weighted_average,
+)
+from repro_torch.core.serving import (
+    ContinuousBatchingEngine,
+    ContinuousServer,
+    RequestRecord,
+    ServeCostModel,
+    ServingReport,
 )
 from repro_torch.core.simulation import (
     DeviceTier,
@@ -80,6 +88,8 @@ __all__ = [
     "AggregationService", "ClientCountTrigger", "SampleThresholdTrigger",
     "ScheduledTrigger", "fedavg_delta", "fused_fedavg_delta",
     "handles_align", "polynomial_staleness", "weighted_average",
+    "ContinuousBatchingEngine", "ContinuousServer", "RequestRecord",
+    "ServeCostModel", "ServingReport",
     "DeviceTier", "FederatedRoundOutcome", "GradePlanEntry",
     "GradeRoundBreakdown", "HybridSimulation", "LogicalTier", "RoundPlan",
     "AccumulatedStrategy", "DispatchPoint", "TimeIntervalStrategy",

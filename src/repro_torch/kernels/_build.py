@@ -56,25 +56,41 @@ def build(name: str) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless a build of this exact source exists;
     returns the library path.  Safe to call from several processes: each
     compiles to its own temporary file and renames it into place."""
-    out = library_path(name)
-    log = out.with_suffix(".log")
-    if out.exists():
-        if name not in BUILD_LOGS and log.exists():
-            BUILD_LOGS[name] = log.read_text()
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed to build {name} ({proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    BUILD_LOGS[name] = proc.stdout + proc.stderr
-    return out
+    return build_all([name])[name]
+
+
+def build_all(names) -> dict[str, pathlib.Path]:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that has no build of its
+    exact source yet, one ``nvcc`` process per source, all started together;
+    returns each library's path.  Raises if any build fails."""
+    paths, procs = {}, {}
+    for name in names:
+        out = paths[name] = library_path(name)
+        log = out.with_suffix(".log")
+        if out.exists():
+            if name not in BUILD_LOGS and log.exists():
+                BUILD_LOGS[name] = log.read_text()
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {name} ({proc.returncode}):"
+                          f"\n{' '.join(cmd)}\n{text}")
+            continue
+        paths[name].with_suffix(".log").write_text(text)
+        os.replace(tmp, paths[name])
+        BUILD_LOGS[name] = text
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def load_library(name: str) -> ctypes.CDLL:

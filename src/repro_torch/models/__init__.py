@@ -1,1 +1,1 @@
-"""CTR models (plain PyTorch)."""
+"""Models (plain PyTorch): the CTR models and the decoder-only LM."""

@@ -1,0 +1,252 @@
+"""Decoder-only transformer LM (the dense and VLM-backbone families).
+
+init/apply in the reference's style, with the layers as a Python list of
+per-layer param dicts (the reference stacks them for ``lax.scan``;
+:func:`params_from_numpy` unstacks its params).  The same layer code serves
+full-sequence forward, prefill and cached decode.  The serving cache is one
+stacked ``(num_layers, b, max_len, kv, hd)`` tensor per K and V plus a host
+int ``pos``; decode writes into it in place.
+
+Mixture-of-experts layers (``models/moe.py``) are not ported yet (ROADMAP
+P9), nor is ``loss_fn``, which waits for LM training and the flash
+kernel's backward (ROADMAP P12).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, padded_vocab
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import (
+    _attend,
+    _project_qkv,
+    attention_apply,
+    attention_decode,
+    attention_init,
+    embed_apply,
+    embed_init,
+    mlp_apply,
+    mlp_init,
+    rmsnorm,
+    rope,
+    unembed_apply,
+)
+
+Params = Any
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """Raise for configs this port cannot run yet (experts: ROADMAP P9)."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts layers (models/moe.py) are not "
+            "ported yet (ROADMAP P9)")
+
+
+def _generator(generator, device: torch.device) -> torch.Generator:
+    if isinstance(generator, torch.Generator):
+        if generator.device.type != device.type:
+            raise ValueError(f"generator lives on {generator.device}, the "
+                             f"params on {device}")
+        return generator
+    return torch.Generator(device=device).manual_seed(int(generator))
+
+
+def layer_init(generator, cfg: ModelConfig, device) -> Params:
+    check_dense(cfg)
+    dt = dtype_of(cfg)
+    return {
+        "ln1": torch.ones((cfg.d_model,), dtype=dt, device=device),
+        "attn": attention_init(generator, cfg, dt, device),
+        "ln2": torch.ones((cfg.d_model,), dtype=dt, device=device),
+        "mlp": mlp_init(generator, cfg, dt, device),
+    }
+
+
+def init(generator, cfg: ModelConfig, *, device="cuda") -> Params:
+    """Random params from ``generator`` (a ``torch.Generator`` on
+    ``device``, or an int seed): the reference's truncated-normal recipe,
+    not its bits (torch cannot replay ``jax.random``)."""
+    check_dense(cfg)
+    dev = resolve_device(device)
+    gen = _generator(generator, dev)
+    dt = dtype_of(cfg)
+    return {
+        "embed": embed_init(gen, cfg, dt, padded_vocab(cfg.vocab_size), dev),
+        "ln_f": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+        "layers": [layer_init(gen, cfg, dev) for _ in range(cfg.num_layers)],
+    }
+
+
+def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux_loss)."""
+    h = attention_apply(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
+                        positions, causal=True)
+    x = x + h
+    hn = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return (x + mlp_apply(p["mlp"], hn, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def layer_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 cache: dict) -> tuple[torch.Tensor, dict]:
+    h, cache = attention_decode(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
+                                cfg, cache)
+    x = x + h
+    hn = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_apply(p["mlp"], hn, cfg), cache
+
+
+def _embed(params, tokens, prefix_embeds):
+    x = embed_apply(params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+          prefix_embeds: "torch.Tensor | None" = None
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (b, s_total, padded_vocab) f32, aux_loss)."""
+    check_dense(cfg)
+    x = _embed(params, tokens, prefix_embeds)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in params["layers"]:
+        x, a = layer_apply(lp, x, cfg, positions)
+        aux = aux + a
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return unembed_apply(params["embed"], x), aux
+
+
+# --------------------------------------------------------------------------- #
+# Serving
+# --------------------------------------------------------------------------- #
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device="cuda") -> dict:
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=dtype_of(cfg), device=dev),
+            "pos": 0}
+
+
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            max_len: int, *, prefix_embeds: "torch.Tensor | None" = None
+            ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward that also fills the KV cache.
+
+    Returns (last-position logits (b, padded_vocab), cache).
+    """
+    check_dense(cfg)
+    x = _embed(params, tokens, prefix_embeds)
+    b, s, _ = x.shape
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens does not fit max_len "
+                         f"{max_len}")
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    cache = init_cache(cfg, b, max_len, device=x.device)
+    for i, lp in enumerate(params["layers"]):
+        hn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = _project_qkv(lp["attn"], hn, cfg)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        o = _attend(q, k, v, cfg, causal=True)
+        x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
+        hn = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+        x = x + mlp_apply(lp["mlp"], hn, cfg)
+    cache["pos"] = s
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return unembed_apply(params["embed"], x[:, -1]), cache
+
+
+def decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
+                cache: dict) -> tuple[torch.Tensor, dict]:
+    """One-token decode: returns (logits (b, padded_vocab), cache).  Writes
+    the token's K/V into ``cache`` in place; the returned cache shares its
+    tensors and carries ``pos + 1``."""
+    check_dense(cfg)
+    pos = int(cache["pos"])
+    if pos >= cache["k"].shape[2]:
+        raise ValueError(f"cache of {cache['k'].shape[2]} positions is full")
+    x = embed_apply(params["embed"], token[:, None])
+    for i, lp in enumerate(params["layers"]):
+        x, _ = layer_decode(lp, x, cfg, {"k": cache["k"][i],
+                                          "v": cache["v"][i], "pos": pos})
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return (unembed_apply(params["embed"], x[:, 0]),
+            {"k": cache["k"], "v": cache["v"], "pos": pos + 1})
+
+
+# --------------------------------------------------------------------------- #
+# Params to and from the reference package (through numpy)
+# --------------------------------------------------------------------------- #
+def _to_tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(a.copy(), device=device)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Params:
+    """The reference package's params (nested dicts of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as the port's tensors on
+    ``device``.  With ``cfg.scan_layers`` the reference stacks every layer
+    leaf on a leading ``num_layers`` axis; it is unstacked into the port's
+    list of per-layer dicts."""
+    dev = resolve_device(device)
+    layers = tree["layers"]
+    if cfg.scan_layers:
+        layers = [_tree_map(lambda a, i=i: np.asarray(a)[i], layers)
+                  for i in range(cfg.num_layers)]
+    out = {k: _tree_map(lambda a: _to_tensor(a, dev), v)
+           for k, v in tree.items() if k != "layers"}
+    out["layers"] = [_tree_map(lambda a: _to_tensor(a, dev), lp)
+                     for lp in layers]
+    return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has no bf16: widen (exact)
+        t = t.float()
+    return t.numpy().copy()
+
+
+def params_to_numpy(params: Params, cfg: ModelConfig) -> dict:
+    """Host numpy copy of the port's params in the reference layout (layer
+    leaves restacked when ``cfg.scan_layers``; bf16 widened to f32)."""
+    out = {k: _tree_map(_to_numpy, v) for k, v in params.items()
+           if k != "layers"}
+    layers = [_tree_map(_to_numpy, lp) for lp in params["layers"]]
+    if cfg.scan_layers:
+        def stack(*leaves):
+            if isinstance(leaves[0], dict):
+                return {k: stack(*(lf[k] for lf in leaves))
+                        for k in leaves[0]}
+            return np.stack(leaves)
+        layers = stack(*layers)
+    out["layers"] = layers
+    return out

@@ -1,0 +1,259 @@
+"""Parity of the port's attention kernels' plain versions with the JAX
+package on the CPU: ``decode_attention`` and ``flash_attention`` (the
+reference's Pallas kernels in interpret mode and its jnp oracles), the
+split-and-combine, stale-KV and empty-slot contracts, the arena slot
+helpers, and the decode kernel's launch plan.  Inputs are numpy arrays
+drawn from a seed and handed to both packages."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.decode_attention import ops as jdec  # noqa: E402
+from repro.kernels.flash_attention import ops as jflash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as jattn  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as tdec  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as tflash  # noqa: E402
+
+FLASH_CASES = [
+    # (b, sq, sk, h, kv, d, causal, q_offset) — test_kernels.py:27
+    (2, 256, 256, 4, 2, 64, True, 0),
+    (1, 128, 384, 8, 8, 128, False, 0),
+    (2, 96, 200, 6, 2, 64, True, 104),
+    (1, 1, 256, 4, 1, 64, True, 255),
+    (1, 512, 512, 2, 1, 32, True, 0),
+    (2, 40, 40, 6, 2, 16, True, 0),  # GQA group of 3 (llama3.2-3b's)
+]
+DECODE_CASES = [
+    # (b, s, h, kv, d) — test_kernels.py:65, plus the group of 3
+    (2, 256, 8, 2, 64),
+    (1, 512, 4, 4, 128),
+    (3, 300, 6, 1, 64),
+    (2, 64, 16, 16, 32),
+    (3, 96, 24, 8, 16),
+]
+DTYPES = {"f32": (jnp.float32, torch.float32, 3e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _rand(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _pair(x, dt):
+    """The same numpy values as a JAX array and a torch tensor of dtype
+    ``dt`` (bf16 rounding happens once, in numpy->f32->bf16 on both)."""
+    jd, td, _ = DTYPES[dt]
+    return jnp.asarray(x, jd), torch.from_numpy(x).to(td)
+
+
+def _np(t):
+    return (t.float().numpy() if isinstance(t, torch.Tensor)
+            else np.asarray(t, np.float32))
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_plain_matches_reference(case, dt):
+    b, s, h, kv, d = case
+    rng = np.random.default_rng(hash(case) % 2**32)
+    q, kc, vc = (_rand(rng, (b, h, d)), _rand(rng, (b, s, kv, d)),
+                 _rand(rng, (b, s, kv, d)))
+    lens = rng.integers(1, s + 1, size=b).astype(np.int32)
+    tol = DTYPES[dt][2]
+    (jq, tq), (jk, tk), (jv, tv) = _pair(q, dt), _pair(kc, dt), _pair(vc, dt)
+    out = tdec.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert out.dtype == tq.dtype and out.shape == (b, h, d)
+    kernel = jdec.decode_attention(jq, jk, jv, jnp.asarray(lens),
+                                   impl="pallas_interpret")
+    oracle = jdec.decode_attention_ref(
+        jq.astype(jnp.float32), jk.astype(jnp.float32),
+        jv.astype(jnp.float32), jnp.asarray(lens))
+    np.testing.assert_allclose(_np(out), _np(kernel), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(out), _np(oracle), atol=tol, rtol=tol)
+
+
+def test_decode_partial_combine_matches_reference_and_full():
+    """Split partials + combine == the full decode, and each split's
+    (o, m, l) equals the reference's (3e-5)."""
+    b, s, h, kv, d, nsh = 2, 512, 6, 2, 64, 8
+    rng = np.random.default_rng(1)
+    q, kc, vc = (_rand(rng, (b, h, d)), _rand(rng, (b, s, kv, d)),
+                 _rand(rng, (b, s, kv, d)))
+    lens = rng.integers(1, s + 1, size=b).astype(np.int32)
+    full = tdec.decode_attention_ref(torch.from_numpy(q),
+                                     torch.from_numpy(kc),
+                                     torch.from_numpy(vc),
+                                     torch.from_numpy(lens))
+    ssh = s // nsh
+    parts = []
+    for i in range(nsh):
+        sl = slice(i * ssh, (i + 1) * ssh)
+        shard_len = np.clip(lens - i * ssh, 0, ssh).astype(np.int32)
+        t = tdec.decode_attention_partial(
+            torch.from_numpy(q), torch.from_numpy(kc[:, sl]),
+            torch.from_numpy(vc[:, sl]), torch.from_numpy(shard_len))
+        j = jdec.decode_attention_partial(
+            jnp.asarray(q), jnp.asarray(kc[:, sl]), jnp.asarray(vc[:, sl]),
+            jnp.asarray(shard_len))
+        for a, r in zip(t, j):
+            np.testing.assert_allclose(_np(a), _np(r), atol=3e-5, rtol=3e-5)
+        parts.append(t)
+    out = tdec.combine_partials(*(torch.stack(x) for x in zip(*parts)))
+    np.testing.assert_allclose(out.numpy(), full.numpy(), atol=3e-5)
+    jout = jdec.combine_partials(
+        *(jnp.asarray(torch.stack(x).numpy()) for x in zip(*parts)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=3e-5)
+
+
+def test_decode_reused_slot_ignores_stale_kv():
+    """A reused slot keeps the retired request's rows past the new length,
+    yet attends exactly as over a zero-scrubbed cache (1e-6)."""
+    slots, s, h, kv, d, new_len = 4, 96, 6, 2, 32, 24
+    rng = np.random.default_rng(2)
+    old_k = torch.from_numpy(_rand(rng, (slots, s, kv, d)))
+    old_v = torch.from_numpy(_rand(rng, (slots, s, kv, d)))
+    rows_k = torch.from_numpy(_rand(rng, (1, new_len, kv, d)))
+    rows_v = torch.from_numpy(_rand(rng, (1, new_len, kv, d)))
+    sid = torch.tensor([2], dtype=torch.int32)
+    dirty_k = tdec.scatter_prefill_rows(old_k.clone(), rows_k, sid)
+    dirty_v = tdec.scatter_prefill_rows(old_v.clone(), rows_v, sid)
+    clean_k, clean_v = dirty_k.clone(), dirty_v.clone()
+    clean_k[2, new_len:] = 0.0
+    clean_v[2, new_len:] = 0.0
+    assert dirty_k[2, new_len:].abs().max() > 0  # reuse, not a wipe
+    lens = torch.tensor([s, 13, new_len, s], dtype=torch.int32)
+    q = torch.from_numpy(_rand(rng, (slots, h, d)))
+    a = tdec.decode_attention(q, dirty_k, dirty_v, lens)
+    c = tdec.decode_attention(q, clean_k, clean_v, lens)
+    np.testing.assert_allclose(a.numpy(), c.numpy(), atol=1e-6)
+
+
+def test_decode_zero_length_slot_outputs_exact_zeros():
+    slots, s, h, kv, d = 3, 64, 4, 2, 16
+    rng = np.random.default_rng(3)
+    kc = torch.from_numpy(_rand(rng, (slots, s, kv, d)))
+    vc = torch.from_numpy(_rand(rng, (slots, s, kv, d)))
+    q = torch.from_numpy(_rand(rng, (slots, h, d)))
+    out = tdec.decode_attention(q, kc, vc,
+                                torch.tensor([0, 5, 0], dtype=torch.int32))
+    assert (out[0] == 0).all() and (out[2] == 0).all()
+    assert out[1].abs().max() > 0
+
+
+def test_scatter_and_gather_sentinels_match_reference():
+    """Out-of-range slot ids and write positions are padding: the port's
+    in-place helpers leave exactly what the reference's drop/fill modes
+    leave."""
+    cache = np.zeros((3, 8, 2, 4), np.float32)
+    rows = np.arange(2 * 5 * 2 * 4, dtype=np.float32).reshape(2, 5, 2, 4) + 1
+    sids = np.array([1, 3], np.int32)
+    t = tdec.scatter_prefill_rows(torch.from_numpy(cache.copy()),
+                                  torch.from_numpy(rows),
+                                  torch.from_numpy(sids))
+    j = jdec.scatter_prefill_rows(jnp.asarray(cache), jnp.asarray(rows),
+                                  jnp.asarray(sids))
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    tok = np.full((3, 2, 4), 7.0, np.float32)
+    pos = np.array([5, 8, 0], np.int32)
+    t2 = tdec.scatter_decode_token(t.clone(), torch.from_numpy(tok),
+                                   torch.from_numpy(pos))
+    j2 = jdec.scatter_decode_token(j, jnp.asarray(tok), jnp.asarray(pos))
+    np.testing.assert_array_equal(t2.numpy(), np.asarray(j2))
+    ids = np.array([2, 3, 0, 7], np.int32)
+    np.testing.assert_array_equal(
+        tdec.gather_slots(t2, torch.from_numpy(ids)).numpy(),
+        np.asarray(jdec.gather_slots(j2, jnp.asarray(ids))))
+    # Every slot padded: nothing changes.
+    t3 = tdec.scatter_prefill_rows(t2.clone(), torch.from_numpy(rows),
+                                   torch.tensor([3, 9], dtype=torch.int32))
+    np.testing.assert_array_equal(t3.numpy(), t2.numpy())
+
+
+def test_slot_sources_inverts_the_scatter():
+    src = tdec.slot_sources(torch.tensor([2, 4, 0, 4], dtype=torch.int32), 4)
+    assert src.tolist() == [2, -1, 0, -1]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_plain_matches_reference(case, dt):
+    b, sq, sk, h, kv, d, causal, off = case
+    rng = np.random.default_rng(hash(case) % 2**32)
+    q, k, v = (_rand(rng, (b, sq, h, d)), _rand(rng, (b, sk, kv, d)),
+               _rand(rng, (b, sk, kv, d)))
+    tol = DTYPES[dt][2]
+    (jq, tq), (jk, tk), (jv, tv) = _pair(q, dt), _pair(k, dt), _pair(v, dt)
+    kw = dict(causal=causal, q_offset=off)
+    out = tflash.flash_attention(tq, tk, tv, **kw)  # CPU: "chunked"
+    assert out.dtype == tq.dtype and out.shape == (b, sq, h, d)
+    kernel = jflash.flash_attention(jq, jk, jv, impl="pallas_interpret", **kw)
+    chunked = jflash.flash_attention(jq, jk, jv, impl="chunked", **kw)
+    oracle = jattn(jq.astype(jnp.float32), jk.astype(jnp.float32),
+                   jv.astype(jnp.float32), **kw)
+    for ref in (kernel, chunked, oracle):
+        np.testing.assert_allclose(_np(out), _np(ref), atol=tol, rtol=tol)
+    np.testing.assert_allclose(
+        _np(tflash.flash_attention(tq, tk, tv, impl="ref", **kw)),
+        _np(oracle), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("blocks", [(64, 64), (128, 256), (32, 128),
+                                    (48, 80)])
+def test_flash_block_shape_invariance(blocks):
+    """The chunked plain version gives the oracle's result at any chunking
+    (3e-5), as the reference's kernel does at any block shape."""
+    bq, bk = blocks
+    rng = np.random.default_rng(4)
+    q = _rand(rng, (1, 256, 6, 64))
+    k, v = _rand(rng, (1, 256, 2, 64)), _rand(rng, (1, 256, 2, 64))
+    out = tflash.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 impl="chunked", block_q=bq, block_k=bk)
+    jout = jflash.flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                  impl="pallas_interpret",
+                                  block_q=min(bq, 128), block_k=min(bk, 128))
+    ref = jattn(*(jnp.asarray(x) for x in (q, k, v)), causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=3e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=3e-5)
+
+
+def test_kernel_routes_refuse_cpu_tensors_and_fixed_tiles():
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_attention(q, q[:, :, :1], q[:, :, :1], impl="cuda")
+    with pytest.raises(ValueError, match="tile"):
+        tflash.flash_attention(q, q, q, impl="cuda", block_q=32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdec.decode_attention(q[:, 0], q, q, torch.ones(1, dtype=torch.int32),
+                              impl="cuda")
+
+
+@pytest.mark.parametrize("d,itemsize,tile", [(128, 2, 64), (128, 4, 32),
+                                             (256, 4, 16), (16, 4, 64)])
+def test_decode_tile_fits_shared_memory(d, itemsize, tile):
+    assert tdec.tile_rows(d, itemsize) == tile
+    assert 2 * tile * d * itemsize <= 32 * 1024
+
+
+def test_decode_plan_rule():
+    """About four blocks per SM, splits of whole tiles, never below one
+    tile, capacity (not lengths) decides; block_k overrides."""
+    # The serving arena: 16 slots x 8 KV heads = 128 groups, 577 rows.
+    assert tdec.plan(16, 8, 577, 128, 2, sm_count=132) == (64, 128, 5)
+    # One sequence, one KV head: split down to one tile per block.
+    assert tdec.plan(1, 1, 512, 128, 2, sm_count=132) == (64, 64, 8)
+    # Many groups already fill the card: one split.
+    assert tdec.plan(128, 8, 4096, 128, 2, sm_count=132) == (64, 4096, 1)
+    # A short cache stays one split.
+    assert tdec.plan(2, 2, 40, 64, 4, sm_count=132) == (64, 64, 1)
+    assert tdec.plan(2, 2, 300, 64, 4, sm_count=132, block_k=16) == (
+        64, 16, 19)
+    for args in [(3, 6, 300, 64, 2), (1, 4, 512, 128, 4), (16, 8, 577, 128, 2)]:
+        tile, rows, splits = tdec.plan(*args, sm_count=132)
+        s = args[2]
+        assert rows % tile == 0 and splits == -(-s // rows)
+        assert (splits - 1) * rows < s <= splits * rows
+    with pytest.raises(ValueError):
+        tdec.plan(1, 1, 0, 64, 2, sm_count=132)

@@ -1,8 +1,9 @@
-"""Tests that need an NVIDIA card: the ``fed_reduce`` CUDA kernel against its
-plain version, and a small federated round on the card against the same
-round on the CPU, with the hot-path sync sanitizer armed.  They skip where
-CUDA is not available.  This file imports no JAX, so it runs on a machine
-that has only PyTorch:
+"""Tests that need an NVIDIA card: the ``fed_reduce``, ``decode_attention``
+and ``flash_attention`` CUDA kernels against their plain versions, a small
+federated round on the card against the same round on the CPU, and a short
+continuous-batching serving run, both with the hot-path sync sanitizer
+armed.  They skip where CUDA is not available.  This file imports no JAX,
+so it runs on a machine that has only PyTorch:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -29,7 +30,14 @@ from repro_torch.core.simulation import (  # noqa: E402
     LogicalTier,
 )
 from repro_torch.data.synthetic_ctr import make_federated_ctr  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.core.serving import ContinuousBatchingEngine  # noqa: E402
+from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
+    decode_attention,
+    scatter_prefill_rows,
+)
 from repro_torch.kernels.fed_reduce.ops import fed_reduce  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.models import ctr  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -146,3 +154,141 @@ def test_round_on_card_matches_cpu_under_sync_sanitizer(cuda_device, wire,
     for k in gpu[0]:
         np.testing.assert_allclose(gpu[0][k], cpu[0][k], atol=2e-2,
                                    rtol=2e-2)
+
+
+# --------------------------------------------------------------------------
+# attention kernels: the reference test cases (tests/test_kernels.py:27,65),
+# the llama3.2-3b group of 3 and the serving shapes
+
+ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+DECODE_CASES = [(2, 256, 8, 2, 64), (1, 512, 4, 4, 128), (3, 300, 6, 1, 64),
+                (2, 64, 16, 16, 32), (3, 96, 6, 2, 16),
+                (16, 577, 24, 8, 128)]
+FLASH_CASES = [(2, 256, 256, 4, 2, 64, True, 0),
+               (1, 128, 384, 8, 8, 128, False, 0),
+               (2, 96, 200, 6, 2, 64, True, 104),
+               (1, 1, 256, 4, 1, 64, True, 255),
+               (1, 512, 512, 2, 1, 32, True, 0),
+               (2, 40, 40, 6, 2, 16, True, 0),
+               (2, 512, 512, 24, 8, 128, True, 0)]
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen).to(dtype).to(device)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_k", [None, 16, 512])
+def test_decode_kernel_matches_plain_and_repeats(cuda_device, case, dtype,
+                                                 block_k):
+    b, s, h, kv, d = case
+    gen = torch.Generator().manual_seed(b * s + h)
+    q = _randn(gen, (b, h, d), dtype, cuda_device)
+    kc = _randn(gen, (b, s, kv, d), dtype, cuda_device)
+    vc = _randn(gen, (b, s, kv, d), dtype, cuda_device)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, dtype=torch.int32)
+    lens[-1] = s
+    if b > 1:
+        lens[0] = 0  # an empty slot
+    lens = lens.to(cuda_device)
+    before = decode_attention.launches
+    a = decode_attention(q, kc, vc, lens, block_k=block_k)
+    a2 = decode_attention(q, kc, vc, lens, block_k=block_k)
+    plain = decode_attention(q, kc, vc, lens, impl="ref")
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert torch.equal(a, a2)  # split order fixed, no float atomics
+    assert (a[lens == 0] == 0).all()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(a.float(), plain.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("block_k", [16, 64, 512])
+def test_decode_kernel_ignores_stale_kv(cuda_device, block_k):
+    slots, s, h, kv, d, new_len = 4, 96, 24, 8, 128, 24
+    gen = torch.Generator().manual_seed(7)
+    old_k = _randn(gen, (slots, s, kv, d), torch.float32, cuda_device)
+    old_v = _randn(gen, (slots, s, kv, d), torch.float32, cuda_device)
+    rows = _randn(gen, (2, new_len, kv, d), torch.float32, cuda_device)
+    sid = torch.tensor([2], dtype=torch.int32, device=cuda_device)
+    dirty_k = scatter_prefill_rows(old_k.clone(), rows[:1], sid)
+    dirty_v = scatter_prefill_rows(old_v.clone(), rows[1:], sid)
+    clean_k, clean_v = dirty_k.clone(), dirty_v.clone()
+    clean_k[2, new_len:] = 0.0
+    clean_v[2, new_len:] = 0.0
+    lens = torch.tensor([s, 13, new_len, 0], dtype=torch.int32,
+                        device=cuda_device)
+    q = _randn(gen, (slots, h, d), torch.float32, cuda_device)
+    a = decode_attention(q, dirty_k, dirty_v, lens, block_k=block_k)
+    c = decode_attention(q, clean_k, clean_v, lens, block_k=block_k)
+    torch.testing.assert_close(a, c, atol=1e-6, rtol=0)
+    assert (a[3] == 0).all()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
+    b, sq, sk, h, kv, d, causal, off = case
+    gen = torch.Generator().manual_seed(sq + sk + h)
+    q = _randn(gen, (b, sq, h, d), dtype, cuda_device)
+    k = _randn(gen, (b, sk, kv, d), dtype, cuda_device)
+    v = _randn(gen, (b, sk, kv, d), dtype, cuda_device)
+    kw = dict(causal=causal, q_offset=off)
+    before = flash_attention.launches
+    a = flash_attention(q, k, v, **kw)
+    a2 = flash_attention(q, k, v, **kw)
+    plain = flash_attention(q, k, v, impl="ref", **kw)
+    chunked = flash_attention(q, k, v, impl="chunked", **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(a, a2)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(a.float(), plain.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(a.float(), chunked.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_attention_kernels_reject_what_they_do_not_take(cuda_device):
+    q = torch.zeros(1, 8, 4, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q[..., :32], q[..., :32], q[..., :32])
+    lens = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        decode_attention(q[:, 0, :, :32].contiguous(), q[..., :32].contiguous(),
+                         q[..., :32].contiguous(), lens.long())
+
+
+def test_serving_run_on_card_under_sync_sanitizer(cuda_device):
+    """A short continuous-batching run on the card with the sync sanitizer
+    armed: no host sync in ``step``, both kernels launched, and the tokens
+    equal the plain path's on the card (f32)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("llama3_2_3b", smoke=True),
+                              dtype="float32")
+    prompts = np.random.default_rng(0).integers(1, cfg.vocab_size, (5, 8))
+
+    def run(attn_impl, attention_impl):
+        c = dataclasses.replace(cfg, attention_impl=attention_impl)
+        eng = ContinuousBatchingEngine(c, slots=3, prompt_len=8,
+                                       decode_tokens=4, seed=0,
+                                       attn_impl=attn_impl,
+                                       device=cuda_device)
+        for i in range(5):
+            eng.submit(i, prompts[i], 0.0)
+        t = 0.0
+        with sanitizers.override(True):
+            while eng.has_work:
+                t += eng.step(t)
+        return {r.request_id: r.tokens for r in eng.report().records}
+
+    d0, f0 = decode_attention.launches, flash_attention.launches
+    kernel = run("auto", "auto")
+    assert decode_attention.launches > d0 and flash_attention.launches > f0
+    plain = run("ref", "einsum")
+    assert kernel == plain

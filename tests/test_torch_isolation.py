@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX, no reference package, no silent
 CPU fallback."""
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -34,7 +35,7 @@ def test_import_loads_no_jax_and_no_reference_package():
                          capture_output=True, text=True, check=True).stdout
     assert "BAD []" in out, out
     n = int(out.split("MODULES ")[1].split()[0])
-    assert n >= 20  # every ported module was imported
+    assert n >= 49  # every ported module was imported
 
 
 def test_chip_smoke_imports_no_jax():
@@ -45,12 +46,16 @@ def test_chip_smoke_imports_no_jax():
 
 def _entry_points():
     from repro_torch import resolve_device
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.devicemodel import GRADES
+    from repro_torch.core.serving import ContinuousBatchingEngine, init_arena
     from repro_torch.core.simulation import DeviceTier, LogicalTier
     from repro_torch.core.updates import UpdateBuffer
-    from repro_torch.models import ctr
+    from repro_torch.launch.serve import BatchedServer, stack_requests
+    from repro_torch.models import ctr, transformer
 
     fn = ctr.make_local_train_fn()
+    lm = get_config("llama3_2_3b", smoke=True)
     buf = UpdateBuffer.from_stacked({"w": torch.ones(2, 3)})
     state = buf.state_dict()
     state["device"] = "cuda"
@@ -64,12 +69,26 @@ def _entry_points():
         "DeviceTier": lambda: DeviceTier(fn, GRADES["High"]),
         "UpdateBuffer.from_state_dict": lambda: UpdateBuffer.from_state_dict(
             state),
+        "transformer.init": lambda: transformer.init(0, lm),
+        "transformer.init_cache": lambda: transformer.init_cache(lm, 1, 4),
+        "transformer.params_from_numpy": lambda: transformer.params_from_numpy(
+            {"ln_f": np.ones(4, np.float32), "layers": []},
+            dataclasses.replace(lm, scan_layers=False)),
+        "init_arena": lambda: init_arena(lm, 2, 4),
+        "ContinuousBatchingEngine": lambda: ContinuousBatchingEngine(
+            lm, slots=2, prompt_len=4, decode_tokens=2),
+        "BatchedServer": lambda: BatchedServer(
+            lm, batch_size=2, prompt_len=4, decode_tokens=2, max_len=7),
+        "stack_requests": lambda: stack_requests(np.ones((2, 4))),
     }
 
 
 @pytest.mark.parametrize("name", sorted([
     "resolve_device", "lr_init", "mlp_init", "params_from_numpy",
-    "LogicalTier", "DeviceTier", "UpdateBuffer.from_state_dict"]))
+    "LogicalTier", "DeviceTier", "UpdateBuffer.from_state_dict",
+    "transformer.init", "transformer.init_cache",
+    "transformer.params_from_numpy", "init_arena",
+    "ContinuousBatchingEngine", "BatchedServer", "stack_requests"]))
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device works")
@@ -93,6 +112,24 @@ def test_fed_reduce_kernel_refuses_cpu_tensors():
 
     with pytest.raises(ValueError, match="CUDA"):
         fed_reduce(torch.ones(3, 2), torch.ones(3), impl="cuda")
+
+
+def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors():
+    """On CPU tensors "auto" runs the plain versions and counts no launch;
+    an explicit request for the kernel raises instead of falling back."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    q = torch.randn(1, 8, 2, 16)
+    lens = torch.tensor([5], dtype=torch.int32)
+    d0, f0 = decode_attention.launches, flash_attention.launches
+    decode_attention(q[:, 0], q, q, lens)
+    flash_attention(q, q, q)
+    assert (decode_attention.launches, flash_attention.launches) == (d0, f0)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention(q[:, 0], q, q, lens, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q, impl="cuda")
 
 
 def test_chip_smoke_fails_without_the_repo(tmp_path):
