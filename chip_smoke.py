@@ -4,11 +4,12 @@
     python3 chip_smoke.py                 # from the root of a checkout
     python3 chip_smoke.py --profile       # where a federated round's time goes
     python3 chip_smoke.py --serving-only  # skip the federated-round phases
+    python3 chip_smoke.py --ssm-only      # the SSD kernel and SSM serving only
 
-All three kernels (``fed_reduce``, ``decode_attention``,
-``flash_attention``) are built first from ``src/repro_torch/csrc`` with
-``nvcc`` for ``sm_90a``, one compiler per source, all at once.  Six phases;
-any failure raises and the script exits non-zero:
+All four kernels (``fed_reduce``, ``decode_attention``, ``flash_attention``,
+``ssd_scan``) are built first from ``src/repro_torch/csrc`` with ``nvcc``
+for ``sm_90a``, one compiler per source, all at once.  Nine phases; any
+failure raises and the script exits non-zero:
 
 1. **Kernel.**  Runs ``fed_reduce`` on the card against its plain
    PyTorch version at every shape the slice's ``RoundPlan`` gives it: each
@@ -33,16 +34,17 @@ any failure raises and the script exits non-zero:
    1e-6 absolute and the round's update within 1e-3 relative; aggregation
    counts, arrival times and shelf bytes are identical.
 4. **Attention kernels.**  ``decode_attention`` and ``flash_attention`` on
-   the card against their plain versions on the card, at the serving run's
-   shapes (decode: q (16, 24, 128) vs a (16, 577, 8, 128) bf16 cache with
-   ragged lengths including 0 and 577; prefill: q (16, 512, 24, 128) vs
-   k/v (16, 512, 8, 128), causal) and at the reference test cases
-   (``tests/test_kernels.py`` FLASH_CASES, DECODE_CASES) in f32 and bf16:
-   error within 3e-5 (f32) / 2e-2 (bf16), exact zeros for empty slots,
-   stale-KV invariance of a reused slot (1e-6), bitwise repeatability.
-   Times the serving shapes with CUDA events: kernel, plain version,
-   ``F.scaled_dot_product_attention`` (GQA; a boolean length mask for
-   decode) as the library yardstick, and the bound.
+   the card against their plain versions on the card, at the serving runs'
+   shapes (llama3.2-3b decode: q (16, 24, 128) vs a (16, 577, 8, 128) bf16
+   cache with ragged lengths including 0 and 577; prefill: q (16, 512, 24,
+   128) vs k/v (16, 512, 8, 128), causal; zamba2-1.2b's shared block: q
+   (16, 32, 64) vs a (16, 577, 32, 64) cache and (16, 512, 32, 64) causal)
+   and at the reference test cases (``tests/test_kernels.py`` FLASH_CASES,
+   DECODE_CASES) in f32 and bf16: error within 3e-5 (f32) / 2e-2 (bf16),
+   exact zeros for empty slots, stale-KV invariance of a reused slot
+   (1e-6), bitwise repeatability.  Times the llama shapes with CUDA events:
+   kernel, plain version, ``F.scaled_dot_product_attention`` (GQA; a
+   boolean length mask for decode) as the library yardstick, and the bound.
 5. **Serving slice.**  llama3.2-3b at full width (28 layers, d_model 3072,
    24 query / 8 KV heads, vocab 128256 padded to 129024) in bf16, params
    from ``transformer.init`` with a seeded CUDA generator: a 64-request
@@ -62,10 +64,38 @@ any failure raises and the script exits non-zero:
    teacher-forced decode steps: last-position logits within 2e-2 relative
    in bf16 (greedy-token agreement printed, not gated), and within 1e-4
    with identical greedy tokens in f32.
+7. **SSD kernel.**  ``ssd_scan`` on the card against its chunked plain
+   version and the sequential oracle on the card, in f32 and with bf16 x,
+   B and C: the reference's SSD_CASES, both serving shapes (mamba2-1.3b
+   (16, 512, 64 heads of 64, 1 group, state 128) and zamba2-1.2b (state
+   64), chunk 128), a length that pads (500) and decays that overflow above
+   the diagonal (A = -64, dt = 0.1).  y and the state within 3e-4 absolute
+   in f32, y within 2e-2 relative in bf16, no NaN, two launches bitwise
+   equal.  Times the serving shapes (inputs cycled past the L2): kernel,
+   plain version and the bound; no PyTorch op computes the scan.
+8. **SSM serving.**  mamba2-1.3b and then zamba2-1.2b at full width in
+   bf16, params from each model's ``init`` with a seeded CUDA generator,
+   the same trace through ``BatchedServer(batch_size=16)`` (the continuous
+   engine's arena holds attention K/V only).  Per model: the report (equal
+   to the CPU run's with the smoke-size model), wall ms per prefill and
+   decode iteration, decode tokens/s, peak memory; launch counters zeroed
+   before and read after: one ``ssd_scan`` per layer per prefill (48 x 4,
+   38 x 4), and for zamba2 one ``flash_attention`` per shared-block
+   application per prefill (7 x 4) and one ``decode_attention`` per
+   application per decode step (7 x 256), at shapes phases 4 and 7
+   checked; a profiled window (1 prefill + 20 decode steps) gives the idle
+   share.
+9. **SSM cross-check.**  Each model at full width and 2 layers (zamba2 with
+   its shared block at layer 0): the kernel path against the plain path
+   (``block_prefill(impl="chunked")`` layer by layer; for zamba2's
+   attention ``attention_impl="einsum"``), both on the card, prefill then
+   16 teacher-forced decode steps: logits within 2e-2 relative in bf16
+   (agreement printed), within 1e-4 with identical greedy tokens in f32.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``, and before that one JSON
-line with the kernels' numbers.
+line with the kernels' numbers (each kernel's launches summed over the
+main paths that ran it, each path's counter read just after it).
 
 ``--profile`` runs the federated slice alone instead: per wire, round 1
 under ``torch.profiler`` (device busy time as the union of kernel
@@ -97,7 +127,7 @@ LEAF_WIDTHS = (256, 1)  # avazu_lr's w and b leaves
 BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor-core peak
 KERNEL_SOURCE = "src/repro_torch/csrc/fed_reduce.cu"
 KERNEL_REPLACES = "src/repro/kernels/fed_reduce/fed_reduce.py:41"
-KERNELS = ("fed_reduce", "decode_attention", "flash_attention")
+KERNELS = ("fed_reduce", "decode_attention", "flash_attention", "ssd_scan")
 PROFILE_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -584,9 +614,13 @@ SERVE_SEED = 0
 # FLASH_CASES (l.27).
 DECODE_SERVE = (SERVE_SLOTS, SERVE_MAX_LEN, 24, 8, 128)
 FLASH_SERVE = (SERVE_SLOTS, SERVE_PROMPT, SERVE_PROMPT, 24, 8, 128, True, 0)
-DECODE_CASES = [DECODE_SERVE, (2, 256, 8, 2, 64), (1, 512, 4, 4, 128),
-                (3, 300, 6, 1, 64), (2, 64, 16, 16, 32)]
-FLASH_CASES = [FLASH_SERVE, (2, 256, 256, 4, 2, 64, True, 0),
+# zamba2-1.2b's shared attention block at the SSM serving run's shapes: 32
+# heads of 64, one query head per KV head.
+DECODE_ZAMBA = (SERVE_SLOTS, SERVE_MAX_LEN, 32, 32, 64)
+FLASH_ZAMBA = (SERVE_SLOTS, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 64, True, 0)
+DECODE_CASES = [DECODE_SERVE, DECODE_ZAMBA, (2, 256, 8, 2, 64),
+                (1, 512, 4, 4, 128), (3, 300, 6, 1, 64), (2, 64, 16, 16, 32)]
+FLASH_CASES = [FLASH_SERVE, FLASH_ZAMBA, (2, 256, 256, 4, 2, 64, True, 0),
                (1, 128, 384, 8, 8, 128, False, 0),
                (2, 96, 200, 6, 2, 64, True, 104),
                (1, 1, 256, 4, 1, 64, True, 255),
@@ -625,7 +659,16 @@ def _copies(nbytes: int) -> int:
     return max(1, min(16, math.ceil(3 * L2_BYTES / nbytes)))
 
 
-def decode_cases(dev) -> tuple[dict, set]:
+def _timed_entry(name, source, replaces, errs, serve_row) -> dict:
+    """A kernel's JSON entry: its numbers at the main path's shape (None
+    where that shape was not run, as under ``--ssm-only``)."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": max(errs),
+            **{k: (serve_row or {}).get(k) for k in keys}}
+
+
+def decode_cases(dev, cases=DECODE_CASES) -> tuple[dict, set]:
     import torch
     import torch.nn.functional as F
 
@@ -634,7 +677,7 @@ def decode_cases(dev) -> tuple[dict, set]:
 
     gen = torch.Generator().manual_seed(1)
     checked, errs, serve_row = set(), [], None
-    for case in DECODE_CASES:
+    for case in cases:
         b, s, h, kv, d = case
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((b, h, d), generator=gen).to(dtype).to(dev)
@@ -705,12 +748,8 @@ def decode_cases(dev) -> tuple[dict, set]:
                 serve_row = row
                 del ks, vs, kts, vts
             log(json.dumps({"decode_attention_case": row}))
-    entry = {"name": "decode_attention", "route": "cuda",
-             "source": DECODE_SOURCE, "replaces": DECODE_REPLACES,
-             "launches": 0, "max_abs_err": max(errs),
-             **{k: serve_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")}}
-    return entry, checked
+    return (_timed_entry("decode_attention", DECODE_SOURCE, DECODE_REPLACES,
+                         errs, serve_row), checked)
 
 
 def causal_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
@@ -721,7 +760,7 @@ def causal_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
     return sum(min(sk, q_offset + i + 1) for i in range(sq))
 
 
-def flash_cases(dev) -> tuple[dict, set]:
+def flash_cases(dev, cases=FLASH_CASES) -> tuple[dict, set]:
     import torch
     import torch.nn.functional as F
 
@@ -729,7 +768,7 @@ def flash_cases(dev) -> tuple[dict, set]:
 
     gen = torch.Generator().manual_seed(2)
     checked, errs, serve_row = set(), [], None
-    for case in FLASH_CASES:
+    for case in cases:
         b, sq, sk, h, kv, d, causal, off = case
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((b, sq, h, d), generator=gen).to(dtype).to(dev)
@@ -769,12 +808,8 @@ def flash_cases(dev) -> tuple[dict, set]:
                            else "operations", bytes=moved, flops=ops)
                 serve_row = row
             log(json.dumps({"flash_attention_case": row}))
-    entry = {"name": "flash_attention", "route": "cuda",
-             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-             "launches": 0, "max_abs_err": max(errs),
-             **{k: serve_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")}}
-    return entry, checked
+    return (_timed_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
+                         errs, serve_row), checked)
 
 
 # --------------------------------------------------------------------------
@@ -840,12 +875,22 @@ def cpu_reports() -> dict:
     clock = VirtualClock()
     serve.run_trace(ContinuousServer(eng, clock), clock=clock,
                     **_trace_kw(cfg))
+    return {"continuous": eng.report(), "fixed": fixed_cpu_report(SERVE_ARCH)}
+
+
+def fixed_cpu_report(arch: str):
+    """The trace's fixed-batch run on the CPU with ``arch``'s smoke-size
+    model."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config(arch, smoke=True)
     fixed = serve.BatchedServer(cfg, batch_size=SERVE_SLOTS,
                                 prompt_len=SERVE_PROMPT,
                                 decode_tokens=SERVE_DECODE,
                                 max_len=SERVE_MAX_LEN, device="cpu")
     serve.run_trace(fixed, **_trace_kw(cfg))
-    return {"continuous": eng.report(), "fixed": fixed.report()}
+    return fixed.report()
 
 
 def kernel_time(prof) -> tuple[float, int, list]:
@@ -873,14 +918,29 @@ def kernel_time(prof) -> tuple[float, int, list]:
     return busy / 1e3, len(kern), rows
 
 
+def profile_window(fn, steps: int) -> dict:
+    """``fn()`` under ``torch.profiler`` (CUDA activity only): its host wall,
+    the device's busy time and idle share, and the kernels that took it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) * 1e3
+    busy, n, by_name = kernel_time(prof)
+    return {"steps": steps, "wall_ms": wall, "device_busy_ms": busy,
+            "kernels": n, "device_idle_share": 1.0 - busy / wall,
+            "top_kernels_ms": by_name[:8]}
+
+
 def serving_profile(cfg, params, prompts, card: str) -> dict:
     """Device idle share of the continuous engine: one step admitting three
     requests (the trace's usual occupancy: prefill + decode), then 20
     decode-only steps, each window under ``torch.profiler`` (CUDA activity
     only) with its host wall."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.serving import ContinuousBatchingEngine
 
     eng = ContinuousBatchingEngine(cfg, slots=SERVE_SLOTS,
@@ -890,20 +950,13 @@ def serving_profile(cfg, params, prompts, card: str) -> dict:
                                    device=params["ln_f"].device)
     for i in range(3):
         eng.submit(i, prompts[i], 0.0)
-    out, t = {}, 0.0
-    for window, steps in (("prefill_step", 1), ("decode_steps", 20)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            w0 = time.perf_counter()
-            for _ in range(steps):
-                t += eng.step(t)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - w0) * 1e3
-        busy, n, by_name = kernel_time(prof)
-        out[window] = {"steps": steps, "wall_ms": wall,
-                       "device_busy_ms": busy, "kernels": n,
-                       "device_idle_share": 1.0 - busy / wall,
-                       "top_kernels_ms": by_name[:8]}
+    out, clock = {}, [0.0]
+
+    def steps(k):
+        for _ in range(k):
+            clock[0] += eng.step(clock[0])
+    for window, k in (("prefill_step", 1), ("decode_steps", 20)):
+        out[window] = profile_window(lambda: steps(k), k)
     log(json.dumps({"serving_profile": out, "card": card}))
     del eng
     return out
@@ -1057,56 +1110,439 @@ def _leaves(tree):
         yield tree
 
 
-def serving_cross_check(params, cfg, prompts, steps: int = 16) -> dict:
-    """The kernel path against the plain path at full width and 2 layers,
-    teacher-forced: both paths get the plain path's greedy token."""
+def compare_paths(name: str, kernel, plain, vocab: int, dtype: str,
+                  tol: float, steps: int = 16) -> dict:
+    """Teacher-forced comparison of two serving paths at full width and 2
+    layers.  ``kernel`` and ``plain`` are ``(prefill() -> (logits, cache),
+    decode(token, cache) -> (logits, cache))``; both paths get the plain
+    path's greedy token.  Last-position logits must agree within ``tol``
+    relative, and in f32 every greedy token must be equal."""
+    import torch
+
+    lk, ck = kernel[0]()
+    lp, cp = plain[0]()
+    worst, agree, total = 0.0, 0, 0
+    for step in range(steps + 1):
+        worst = max(worst, float((lk - lp).abs().max() / lp.abs().max()))
+        gk, gp = lk[:, :vocab].argmax(-1), lp[:, :vocab].argmax(-1)
+        agree += int((gk == gp).sum())
+        total += gk.numel()
+        if step == steps:
+            break
+        nxt = gp.to(torch.int32)
+        lk, ck = kernel[1](nxt, ck)
+        lp, cp = plain[1](nxt, cp)
+    rate = agree / total
+    log(f"{name} 2 layers at full width: kernel vs plain max relative "
+        f"logit diff {worst:.3e} (tol {tol}), greedy tokens agree "
+        f"{agree}/{total} ({rate:.4f})")
+    if not worst <= tol:
+        raise AssertionError(f"{name} failed")
+    if dtype == "float32" and agree != total:
+        raise AssertionError(f"{name}: greedy tokens differ")
+    return {"max_rel_logit_diff": worst, "tol": tol,
+            "greedy_agreement": rate, "steps": steps}
+
+
+def _float_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _float_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_float_tree(v) for v in tree]
+    return tree.float()
+
+
+CROSS_DTYPES = (("bfloat16", 2e-2), ("float32", 1e-4))
+
+
+def serving_cross_check(params, cfg, prompts) -> dict:
+    """The kernel path against the plain path (``attention_impl="einsum"``)
+    at full width and 2 layers."""
     import dataclasses
 
     import torch
 
     from repro_torch.models import transformer
 
-    two = {"embed": params["embed"], "ln_f": params["ln_f"],
-           "layers": params["layers"][:2]}
+    two = {**params, "layers": params["layers"][:2]}
     toks = torch.as_tensor(prompts[:SERVE_SLOTS], dtype=torch.int32,
                            device=params["ln_f"].device)
     out = {}
-    for dtype, tol in (("bfloat16", 2e-2), ("float32", 1e-4)):
+    for dtype, tol in CROSS_DTYPES:
+        p = two if dtype == "bfloat16" else _float_tree(two)
+        paths = []
+        for impl in ("auto", "einsum"):
+            c = dataclasses.replace(cfg, num_layers=2, dtype=dtype,
+                                    attention_impl=impl)
+            paths.append((
+                lambda c=c: transformer.prefill(p, toks, c, SERVE_MAX_LEN),
+                lambda t, cache, c=c: transformer.decode_step(p, t, c,
+                                                              cache)))
+        out[dtype] = compare_paths(f"serving cross-check [{dtype}]", *paths,
+                                   cfg.vocab_size, dtype, tol)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 7: the SSD scan kernel against its plain versions
+
+SSM_ARCHS = ("mamba2_1_3b", "zamba2_1_2b")
+# (b, l, h, p, g, n, chunk): tests/test_kernels.py's SSD_CASES (l.186), both
+# serving shapes (16 prompts of 512 at mamba2-1.3b's and zamba2-1.2b's
+# widths), a length that pads to the chunk, and decays that overflow above
+# the diagonal (A = -64, dt = 0.1).
+SSD_CASES = [(2, 128, 4, 32, 1, 16, 32), (1, 256, 8, 64, 2, 64, 64),
+             (2, 64, 2, 16, 2, 8, 16), (1, 128, 4, 64, 1, 128, 128)]
+SSD_MAMBA = (SERVE_SLOTS, SERVE_PROMPT, 64, 64, 1, 128, 128)
+SSD_ZAMBA = (SERVE_SLOTS, SERVE_PROMPT, 64, 64, 1, 64, 128)
+SSD_RAGGED = (2, 500, 64, 64, 1, 128, 128)
+SSD_OVERFLOW = (2, 256, 8, 64, 1, 128, 128)
+SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:30"
+
+
+def ssd_inputs(gen, case, dtype, dev, *, overflow: bool = False):
+    """x, dt, A, B, C drawn as the reference's tests draw them (x, B and C
+    in ``dtype``; dt and A f32, as the model passes them)."""
+    import torch
+
+    b, l, h, p, g, n, _ = case
+    x = (torch.randn((b, l, h, p), generator=gen) * 0.5).to(dtype)
+    if overflow:
+        dt, A = torch.full((b, l, h), 0.1), torch.full((h,), -64.0)
+    else:
+        dt = torch.randn((b, l, h), generator=gen).abs() * 0.1 + 0.01
+        A = -torch.randn(h, generator=gen).abs() - 0.1
+    B = (torch.randn((b, l, g, n), generator=gen) * 0.3).to(dtype)
+    C = (torch.randn((b, l, g, n), generator=gen) * 0.3).to(dtype)
+    return [t.to(dev) for t in (x, dt, A, B, C)]
+
+
+def ssd_bound(case, itemsize: int, flops_per_s: float) -> dict:
+    """Bytes the scan must move (x, dt, A, B, C read once; y and the f32
+    state written once) and the operations it must do: per head and chunk,
+    C.B and M.x over the causal triangle, C.S^T and the state update."""
+    b, l, h, p, g, n, q = case
+    moved = (2 * b * l * h * p * itemsize + 4 * b * l * h + 4 * h
+             + 2 * b * l * g * n * itemsize + 4 * b * h * p * n)
+    chunks = -(-l // q)
+    ops = 2 * b * h * chunks * (q * (q + 1) // 2 * (n + p) + 2 * q * p * n)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / flops_per_s * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": moved, "flops": ops}
+
+
+def ssd_cases(dev) -> tuple[dict, set]:
+    """``ssd_scan`` on the card against its chunked plain version and the
+    sequential oracle on the card: y and the state within 3e-4 absolute in
+    f32 (tests/test_kernels.py:207), y within 2e-2 relative in bf16, no
+    NaN, two launches bitwise equal.  The serving shapes are timed."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    gen = torch.Generator().manual_seed(3)
+    cases = [(c, False) for c in SSD_CASES + [SSD_MAMBA, SSD_ZAMBA,
+                                               SSD_RAGGED]]
+    cases.append((SSD_OVERFLOW, True))
+    checked, errs, main_row = set(), [], None
+    for case, overflow in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(gen, case, dtype, dev, overflow=overflow)
+            q = case[-1]
+            y, s = ssd_scan(*args, chunk=q, impl="cuda")
+            y2, s2 = ssd_scan(*args, chunk=q, impl="cuda")
+            name = (f"ssd_scan{case}{' overflow' if overflow else ''} "
+                    f"{_dtype_name(dtype)}")
+            finite = bool(torch.isfinite(y.float()).all()
+                          and torch.isfinite(s).all())
+            if not finite:
+                raise AssertionError(f"{name} gave a non-finite value")
+            bitwise = bool(torch.equal(y, y2) and torch.equal(s, s2))
+            if not bitwise:
+                raise AssertionError(f"{name} is not repeatable")
+            row = {"case": list(case), "dtype": _dtype_name(dtype),
+                   "overflow": overflow, "bitwise_repeatable": bitwise,
+                   "finite": finite}
+            for plain in ("chunked", "ref"):
+                py, ps = ssd_scan(*args, chunk=q, impl=plain)
+                torch.cuda.synchronize()
+                ey = (y.float() - py.float()).abs()
+                es = float((s - ps).abs().max())
+                if dtype == torch.float32:
+                    ok = float(ey.max()) <= 3e-4 and es <= 3e-4
+                else:
+                    ok = bool((ey <= 2e-2 * (1 + py.float().abs())).all()
+                              and es <= 3e-4)
+                if not ok:
+                    raise AssertionError(
+                        f"{name} disagrees with its {plain} version: y "
+                        f"{float(ey.max()):.3e}, state {es:.3e}")
+                row[f"max_abs_err_y_{plain}"] = float(ey.max())
+                row[f"max_abs_err_state_{plain}"] = es
+                errs += [float(ey.max()), es]
+            checked.add(("ssd", case, _dtype_name(dtype)))
+            if case in (SSD_MAMBA, SSD_ZAMBA) and dtype == torch.bfloat16:
+                nbytes = sum(t.numel() * t.element_size() for t in args)
+                n = _copies(nbytes)
+                sets = [[t.clone() for t in args] for _ in range(n)]
+                row["ms"] = time_ms(lambda i: ssd_scan(
+                    *sets[i % n], chunk=q, impl="cuda"), iters=20)
+                row["plain_ms"] = time_ms(lambda i: ssd_scan(
+                    *sets[i % n], chunk=q, impl="chunked"), iters=5)
+                row["library_ms"] = None  # no PyTorch op computes the scan
+                row.update(ssd_bound(case, 2, BF16_FLOPS))
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                if case == SSD_MAMBA:
+                    main_row = row
+                del sets
+            log(json.dumps({"ssd_scan_case": row}))
+    return (_timed_entry("ssd_scan", SSD_SOURCE, SSD_REPLACES, errs,
+                         main_row), checked)
+
+
+# --------------------------------------------------------------------------
+# phase 8/9: fixed-batch serving of the SSM and hybrid models
+
+def _ssm_shapes(cfg, batch: int) -> set:
+    """(kernel, shape, dtype) of every launch a prefill of ``batch`` prompts
+    and its decode steps give the kernels."""
+    from repro_torch.models import hybrid
+
+    q = min(cfg.ssm_chunk, SERVE_PROMPT)
+    out = {("ssd", (batch, SERVE_PROMPT, cfg.ssm_heads, cfg.ssm_head_dim,
+                    cfg.ssm_groups, cfg.ssm_state, q), cfg.dtype)}
+    if cfg.family == "hybrid" and hybrid._attn_positions(cfg):
+        out.add(("flash", (batch, SERVE_PROMPT, SERVE_PROMPT, cfg.num_heads,
+                           cfg.num_kv_heads, cfg.head_dim, True, 0),
+                 cfg.dtype))
+        out.add(("decode", (batch, SERVE_MAX_LEN, cfg.num_heads,
+                            cfg.num_kv_heads, cfg.head_dim), cfg.dtype))
+    return out
+
+
+def ssm_profile(api, cfg, params, prompts, card: str) -> dict:
+    """Device idle share of fixed-batch serving: one prefill of 16 prompts,
+    then 20 greedy decode steps, each window profiled."""
+    import torch
+
+    toks = torch.as_tensor(prompts[:SERVE_SLOTS], dtype=torch.int32,
+                           device=params["ln_f"].device)
+    state = {}
+
+    def greedy(logits):
+        state["tok"] = logits[:, : cfg.vocab_size].argmax(-1).to(torch.int32)
+
+    def prefill():
+        logits, state["cache"] = api.prefill(params, toks, cfg,
+                                             SERVE_MAX_LEN)
+        greedy(logits)
+
+    def decode():
+        for _ in range(20):
+            logits, state["cache"] = api.decode_step(
+                params, state["tok"], cfg, state["cache"])
+            greedy(logits)
+    out = {"prefill": profile_window(prefill, 1),
+           "decode_steps": profile_window(decode, 20)}
+    log(json.dumps({"ssm_serving_profile": out, "arch": cfg.name,
+                    "card": card}))
+    return out
+
+
+def ssm_serving_phase(dev, arch: str, checked: set, card: str) -> dict:
+    """``arch`` at full width in bf16 through ``BatchedServer(16)`` on the
+    serving trace: the report equals the CPU run's, the launch counters
+    read one ``ssd_scan`` per layer per prefill (and, for the hybrid, one
+    ``flash_attention`` per shared-block application per prefill and one
+    ``decode_attention`` per application per decode step) at shapes phases
+    4 and 7 checked."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import hybrid
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config(arch)
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(SERVE_SEED),
+                      cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{cfg.name}: {n_params} params ({n_params * 2 / 1e9:.2f} GB bf16) "
+        f"initialized on the card in {time.perf_counter() - t0:.1f}s")
+    apps = len(hybrid._attn_positions(cfg)) if cfg.family == "hybrid" else 0
+    cpu = fixed_cpu_report(arch).summary(30.0)
+    timer = WallTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.launches = 0  # zeroed just before the main path ...
+    decode_attention.launches = flash_attention.launches = 0
+    w0 = time.perf_counter()
+    server = serve.BatchedServer(
+        cfg, batch_size=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
+        decode_tokens=SERVE_DECODE, max_len=SERVE_MAX_LEN, params=params,
+        device=dev)
+    server.api = dataclasses.replace(
+        server.api, prefill=timer.wrap("prefill", server.api.prefill),
+        decode_step=timer.wrap("decode", server.api.decode_step))
+    serve.run_trace(server, **_trace_kw(cfg))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - w0
+    launches = {"ssd_scan": ssd_scan.launches,
+                "flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}  # ... read
+    rep = server.report()
+    n_prefill = len(server.metrics)
+    n_decode = n_prefill * SERVE_DECODE
+    expected = {"ssd_scan": cfg.num_layers * n_prefill,
+                "flash_attention": apps * n_prefill,
+                "decode_attention": apps * n_decode}
+    peak = torch.cuda.max_memory_allocated()
+    s = rep.summary(30.0)
+    if s != cpu:
+        raise AssertionError(f"[{arch}] the card's virtual-time report {s} "
+                             f"differs from the CPU run's {cpu}")
+    if launches != expected or launches["ssd_scan"] <= 0:
+        raise AssertionError(f"[{arch}] launches {launches}, expected "
+                             f"{expected}")
+    shapes = set().union(*(_ssm_shapes(cfg, m.batch_size)
+                           for m in server.metrics))
+    if not shapes <= checked:
+        raise AssertionError(f"[{arch}] launched shapes the kernel phases "
+                             f"did not check: {sorted(shapes - checked)}")
+    toks = {r.request_id: r.tokens for r in rep.records}
+    if len(rep.finished()) != SERVE_REQUESTS or any(
+            len(t) != SERVE_DECODE + 1 for t in toks.values()):
+        raise AssertionError(f"[{arch}] not every request finished")
+    pre, dec = timer.ms["prefill"], timer.ms["decode"]
+    tokens = sum(m.tokens_decoded for m in server.metrics)
+    res = {"arch": cfg.name, "mode": "fixed", "report": s,
+           "prefill_calls": n_prefill, "decode_iterations": n_decode,
+           "wall_ms_per_prefill": sum(pre) / len(pre),
+           "wall_ms_per_decode_iteration": sum(dec) / len(dec),
+           "decode_tokens_per_s": tokens / (sum(dec) / 1e3),
+           "peak_memory_gb": peak / 1e9, "wall_s": wall_s,
+           "launches": launches, "expected_launches": expected,
+           "params": n_params, "card": card}
+    log(json.dumps({"ssm_serving": res}))
+    log(f"  {cfg.name:12s} fixed p50={s['p50_latency_s'] * 1e3:.1f}ms "
+        f"p99={s['p99_latency_s'] * 1e3:.1f}ms "
+        f"goodput={s['goodput_rps']:.4f} req/s (= CPU run) | "
+        f"{res['wall_ms_per_prefill']:.1f} ms/prefill, "
+        f"{res['wall_ms_per_decode_iteration']:.2f} ms/decode iteration, "
+        f"{res['decode_tokens_per_s']:.0f} decode tok/s, peak "
+        f"{peak / 1e9:.2f} GB; launches {launches} = expected")
+    prompts = np.random.default_rng(SERVE_SEED).integers(
+        1, cfg.vocab_size, size=(SERVE_REQUESTS, SERVE_PROMPT))
+    res["profile"] = ssm_profile(api, cfg, params, prompts, card)
+    return {"params": params, "cfg": cfg, "prompts": prompts,
+            "results": res, "launches": launches}
+
+
+def ssm_plain_prefill(p, toks, cfg):
+    """The plain path of a prefill, layer by layer: the model's own blocks
+    with the chunked scan (``block_prefill(impl="chunked")``) and, for the
+    hybrid, the shared block's plain attention (``cfg.attention_impl``)."""
+    from repro_torch.models import hybrid, mamba2
+    from repro_torch.models.layers import embed_apply, rmsnorm, unembed_apply
+
+    x = embed_apply(p["embed"], toks)
+    if cfg.family == "ssm":
+        caches = []
+        for lp in p["layers"]:
+            x, c = mamba2.block_prefill(lp, x, cfg, impl="chunked")
+            caches.append(c)
+    else:
+        positions = hybrid._positions(x)
+        attn_at = set(hybrid._attn_positions(cfg))
+        caches = {"mamba": [], "attn": []}
+        for i, lp in enumerate(p["mamba_layers"]):
+            if i in attn_at:
+                x, ac = hybrid.attention_prefill(p["shared_attn"], x, cfg,
+                                                 positions, SERVE_MAX_LEN)
+                caches["attn"].append(ac)
+            x, mc = mamba2.block_prefill(lp, x, cfg, impl="chunked")
+            caches["mamba"].append(mc)
+    x = rmsnorm(x, p["ln_f"], cfg.norm_eps)
+    return unembed_apply(p["embed"], x[:, -1]), caches
+
+
+def ssm_cross_check(params, cfg, prompts) -> dict:
+    """The kernel path against the plain path at full width and 2 layers
+    (zamba2: its shared block applied at layer 0).  The kernel path's
+    prefill must launch one ``ssd_scan`` per layer, the plain path's
+    none."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.models.registry import get_model
+
+    api = get_model(cfg)
+    layers = "layers" if cfg.family == "ssm" else "mamba_layers"
+    two = {**params, layers: params[layers][:2]}
+    toks = torch.as_tensor(prompts[:SERVE_SLOTS], dtype=torch.int32,
+                           device=params["ln_f"].device)
+    out, launched = {}, []
+
+    def kernel_prefill(p, c):
+        before = ssd_scan.launches
+        res = api.prefill(p, toks, c, SERVE_MAX_LEN)
+        launched.append(ssd_scan.launches - before)
+        return res
+
+    def plain_prefill(p, c):
+        before = ssd_scan.launches
+        res = ssm_plain_prefill(p, toks, c)
+        launched.append(ssd_scan.launches - before)
+        return res
+    for dtype, tol in CROSS_DTYPES:
+        p = two if dtype == "bfloat16" else _float_tree(two)
         cfg2 = dataclasses.replace(cfg, num_layers=2, dtype=dtype)
-        p = two if dtype == "bfloat16" else {
-            "embed": {k: v.float() for k, v in two["embed"].items()},
-            "ln_f": two["ln_f"].float(),
-            "layers": [{k: ({kk: vv.float() for kk, vv in v.items()}
-                            if isinstance(v, dict) else v.float())
-                        for k, v in lp.items()} for lp in two["layers"]]}
         cfg_plain = dataclasses.replace(cfg2, attention_impl="einsum")
-        lk, ck = transformer.prefill(p, toks, cfg2, SERVE_MAX_LEN)
-        lp_, cp = transformer.prefill(p, toks, cfg_plain, SERVE_MAX_LEN)
-        worst, agree, total = 0.0, 0, 0
-        for step in range(steps + 1):
-            rel = float((lk - lp_).abs().max() / lp_.abs().max())
-            worst = max(worst, rel)
-            gk = lk[:, : cfg.vocab_size].argmax(-1)
-            gp = lp_[:, : cfg.vocab_size].argmax(-1)
-            agree += int((gk == gp).sum())
-            total += gk.numel()
-            if step == steps:
-                break
-            nxt = gp.to(torch.int32)
-            lk, ck = transformer.decode_step(p, nxt, cfg2, ck)
-            lp_, cp = transformer.decode_step(p, nxt, cfg_plain, cp)
-        rate = agree / total
-        out[dtype] = {"max_rel_logit_diff": worst, "tol": tol,
-                      "greedy_agreement": rate, "steps": steps}
-        log(f"serving cross-check [{dtype}] 2 layers at full width: kernel "
-            f"vs plain max relative logit diff {worst:.3e} (tol {tol}), "
-            f"greedy tokens agree {agree}/{total} ({rate:.4f})")
-        if not worst <= tol:
-            raise AssertionError(f"serving cross-check [{dtype}] failed")
-        if dtype == "float32" and agree != total:
-            raise AssertionError("serving cross-check [float32]: greedy "
-                                 "tokens differ")
-        del ck, cp, lk, lp_
+        out[dtype] = compare_paths(
+            f"ssm cross-check [{cfg.name} {dtype}]",
+            (lambda: kernel_prefill(p, cfg2),
+             lambda t, cache: api.decode_step(p, t, cfg2, cache)),
+            (lambda: plain_prefill(p, cfg_plain),
+             lambda t, cache: api.decode_step(p, t, cfg_plain, cache)),
+            cfg.vocab_size, dtype, tol)
+        if launched[-2:] != [2, 0]:
+            raise AssertionError(f"[{cfg.name}] ssd_scan launches in the "
+                                 f"kernel and plain prefills: {launched}")
+    return out
+
+
+def ssm_phases(dev, checked: set, card: str) -> dict:
+    """Phases 8 and 9 for each SSM architecture; returns the launches read
+    on each model's main path."""
+    import torch
+
+    out = {}
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        srv = ssm_serving_phase(dev, arch, checked, card)
+        log(f"ssm serving phase [{arch}] passed in "
+            f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        ssm_cross_check(srv["params"], srv["cfg"], srv["prompts"])
+        log(f"ssm cross-check [{arch}] passed in "
+            f"{time.perf_counter() - t0:.1f}s")
+        out[arch] = srv["launches"]
+        del srv
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1133,6 +1569,9 @@ def main(argv=None) -> int:
                         "serving phases")
     p.add_argument("--serving-only", action="store_true",
                    help="skip the federated-round phases (1-3)")
+    p.add_argument("--ssm-only", action="store_true",
+                   help="build, then run the SSD kernel phase (7), zamba2's "
+                        "attention shapes and the SSM phases (8-9) only")
     p.add_argument("--profile", action="store_true",
                    help="profile the federated slice's rounds 1 and 2 "
                         "instead")
@@ -1168,7 +1607,20 @@ def main(argv=None) -> int:
         return 0
 
     entries = []
-    if not args.serving_only:
+    if args.ssm_only:
+        t0 = time.perf_counter()
+        ssd_entry, ssd_checked = ssd_cases(dev)
+        _, dec_checked = decode_cases(dev, [DECODE_ZAMBA])
+        _, flash_checked = flash_cases(dev, [FLASH_ZAMBA])
+        log(f"ssd and zamba2 attention kernel phases passed in "
+            f"{time.perf_counter() - t0:.1f}s")
+        ssd_entry["launches"] = None
+        if not args.kernel_only:
+            ssm = ssm_phases(dev, ssd_checked | dec_checked | flash_checked,
+                             card)
+            ssd_entry["launches"] = sum(v["ssd_scan"] for v in ssm.values())
+        entries.append(ssd_entry)
+    if not (args.serving_only or args.ssm_only):
         _, _, plan = calibrated_plan(
             grade_specs(args.devices, args.benchmarking_devices))
         rows = chunk_rows(plan, COHORT)
@@ -1188,22 +1640,36 @@ def main(argv=None) -> int:
             log(f"cross-check phase passed in "
                 f"{time.perf_counter() - t0:.1f}s")
         entries.append(entry)
-    t0 = time.perf_counter()
-    dec_entry, dec_checked = decode_cases(dev)
-    flash_entry, flash_checked = flash_cases(dev)
-    log(f"attention kernel phase passed in {time.perf_counter() - t0:.1f}s")
-    dec_entry["launches"] = flash_entry["launches"] = None
-    if not args.kernel_only:
+    if not args.ssm_only:
         t0 = time.perf_counter()
-        srv = serving_phase(dev, dec_checked | flash_checked, card)
-        dec_entry["launches"] = srv["launches"]["decode_attention"]
-        flash_entry["launches"] = srv["launches"]["flash_attention"]
-        log(f"serving phase passed in {time.perf_counter() - t0:.1f}s")
+        dec_entry, dec_checked = decode_cases(dev)
+        flash_entry, flash_checked = flash_cases(dev)
+        log(f"attention kernel phase passed in "
+            f"{time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
-        serving_cross_check(srv["params"], srv["cfg"], srv["prompts"])
-        log(f"serving cross-check passed in {time.perf_counter() - t0:.1f}s")
-        del srv
-    entries += [dec_entry, flash_entry]
+        ssd_entry, ssd_checked = ssd_cases(dev)
+        log(f"ssd kernel phase passed in {time.perf_counter() - t0:.1f}s")
+        for e in (dec_entry, flash_entry, ssd_entry):
+            e["launches"] = None
+        if not args.kernel_only:
+            t0 = time.perf_counter()
+            srv = serving_phase(dev, dec_checked | flash_checked, card)
+            log(f"serving phase passed in {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            serving_cross_check(srv["params"], srv["cfg"], srv["prompts"])
+            log(f"serving cross-check passed in "
+                f"{time.perf_counter() - t0:.1f}s")
+            llama = srv["launches"]
+            del srv
+            torch.cuda.empty_cache()
+            ssm = ssm_phases(dev, dec_checked | flash_checked | ssd_checked,
+                             card)
+            # Each path's own count, read just after it ran, summed.
+            for e in (dec_entry, flash_entry):
+                e["launches"] = llama[e["name"]] + sum(
+                    v[e["name"]] for v in ssm.values())
+            ssd_entry["launches"] = sum(v["ssd_scan"] for v in ssm.values())
+        entries += [dec_entry, flash_entry, ssd_entry]
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

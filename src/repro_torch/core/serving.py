@@ -348,6 +348,12 @@ class ContinuousBatchingEngine:
         if not simulate_only:
             if cfg is None:
                 raise ValueError("cfg required unless simulate_only=True")
+            if cfg.family in ("ssm", "hybrid"):
+                # The arena holds attention K/V only (as in the reference,
+                # which fails at its first step for these families).
+                raise ValueError(
+                    f"family {cfg.family!r} has no attention arena: serve "
+                    f"{cfg.name} with launch.serve.BatchedServer")
             api = get_model(cfg)
             if api.prefill is None or api.decode_step is None:
                 raise ValueError(f"family {cfg.family!r} has no serving path")

@@ -5,7 +5,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, mamba2, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,8 +27,17 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             prefill=transformer.prefill,
             decode_step=transformer.decode_step,
         )
-    if cfg.family in ("ssm", "hybrid", "audio"):
+    if cfg.family in ("ssm", "hybrid"):
+        mod = mamba2 if cfg.family == "ssm" else hybrid
+        return ModelApi(
+            init=mod.init,
+            apply=mod.apply,
+            init_cache=mod.init_cache,
+            prefill=mod.prefill,
+            decode_step=mod.decode_step,
+        )
+    if cfg.family == "audio":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (models/mamba2.py, "
-            "hybrid.py, encdec.py) is not ported yet (ROADMAP P11)")
+            f"{cfg.name}: the audio family (models/encdec.py) is not ported "
+            "yet (ROADMAP P11)")
     raise ValueError(f"unknown family {cfg.family}")

@@ -1,8 +1,8 @@
-"""Tests that need an NVIDIA card: the ``fed_reduce``, ``decode_attention``
-and ``flash_attention`` CUDA kernels against their plain versions, a small
-federated round on the card against the same round on the CPU, and a short
-continuous-batching serving run, both with the hot-path sync sanitizer
-armed.  They skip where CUDA is not available.  This file imports no JAX,
+"""Tests that need an NVIDIA card: the ``fed_reduce``, ``decode_attention``,
+``flash_attention`` and ``ssd_scan`` CUDA kernels against their plain
+versions, a small federated round on the card against the same round on the
+CPU, a short continuous-batching serving run, both with the hot-path sync
+sanitizer armed, and Mamba2 fixed-batch serving against its plain path.  They skip where CUDA is not available.  This file imports no JAX,
 so it runs on a machine that has only PyTorch:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
@@ -38,7 +38,8 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
 )
 from repro_torch.kernels.fed_reduce.ops import fed_reduce  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
-from repro_torch.models import ctr  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.models import ctr, mamba2  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -292,3 +293,130 @@ def test_serving_run_on_card_under_sync_sanitizer(cuda_device):
     assert decode_attention.launches > d0 and flash_attention.launches > f0
     plain = run("ref", "einsum")
     assert kernel == plain
+
+
+# --------------------------------------------------------------------------
+# ssd_scan: the reference test cases (tests/test_kernels.py:186), a ragged
+# length, the overflowing decays, and Mamba2 serving on the card
+
+SSD_CASES = [(2, 128, 4, 32, 1, 16, 32), (1, 256, 8, 64, 2, 64, 64),
+             (2, 64, 2, 16, 2, 8, 16), (1, 128, 4, 64, 1, 128, 128),
+             (2, 100, 4, 64, 1, 64, 32)]
+
+
+def _ssd_inputs(gen, case, dtype, device, *, A=None, dt=None):
+    b, l, h, p, g, n, _ = case
+    x = (torch.randn((b, l, h, p), generator=gen) * 0.5).to(dtype)
+    dtv = (torch.randn((b, l, h), generator=gen).abs() * 0.1 + 0.01
+           if dt is None else torch.full((b, l, h), dt))
+    Av = (-torch.randn(h, generator=gen).abs() - 0.1 if A is None
+          else torch.full((h,), A))
+    B = (torch.randn((b, l, g, n), generator=gen) * 0.3).to(dtype)
+    C = (torch.randn((b, l, g, n), generator=gen) * 0.3).to(dtype)
+    return [t.to(device) for t in (x, dtv, Av, B, C)]
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
+    gen = torch.Generator().manual_seed(sum(case))
+    args = _ssd_inputs(gen, case, dtype, cuda_device)
+    chunk = case[-1]
+    before = ssd_ops.ssd_scan.launches
+    y, s = ssd_ops.ssd_scan(*args, chunk=chunk)
+    y2, s2 = ssd_ops.ssd_scan(*args, chunk=chunk)
+    py, ps = ssd_ops.ssd_scan(*args, chunk=chunk, impl="chunked")
+    ry, rs = ssd_ops.ssd_scan(*args, chunk=chunk, impl="ref")
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(s, s2)  # no float atomics
+    assert y.dtype == dtype and s.dtype == torch.float32
+    if dtype == torch.float32:
+        for want_y, want_s in ((py, ps), (ry, rs)):
+            torch.testing.assert_close(y, want_y, atol=3e-4, rtol=0)
+            torch.testing.assert_close(s, want_s, atol=3e-4, rtol=0)
+    else:
+        assert bool(((y.float() - py.float()).abs()
+                     <= 2e-2 * (1 + py.float().abs())).all())
+        torch.testing.assert_close(s, ps, atol=3e-4, rtol=0)
+
+
+def test_ssd_kernel_overflowing_decays_give_no_nan(cuda_device):
+    gen = torch.Generator().manual_seed(3)
+    args = _ssd_inputs(gen, (2, 256, 4, 64, 1, 128, 128), torch.float32,
+                       cuda_device, A=-64.0, dt=0.1)
+    y, s = ssd_ops.ssd_scan(*args, chunk=128)
+    py, ps = ssd_ops.ssd_scan(*args, chunk=128, impl="chunked")
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, py, atol=3e-4, rtol=0)
+    torch.testing.assert_close(s, ps, atol=3e-4, rtol=0)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda_device):
+    gen = torch.Generator().manual_seed(4)
+    x, dt, A, B, C = _ssd_inputs(gen, (1, 64, 4, 16, 1, 8, 16),
+                                 torch.float32, cuda_device)
+    wide = torch.zeros((1, 64, 1, 16), device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd_scan(x, dt, A, wide, C, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):  # even where it pads
+        ssd_ops.ssd_scan(x[:, :60], dt[:, :60], A, wide[:, :60], C[:, :60],
+                         chunk=16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_ops.ssd_scan(x.half(), dt, A, B.half(), C.half(), chunk=16)
+    with pytest.raises(TypeError, match="dt"):
+        ssd_ops.ssd_scan(x, dt.double(), A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="shared memory"):  # p = 128
+        ssd_ops.ssd_scan(torch.zeros((1, 64, 4, 128), device=cuda_device),
+                         dt, A, B, C, chunk=16)
+
+
+def test_ssd_wrapper_raises_when_the_library_fails_to_load(cuda_device,
+                                                           monkeypatch):
+    from repro_torch.kernels import _build
+
+    def broken(name):
+        raise OSError(f"cannot load {name}")
+    monkeypatch.setattr(ssd_ops, "_lib", None)
+    monkeypatch.setattr(_build, "load_library", broken)
+    gen = torch.Generator().manual_seed(5)
+    args = _ssd_inputs(gen, (1, 64, 4, 16, 1, 8, 16), torch.float32,
+                       cuda_device)
+    before = ssd_ops.ssd_scan.launches
+    with pytest.raises(OSError, match="cannot load ssd_scan"):
+        ssd_ops.ssd_scan(*args, chunk=16)  # no fallback to the plain version
+    assert ssd_ops.ssd_scan.launches == before
+
+
+def test_mamba2_serving_on_card_matches_plain_path(cuda_device, monkeypatch):
+    """mamba2 at 2 layers (smoke widths, f32) serving 2 batches through
+    ``BatchedServer`` on the card: the ssd_scan kernel runs once per layer
+    per prefill, and the tokens equal those of the plain chunked scan on the
+    card."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.core.traffic_curves import diurnal
+
+    cfg = dataclasses.replace(get_config("mamba2_1_3b", smoke=True),
+                              dtype="float32", num_layers=2)
+
+    def run():
+        server = serve.BatchedServer(cfg, batch_size=3, prompt_len=40,
+                                     decode_tokens=6, max_len=47,
+                                     device=cuda_device)
+        serve.run_trace(server, requests=6, prompt_len=40,
+                        vocab_size=cfg.vocab_size, curve=diurnal(),
+                        interval=60.0)
+        return {r.request_id: r.tokens for r in server.report().records}
+
+    before = ssd_ops.ssd_scan.launches
+    kernel = run()
+    assert ssd_ops.ssd_scan.launches == before + 2 * 2
+    scan = mamba2.ssd_scan
+    monkeypatch.setattr(mamba2, "ssd_scan",
+                        lambda *a, impl="auto", **kw: scan(*a, impl="chunked",
+                                                           **kw))
+    plain = run()
+    assert ssd_ops.ssd_scan.launches == before + 2 * 2
+    assert len(kernel) == 6 and kernel == plain

@@ -52,10 +52,12 @@ def _entry_points():
     from repro_torch.core.simulation import DeviceTier, LogicalTier
     from repro_torch.core.updates import UpdateBuffer
     from repro_torch.launch.serve import BatchedServer, stack_requests
-    from repro_torch.models import ctr, transformer
+    from repro_torch.models import ctr, hybrid, mamba2, transformer
 
     fn = ctr.make_local_train_fn()
     lm = get_config("llama3_2_3b", smoke=True)
+    ssm = get_config("mamba2_1_3b", smoke=True)
+    hyb = get_config("zamba2_1_2b", smoke=True)
     buf = UpdateBuffer.from_stacked({"w": torch.ones(2, 3)})
     state = buf.state_dict()
     state["device"] = "cuda"
@@ -74,6 +76,13 @@ def _entry_points():
         "transformer.params_from_numpy": lambda: transformer.params_from_numpy(
             {"ln_f": np.ones(4, np.float32), "layers": []},
             dataclasses.replace(lm, scan_layers=False)),
+        "mamba2.init": lambda: mamba2.init(0, ssm),
+        "mamba2.init_cache": lambda: mamba2.init_cache(ssm, 1),
+        "mamba2.params_from_numpy": lambda: mamba2.params_from_numpy(
+            {"ln_f": np.ones(4, np.float32), "layers": []},
+            dataclasses.replace(ssm, scan_layers=False)),
+        "hybrid.init": lambda: hybrid.init(0, hyb),
+        "hybrid.init_cache": lambda: hybrid.init_cache(hyb, 1, 4),
         "init_arena": lambda: init_arena(lm, 2, 4),
         "ContinuousBatchingEngine": lambda: ContinuousBatchingEngine(
             lm, slots=2, prompt_len=4, decode_tokens=2),
@@ -87,7 +96,9 @@ def _entry_points():
     "resolve_device", "lr_init", "mlp_init", "params_from_numpy",
     "LogicalTier", "DeviceTier", "UpdateBuffer.from_state_dict",
     "transformer.init", "transformer.init_cache",
-    "transformer.params_from_numpy", "init_arena",
+    "transformer.params_from_numpy", "mamba2.init", "mamba2.init_cache",
+    "mamba2.params_from_numpy", "hybrid.init", "hybrid.init_cache",
+    "init_arena",
     "ContinuousBatchingEngine", "BatchedServer", "stack_requests"]))
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
@@ -119,6 +130,7 @@ def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors():
     an explicit request for the kernel raises instead of falling back."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     q = torch.randn(1, 8, 2, 16)
     lens = torch.tensor([5], dtype=torch.int32)
@@ -130,6 +142,12 @@ def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors():
         decode_attention(q[:, 0], q, q, lens, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q, impl="cuda")
+    x, dt, A, B = q, torch.rand(1, 8, 2), -torch.ones(2), q[:, :, :1]
+    s0 = ssd_scan.launches
+    ssd_scan(x, dt, A, B, B, chunk=4)
+    assert ssd_scan.launches == s0
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(x, dt, A, B, B, chunk=4, impl="cuda")
 
 
 def test_chip_smoke_fails_without_the_repo(tmp_path):
