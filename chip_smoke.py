@@ -6,9 +6,10 @@
     python3 chip_smoke.py --serving-only  # skip the federated-round phases
     python3 chip_smoke.py --ssm-only      # the SSD kernel and SSM serving only
 
-All four kernels (``fed_reduce``, ``decode_attention``, ``flash_attention``,
-``ssd_scan``) are built first from ``src/repro_torch/csrc`` with ``nvcc``
-for ``sm_90a``, one compiler per source, all at once.  Nine phases; any
+All four kernels (``fed_reduce``, ``decode_attention``, ``flash_attention``
+with its tensor-core and plain-FMA kernels, ``ssd_scan``) are built first
+from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``, one compiler
+per source, all at once.  Nine phases; any
 failure raises and the script exits non-zero:
 
 1. **Kernel.**  Runs ``fed_reduce`` on the card against its plain
@@ -16,8 +17,9 @@ failure raises and the script exits non-zero:
    distinct cohort-chunk row count (full 8192-row chunks and each ragged
    last chunk) x {the 256-wide ``w`` leaf, the 1-wide ``b`` leaf} x {f32,
    int8 with scales}, plus 8192 x 256 in bf16; zero weights included.
-   Checks the error (<= 1e-4 of sum |w||U| per column) and that two
-   launches give the same bits, and times kernel, plain version,
+   Checks the error (<= 1e-4 of sum |w||U| per column), that two
+   launches give the same bits and that a call is one kernel launch
+   (``torch.profiler``), and times kernel, plain version,
    ``torch.mv`` (f32 only) and the HBM bound with CUDA events.
 2. **Slice.**  The quickstart's federated CTR round (calibrate, allocate,
    ``HybridSimulation`` over DeviceFlow into ``AggregationService``) at the
@@ -42,8 +44,11 @@ failure raises and the script exits non-zero:
    and at the reference test cases (``tests/test_kernels.py`` FLASH_CASES,
    DECODE_CASES) in f32 and bf16: error within 3e-5 (f32) / 2e-2 (bf16),
    exact zeros for empty slots, stale-KV invariance of a reused slot
-   (1e-6), bitwise repeatability.  Times the llama shapes with CUDA events:
-   kernel, plain version, ``F.scaled_dot_product_attention`` (GQA; a
+   (1e-6), bitwise repeatability; bf16 at d = 64 and 128 runs on the
+   tensor-core flash kernel, the rest on the plain-FMA one.  Times the
+   llama decode shape and both prefill shapes (llama's and zamba2's) with
+   CUDA events: kernel (and, for flash, the plain-FMA kernel on the same
+   bf16 inputs), plain version, ``F.scaled_dot_product_attention`` (GQA; a
    boolean length mask for decode) as the library yardstick, and the bound.
 5. **Serving slice.**  llama3.2-3b at full width (28 layers, d_model 3072,
    24 query / 8 KV heads, vocab 128256 padded to 129024) in bf16, params
@@ -54,9 +59,10 @@ failure raises and the script exits non-zero:
    (which must equal the same trace's CPU run), wall ms per prefill call
    and per decode iteration, decode tokens/s and peak device memory; the
    launch counters are zeroed before each mode and must read 28 per decode
-   iteration (``decode_attention``) and 28 per prefill (``flash_attention``)
-   after it, at shapes phase 4 checked; the continuous p99 must be >= 2x
-   better than the fixed batch's.  A short profiled window gives the
+   iteration (``decode_attention``) and 28 per prefill (``flash_attention``,
+   every one on the tensor-core kernel) after it, at shapes phase 4
+   checked; the continuous p99 must be >= 2x better than the fixed
+   batch's.  A short profiled window gives the
    device's idle share.
 6. **Serving cross-check.**  Full width at 2 layers, the same params and
    prompts: the kernel path against the plain path (``attention_impl=
@@ -80,11 +86,11 @@ failure raises and the script exits non-zero:
    to the CPU run's with the smoke-size model), wall ms per prefill and
    decode iteration, decode tokens/s, peak memory; launch counters zeroed
    before and read after: one ``ssd_scan`` per layer per prefill (48 x 4,
-   38 x 4), and for zamba2 one ``flash_attention`` per shared-block
-   application per prefill (7 x 4) and one ``decode_attention`` per
-   application per decode step (7 x 256), at shapes phases 4 and 7
-   checked; a profiled window (1 prefill + 20 decode steps) gives the idle
-   share.
+   38 x 4), and for zamba2 one tensor-core ``flash_attention`` per
+   shared-block application per prefill (7 x 4) and one
+   ``decode_attention`` per application per decode step (7 x 256), at
+   shapes phases 4 and 7 checked; a profiled window (1 prefill + 20
+   decode steps) gives the idle share.
 9. **SSM cross-check.**  Each model at full width and 2 layers (zamba2 with
    its shared block at layer 0): the kernel path against the plain path
    (``block_prefill(impl="chunked")`` layer by layer; for zamba2's
@@ -219,7 +225,7 @@ def kernel_phase(dev, rows: list[int]) -> tuple[dict, set]:
              for dt in (torch.float32, torch.int8)]
     cases.append((COHORT, LEAF_WIDTHS[0], torch.bfloat16))
     gen = torch.Generator().manual_seed(0)
-    results, checked = [], set()
+    results, checked, calls = [], set(), []
     for n, d, dtype in cases:
         scaled = dtype == torch.int8
         if scaled:
@@ -275,7 +281,19 @@ def kernel_phase(dev, rows: list[int]) -> tuple[dict, set]:
         results.append(row)
         checked.add((n, d, row["dtype"]))
         log(json.dumps({"fed_reduce_case": row}))
+        calls.append((U, w, s))
         del Us
+    # One kernel launch per call: one call per case in a profiled window.
+    launched = device_kernels(lambda: [fed_reduce(U, w, scales=s,
+                                                  impl="cuda")
+                                       for U, w, s in calls])
+    per_kernel = {name: n for name, _, n in launched}
+    if sum(per_kernel.values()) != len(calls) or not all(
+            "fed_reduce_kernel" in k for k in per_kernel):
+        raise AssertionError(f"{len(calls)} fed_reduce calls launched "
+                             f"{launched}, not one fed_reduce_kernel each")
+    log(f"fed_reduce: {len(calls)} calls, {sum(per_kernel.values())} kernel "
+        f"launches ({', '.join(sorted(per_kernel))[:200]})")
     # The full f32 chunk buffer's w leaf: the main path's commonest call.
     main = next(r for r in results
                 if r["shape"] == [max(rows), LEAF_WIDTHS[0]]
@@ -394,8 +412,7 @@ class RoundProfiler:
                 "kernels": n, "device_busy_ms": busy,
                 "device_idle_share": 1.0 - busy / wall_ms[1],
                 "fed_reduce_ms": sum(r[1] for r in fed),
-                "fed_reduce_partial_launches": sum(
-                    r[2] for r in fed if "fed_reduce_partial" in r[0]),
+                "fed_reduce_kernel_launches": sum(r[2] for r in fed),
                 "top_kernels_ms": by_name[:12],
                 "card": self.card}}))
             with open(os.path.join(PROFILE_DIR, f"profile_{wire}_kernels.txt"),
@@ -624,11 +641,13 @@ FLASH_CASES = [FLASH_SERVE, FLASH_ZAMBA, (2, 256, 256, 4, 2, 64, True, 0),
                (1, 128, 384, 8, 8, 128, False, 0),
                (2, 96, 200, 6, 2, 64, True, 104),
                (1, 1, 256, 4, 1, 64, True, 255),
-               (1, 512, 512, 2, 1, 32, True, 0)]
+               (1, 512, 512, 2, 1, 32, True, 0),
+               (2, 200, 200, 12, 4, 128, True, 0)]
 DECODE_SOURCE = "src/repro_torch/csrc/decode_attention.cu"
 DECODE_REPLACES = "src/repro/kernels/decode_attention/decode_attention.py:31"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:33"
+FLASH_KERNEL = "flash_fwd_wgmma_kernel"  # bf16 at d = 64, 128: tensor cores
 
 
 def _attn_tol(dtype) -> float:
@@ -787,29 +806,51 @@ def flash_cases(dev, cases=FLASH_CASES) -> tuple[dict, set]:
             checked.add(("flash", case, _dtype_name(dtype)))
             row = {"case": list(case), "dtype": _dtype_name(dtype),
                    "max_abs_err": err, "bitwise_repeatable": True}
-            if case == FLASH_SERVE and dtype == torch.bfloat16:
-                qt = q.transpose(1, 2).contiguous()
-                kt = k.transpose(1, 2).contiguous()
-                vt = v.transpose(1, 2).contiguous()
-                row["ms"] = time_ms(lambda i: flash_attention(
-                    q, k, v, impl="cuda", **kw), iters=20)
-                row["plain_ms"] = time_ms(lambda i: flash_attention(
-                    q, k, v, impl="ref", **kw), iters=5)
-                row["library_ms"] = time_ms(
-                    lambda i: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True),
-                    iters=20)
-                moved = 2 * (q.numel() + k.numel()) * q.element_size()
-                ops = 4 * d * h * b * causal_pairs(sq, sk, causal, off)
-                bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-                ops_ms = ops / BF16_FLOPS * 1e3
-                row.update(bound_ms=max(bytes_ms, ops_ms),
-                           bound_by="bytes" if bytes_ms >= ops_ms
-                           else "operations", bytes=moved, flops=ops)
-                serve_row = row
+            if case in (FLASH_SERVE, FLASH_ZAMBA) and dtype == torch.bfloat16:
+                row.update(flash_timing(q, k, v, case))
+                if case == FLASH_SERVE:
+                    serve_row = row
             log(json.dumps({"flash_attention_case": row}))
-    return (_timed_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
-                         errs, serve_row), checked)
+    entry = _timed_entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
+                         errs, serve_row)
+    entry["kernel"] = FLASH_KERNEL  # the main path's: bf16 at d = 64, 128
+    return entry, checked
+
+
+def flash_timing(q, k, v, case) -> dict:
+    """A bf16 serving shape's times: the tensor-core kernel, the plain-FMA
+    kernel on the same inputs (the previous design, for comparison in this
+    call), the plain version, SDPA (GQA, causal) and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+
+    b, sq, sk, h, kv, d, causal, off = case
+    kw = dict(causal=causal, q_offset=off)
+    scale = d ** -0.5
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    row = {"kernel": FLASH_KERNEL}
+    row["ms"] = time_ms(lambda i: ops.flash_attention(
+        q, k, v, impl="cuda", **kw), iters=40)
+    row["simt_ms"] = time_ms(lambda i: ops._flash_attention_cuda(
+        q, k, v, causal, off, scale, kernel="simt"), iters=20)
+    row["plain_ms"] = time_ms(lambda i: ops.flash_attention(
+        q, k, v, impl="ref", **kw), iters=5)
+    row["library_ms"] = time_ms(
+        lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), iters=40)
+    moved = 2 * (q.numel() + k.numel()) * q.element_size()
+    ops_n = 4 * d * h * b * causal_pairs(sq, sk, causal, off)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_n / BF16_FLOPS * 1e3
+    row.update(bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes=moved, flops=ops_n)
+    row["tflops"] = ops_n / (row["ms"] * 1e9)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -918,6 +959,19 @@ def kernel_time(prof) -> tuple[float, int, list]:
     return busy / 1e3, len(kern), rows
 
 
+def device_kernels(fn) -> list:
+    """``[name, ms, launches]`` of each device kernel one call of ``fn``
+    runs, under ``torch.profiler`` (CUDA activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_time(prof)[2]
+
+
 def profile_window(fn, steps: int) -> dict:
     """``fn()`` under ``torch.profiler`` (CUDA activity only): its host wall,
     the device's busy time and idle share, and the kernels that took it."""
@@ -1002,7 +1056,7 @@ def serving_phase(dev, checked: set, card: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         decode_attention.launches = 0  # zeroed just before the main path ...
-        flash_attention.launches = 0
+        flash_attention.launches = flash_attention.wgmma_launches = 0
         w0 = time.perf_counter()
         if mode == "continuous":
             engine = ContinuousBatchingEngine(
@@ -1041,9 +1095,13 @@ def serving_phase(dev, checked: set, card: str) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - w0
         launches = {"decode_attention": decode_attention.launches,
-                    "flash_attention": flash_attention.launches}  # ... read
+                    "flash_attention": flash_attention.launches,
+                    "flash_attention_wgmma":
+                        flash_attention.wgmma_launches}  # ... read
+        # Every prefill's attention runs on the tensor-core kernel.
         expected = {"decode_attention": L * n_decode,
-                    "flash_attention": L * n_prefill}
+                    "flash_attention": L * n_prefill,
+                    "flash_attention_wgmma": L * n_prefill}
         peak = torch.cuda.max_memory_allocated()
         s = rep.summary(30.0)
         if s != cpu[mode].summary(30.0):
@@ -1096,7 +1154,8 @@ def serving_phase(dev, checked: set, card: str) -> dict:
     return {"params": params, "cfg": cfg, "prompts": prompts,
             "results": results, "p99_cut": cut, "profile": profile,
             "launches": {k: sum(r["launches"][k] for r in results.values())
-                         for k in ("decode_attention", "flash_attention")}}
+                         for k in ("decode_attention", "flash_attention",
+                                   "flash_attention_wgmma")}}
 
 
 def _leaves(tree):
@@ -1388,6 +1447,7 @@ def ssm_serving_phase(dev, arch: str, checked: set, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ssd_scan.launches = 0  # zeroed just before the main path ...
     decode_attention.launches = flash_attention.launches = 0
+    flash_attention.wgmma_launches = 0
     w0 = time.perf_counter()
     server = serve.BatchedServer(
         cfg, batch_size=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
@@ -1401,12 +1461,14 @@ def ssm_serving_phase(dev, arch: str, checked: set, card: str) -> dict:
     wall_s = time.perf_counter() - w0
     launches = {"ssd_scan": ssd_scan.launches,
                 "flash_attention": flash_attention.launches,
+                "flash_attention_wgmma": flash_attention.wgmma_launches,
                 "decode_attention": decode_attention.launches}  # ... read
     rep = server.report()
     n_prefill = len(server.metrics)
     n_decode = n_prefill * SERVE_DECODE
     expected = {"ssd_scan": cfg.num_layers * n_prefill,
                 "flash_attention": apps * n_prefill,
+                "flash_attention_wgmma": apps * n_prefill,
                 "decode_attention": apps * n_decode}
     peak = torch.cuda.max_memory_allocated()
     s = rep.summary(30.0)
@@ -1664,10 +1726,11 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             ssm = ssm_phases(dev, dec_checked | flash_checked | ssd_checked,
                              card)
-            # Each path's own count, read just after it ran, summed.
-            for e in (dec_entry, flash_entry):
-                e["launches"] = llama[e["name"]] + sum(
-                    v[e["name"]] for v in ssm.values())
+            # Each path's own count, read just after it ran, summed; the
+            # flash entry is the tensor-core kernel's.
+            for e, key in ((dec_entry, "decode_attention"),
+                           (flash_entry, "flash_attention_wgmma")):
+                e["launches"] = llama[key] + sum(v[key] for v in ssm.values())
             ssd_entry["launches"] = sum(v["ssd_scan"] for v in ssm.values())
         entries += [dec_entry, flash_entry, ssd_entry]
     log(json.dumps({"kernels": entries}))

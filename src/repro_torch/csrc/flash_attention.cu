@@ -1,7 +1,9 @@
 // flash_attention: GQA attention forward (causal with a query offset), for
-// Hopper.
+// Hopper.  Two kernels, chosen by dtype and head width before any launch:
+// flash_fwd_wgmma_kernel (bf16 at d = 64 or 128, tensor cores) and
+// flash_fwd_kernel (f32, and bf16 at d = 16, 32, 256; plain FMAs).
 //
-// Replaces the Pallas TPU kernel
+// Both replace the Pallas TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py (_flash_kernel, l.33,
 // and flash_attention_pallas, l.90):
 //
@@ -10,16 +12,82 @@
 // for q (b, sq, h, d) and k, v (b, sk, kv, d), g = h / kv.  Key j is seen by
 // query i when j < sk and, if causal, q_offset + i >= j.  Rounding follows
 // the TPU kernel: q * scale is rounded back to the input dtype before Q.K^T,
-// scores, the running max m and sum l and the accumulator stay f32, the
-// probabilities are rounded to v's dtype before P.V, and the output is
-// acc / max(l, 1e-37) in the input dtype.  Masked scores are NEG_INF =
-// -0.7 * FLT_MAX, as on the TPU.
+// scores, the running max m and sum l and the accumulator stay f32, l sums
+// the f32 probabilities, the probabilities are rounded to v's dtype before
+// P.V, and the output is acc / max(l, 1e-37) (as acc times the row's one
+// reciprocal) in the input dtype.  Masked scores are NEG_INF = -0.7 *
+// FLT_MAX, selected (never added), as on the TPU.
 //
-// Bound: operations at the serving shapes (prefill of 512 tokens does ~128
-// flops per K/V byte per query block over the causal triangle, and the
-// blocks re-read K/V from L2, not HBM).  This first version is plain f32
-// FMAs from shared memory — no tensor cores, so it runs far below the
-// card's bf16 peak; wgmma and TMA are a later step.  What the design does:
+// Bound: at the serving prefill (16 x 512, causal) reading q, k, v and
+// writing o once takes 0.040 ms at 3.35 TB/s and the causal triangle's
+// flops 0.026 ms (llama3.2-3b) or 0.017 ms (zamba2) at the bf16
+// tensor-core peak, so only a kernel that keeps its products on the tensor
+// cores and its K/V re-reads in L2 and shared memory can approach it.
+//
+// flash_fwd_wgmma_kernel (bf16, d = 64 or 128).  Deliberately the simple
+// Hopper design: every warpgroup both loads and computes, no warp
+// specialisation, no persistent blocks.
+//
+//   * One block per (query tile, query head, sequence), with one warpgroup
+//     of 128 threads per 64 query rows: two at d = 128 (128-row tiles),
+//     sharing each K/V tile, which halves the K/V traffic per row; one at
+//     d = 64, where five blocks fit an SM.  The heaviest causal tiles are
+//     launched first.  A warpgroup skips the key tiles that lie wholly
+//     above its own rows' diagonal (and all of them if its rows lie past
+//     sq).  About 97 KB of shared memory at d = 128 and at most 128
+//     registers a thread let two blocks, four warpgroups, share an SM, so
+//     one warpgroup's softmax overlaps another's wgmma.
+//   * TMA loads Q and 64-key K/V tiles into a two-stage ring, each stage
+//     with its own mbarrier (expect_tx) and its own phase parity (the tile
+//     index / 2); one thread issues every load.  The tensor maps are 4-D
+//     over the model's (b, s, h, d) layout, so rows past sq or sk come back
+//     zero-filled and GQA reads KV head h / g by coordinate: nothing is
+//     repeated or padded in memory.  Causal tiles wholly above the
+//     diagonal are never loaded.  cuTensorMapEncodeTiled comes through the
+//     runtime's driver entry point, so the build needs no -lcuda.
+//   * S = Q.K^T is wgmma m64n64k16 over d / 16 steps, Q (A) and K (B) both
+//     K-major from 128B-swizzled shared memory.
+//   * The online softmax runs on the accumulator fragments in registers:
+//     each thread holds 2 rows x 16 keys, so the row max and sum take two
+//     shuffles within a quad; each exponential is one FFMA (the log2 e
+//     scale folded in) and one ex2.approx on the SFU (2 ulp; the TPU's exp
+//     is an approximation too).  Only the diagonal tile and the sk tail
+//     tile are masked.  P is rounded to bf16 in registers, where the
+//     accumulator's layout is already wgmma's A-register layout, and O +=
+//     P.V is wgmma m64n{d}k16 with P as the register A operand and V as B
+//     from shared memory, MN-major (keys are the K dimension, d is
+//     contiguous: the transpose bit, which bf16 allows).
+//   * O is written from registers with per-row bounds: rows >= sq are never
+//     written.  It is acc times 1 / max(l, 1e-37), one division per row,
+//     as the plain-FMA kernel does.
+//
+// What made it hard, and what the code does about it:
+//   1. The 128-byte swizzle limits a TMA box's inner extent to 128 bytes,
+//      and a d = 128 bf16 row is 256: every tile loads as d / 64 boxes of
+//      64 columns (64 or 128 rows, stacked), so the K-steps of Q.K^T
+//      walk two boxes (the start address moves one box for steps 4..7) and
+//      P.V's B descriptor steps 8 KB (its leading byte offset) from the
+//      first 64 columns of d to the next.
+//   2. Swizzled tiles need 1024-byte aligned bases: the kernel aligns the
+//      dynamic shared memory base itself.  The descriptors match the TMA
+//      swizzle: 128B layout, 1024-byte stride between 8-row groups, K-steps
+//      of 32 bytes inside the atom (K-major) or 2 KB (16 keys, MN-major).
+//   3. Q is scaled and rounded after TMA lands it, by a pass over shared
+//      memory; that pass writes through the generic proxy, so every thread
+//      runs fence.proxy.async.shared::cta before the barrier that precedes
+//      the first wgmma reading Q.
+//   4. wgmma.fence comes before each group of wgmmas (the accumulators and
+//      P were written by ordinary instructions), commit_group / wait_group
+//      0 before the softmax reads S and before O is rescaled or stored, and
+//      empty asm statements pin the accumulator registers around them.
+//   5. Each ring stage has its own mbarrier and parity; a stage is reloaded
+//      only after every warp of both warpgroups has waited on its wgmmas and
+//      passed a barrier.
+//   6. More than 48 KB of dynamic shared memory needs cudaFuncSetAttribute.
+//
+// flash_fwd_kernel (everything else the wrapper takes) is plain f32 FMAs
+// from shared memory — f32 on tensor cores would be TF32, which the f32
+// tolerance (3e-5) does not allow:
 //
 //   * A block takes 64 query rows of one (sequence, head) and streams 64-row
 //     K/V tiles through shared memory, keeping the online-softmax state (m,
@@ -33,9 +101,10 @@
 //     repeated in memory.  Causal blocks entirely above the diagonal are
 //     never loaded; the key tail past sk is zero-filled and masked.
 //
-// Plain C interface, loaded through ctypes; the launch goes on the caller's
-// stream and the function returns its cudaError_t.
+// Plain C interface, loaded through ctypes; each launch goes on the caller's
+// stream and each entry point returns its cudaError_t.
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -315,6 +384,495 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
   }
 }
 
+
+// --------------------------------------------------------------------------
+// flash_fwd_wgmma_kernel: bf16 on the tensor cores (wgmma, TMA, mbarriers).
+
+namespace tc {
+
+constexpr int WG_ROWS = 64;     // query rows per warpgroup (one wgmma M)
+constexpr int BN = 64;          // keys per tile
+constexpr int STAGES = 2;       // K/V ring
+constexpr int BOX_COLS = 64;    // 128 bytes of bf16: the 128B swizzle's widest box
+constexpr uint32_t BOX_BYTES = 64 * 128;  // one 64-row x 64-column box
+constexpr uint32_t SW_ROWS8 = 1024;       // 8 swizzled 128-byte rows
+
+template <int D>
+struct Layout {
+  // Warpgroups per block, each taking 64 query rows and sharing each K/V
+  // tile: two at d = 128, where sharing halves the K/V traffic per row;
+  // one at d = 64, where five single-warpgroup blocks fit an SM.
+  static constexpr int wgs = D == 128 ? 2 : 1;
+  static constexpr int bm = wgs * WG_ROWS;  // query rows per block
+  static constexpr int threads = wgs * 128;
+  static constexpr int boxes = D / BOX_COLS;
+  static constexpr uint32_t q_box = wgs * BOX_BYTES;  // bm rows x 64 columns
+  static constexpr uint32_t q_tile = boxes * q_box;   // bm rows x D bf16
+  static constexpr uint32_t tile = boxes * BOX_BYTES;  // 64 keys x D bf16
+  static constexpr uint32_t q_off = 0;
+  static constexpr uint32_t k_off = q_off + q_tile;
+  static constexpr uint32_t v_off = k_off + STAGES * tile;
+  static constexpr uint32_t bar_off = v_off + STAGES * tile;  // q, kv[STAGES]
+  static constexpr size_t smem = bar_off + 8 * (1 + STAGES) + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spins until the barrier's phase with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory at dst; completion is counted in bytes on the mbarrier.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator register
+// across the asynchronous wgmma that owns it.
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// A wgmma shared-memory descriptor for a 128B-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = 128B.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the SFU (ex2.approx: ~2 ulp; 0 for x = -inf).
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16) . B (16 x 64), both bf16 from shared
+// memory through 128B-swizzled descriptors, both K-major.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (16 x 64, bf16 from
+// shared memory, MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 in registers) . B (16 x 128, bf16 from
+// shared memory, MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 64) {
+    wgmma_rs_m64n64_tb(o, a, db);
+  } else {
+    wgmma_rs_m64n128_tb(o, a, db);
+  }
+}
+
+// K or V tile `tile` (64 keys x D) of KV head hk into ring stage `stage`.
+template <int D>
+__device__ __forceinline__ void load_kv(const CUtensorMap* k_map,
+                                        const CUtensorMap* v_map, uint32_t k_s,
+                                        uint32_t v_s, uint32_t bar, int tile,
+                                        int stage, int hk, int bi) {
+  using L = Layout<D>;
+  const uint32_t b = bar + 8u * (1 + stage);
+  mbar_expect_tx(b, 2 * L::tile);
+#pragma unroll
+  for (int x = 0; x < L::boxes; ++x) {
+    tma_load_4d(k_s + stage * L::tile + x * BOX_BYTES, k_map, b, x * BOX_COLS, hk,
+                tile * BN, bi);
+    tma_load_4d(v_s + stage * L::tile + x * BOX_BYTES, v_map, b, x * BOX_COLS, hk,
+                tile * BN, bi);
+  }
+}
+
+// Grid (query tiles of L::bm rows, heads, batch); g = h / kv.  Warpgroup w
+// takes rows [64 w, 64 w + 64) of the tile.
+template <int D>
+__global__ void __launch_bounds__(Layout<D>::threads, 2)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       __nv_bfloat16* __restrict__ out, int sq, int sk, int h,
+                       int g, int causal, int q_offset, float scale) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base + L::q_off;
+  const uint32_t k_s = base + L::k_off;
+  const uint32_t v_s = base + L::v_off;
+  const uint32_t bar = base + L::bar_off;  // q; kv stage s at bar + 8 (1 + s)
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;  // this thread's warpgroup
+  const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int hh = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int hk = hh / g;
+  const int q0 = qb * L::bm;
+  const int wq0 = q0 + wg * WG_ROWS;  // this warpgroup's first row
+  const int nk = (sk + BN - 1) / BN;
+  // Key tiles strictly above the causal diagonal of the block's last row
+  // below sq are never loaded: tile kb is needed iff kb * BN <= q_offset +
+  // that row.  A warpgroup computes only the tiles its own rows need (none
+  // if they all lie past sq; a tile above its diagonal would add exact
+  // zeros), and the last warpgroup with rows needs every loaded tile, so
+  // no load is left in flight when the block exits.
+  const int last_row = min(q0 + L::bm, sq) - 1;
+  const int n_tiles = causal ? min(nk, (q_offset + last_row) / BN + 1) : nk;
+  const int wg_last = min(wq0 + WG_ROWS, sq) - 1;
+  const int wg_tiles = wq0 >= sq ? 0
+                       : causal ? min(nk, (q_offset + wg_last) / BN + 1) : nk;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 1 + STAGES; ++i) mbar_init(bar + 8u * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, L::q_tile);
+#pragma unroll
+    for (int x = 0; x < L::boxes; ++x)
+      tma_load_4d(q_s + x * L::q_box, &q_map, bar, x * BOX_COLS, hh, q0, bi);
+    for (int t = 0; t < min(STAGES, n_tiles); ++t)
+      load_kv<D>(&k_map, &v_map, k_s, v_s, bar, t, t, hk, bi);
+  }
+
+  // q * scale, rounded back to bf16, in place (the swizzle permutes whole
+  // 16-byte chunks, so an elementwise pass ignores it).
+  mbar_wait(bar, 0);
+  {
+    uint4* qv = reinterpret_cast<uint4*>(smem + L::q_off);
+    for (int i = tid; i < static_cast<int>(L::q_tile / 16); i += L::threads) {
+      uint4 v = qv[i];
+      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(e[j]);
+        e[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+      qv[i] = v;
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // Accumulator fragment of wgmma m64nN: thread (warp w of its warpgroup,
+  // lane l) holds rows r0 = 16 w + l / 4 and r0 + 8 of the warpgroup's 64;
+  // element i sits in row r0 + 8 ((i >> 1) & 1) and column 8 (i >> 2) +
+  // 2 (l & 3) + (i & 1).
+  const int lane = tid & 31;
+  const int r0 = ((tid & 127) >> 5) * 16 + (lane >> 2);
+  const int c2 = (lane & 3) * 2;
+  const int qpos0 = q_offset + wq0 + r0;
+  const int qpos1 = qpos0 + 8;
+  const uint32_t q_wg = q_s + wg * BOX_BYTES;  // its rows in each Q box
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  for (int kb = 0; kb < n_tiles; ++kb) {
+    const int stage = kb & 1;
+    if (kb < wg_tiles) {  // uniform across the warpgroup
+      mbar_wait(bar + 8u * (1 + stage), (kb >> 1) & 1);
+      __syncwarp();
+      const uint32_t ks = k_s + stage * L::tile;
+      const uint32_t vs = v_s + stage * L::tile;
+
+      // S = (Q * scale) . K^T: d / 16 K-steps of 32 bytes, four per 128-byte
+      // swizzle atom, then on to the next 64 columns' box.
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pin(s[i]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t kc = (kk & 3) * 32;  // 16 columns into the atom
+        wgmma_ss_m64n64(s, sw128_desc(q_wg + (kk >> 2) * L::q_box + kc, 16, SW_ROWS8),
+                        sw128_desc(ks + (kk >> 2) * BOX_BYTES + kc, 16, SW_ROWS8), 1);
+      }
+      wg_commit();
+      wg_wait_all();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pin(s[i]);
+
+      // Masking by selection, on the diagonal tile and the sk tail only.
+      const int k0 = kb * BN;
+      if (k0 + BN > sk || (causal && k0 + BN - 1 > q_offset + wq0)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int kpos = k0 + (i >> 2) * 8 + c2 + (i & 1);
+          const int qpos = (i & 2) ? qpos1 : qpos0;
+          const bool valid = kpos < sk && (!causal || qpos >= kpos);
+          s[i] = valid ? s[i] : NEG_INF;
+        }
+      }
+
+      // Online softmax: row max and sum over the 4 threads of a quad.
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (i & 2) {
+          mx1 = fmaxf(mx1, s[i]);
+        } else {
+          mx0 = fmaxf(mx0, s[i]);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // e^(s - m) = 2^(s log2 e - m log2 e): one FFMA and one SFU op each.
+      const float a0 = exp2_sfu((m0 - mx0) * LOG2E);
+      const float a1 = exp2_sfu((m1 - mx1) * LOG2E);
+      const float ml0 = mx0 * LOG2E;
+      const float ml1 = mx1 * LOG2E;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (i & 2) {
+          s[i] = exp2_sfu(fmaf(s[i], LOG2E, -ml1));
+          rs1 += s[i];
+        } else {
+          s[i] = exp2_sfu(fmaf(s[i], LOG2E, -ml0));
+          rs0 += s[i];
+        }
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+      }
+      l0 = l0 * a0 + rs0;
+      l1 = l1 * a1 + rs1;
+      m0 = mx0;
+      m1 = mx1;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
+
+      // P in bf16 as wgmma's A registers: K-step kk covers keys 16 kk ..
+      // 16 kk + 15, which are accumulator elements 8 kk .. 8 kk + 7.
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+
+      // O += P . V: V is MN-major (d contiguous); a K-step is 16 keys = 2 KB,
+      // the leading byte offset steps from one 64-column box of d to the next.
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) pin(o[i]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<D>(o, pa[kk], sw128_desc(vs + kk * 2 * SW_ROWS8, BOX_BYTES, SW_ROWS8));
+      wg_commit();
+      wg_wait_all();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) pin(o[i]);
+    }
+
+    // Every warp is done with this stage: refill it with tile kb + STAGES.
+    __syncthreads();
+    if (tid == 0 && kb + STAGES < n_tiles)
+      load_kv<D>(&k_map, &v_map, k_s, v_s, bar, kb + STAGES, stage, hk, bi);
+  }
+
+  const float inv0 = 1.f / fmaxf(l0, 1e-37f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-37f);
+  const int row0 = wq0 + r0;
+  const int row1 = row0 + 8;
+  const size_t row_stride = static_cast<size_t>(h) * D;
+  if (row0 < sq) {
+    __nv_bfloat16* dst =
+        out + (static_cast<size_t>(bi) * sq + row0) * row_stride + static_cast<size_t>(hh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + c2) =
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+  }
+  if (row1 < sq) {
+    __nv_bfloat16* dst =
+        out + (static_cast<size_t>(bi) * sq + row1) * row_stride + static_cast<size_t>(hh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + c2) =
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so no -lcuda is needed.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess && p != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (b, rows, heads, d) bf16 tensor as a 4-D map with 64 x 1 x box_rows x 1
+// boxes (64 columns = 128 bytes, the 128B swizzle's limit); out-of-range
+// rows read as zeros.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int b,
+              int rows, int heads, int d, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(heads) * d * 2,
+                                 static_cast<cuuint64_t>(rows) * heads * d * 2};
+  const cuuint32_t box[4] = {BOX_COLS, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b,
+                   int sq, int sk, int h, int kvh, int causal, int q_offset,
+                   float scale, cudaStream_t stream) {
+  using L = Layout<D>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::smem));
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap q_map, k_map, v_map;
+  if (!make_map(encode, &q_map, q, b, sq, h, D, L::bm) ||
+      !make_map(encode, &k_map, k, b, sk, kvh, D, BN) ||
+      !make_map(encode, &v_map, v, b, sk, kvh, D, BN)) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(static_cast<unsigned>((sq + L::bm - 1) / L::bm),
+                  static_cast<unsigned>(h), static_cast<unsigned>(b));
+  flash_fwd_wgmma_kernel<D><<<grid, L::threads, L::smem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), sq, sk, h, h / kvh,
+      causal, q_offset, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q: (b, sq, h, d); k, v: (b, sk, kv, d); out: (b, sq, h, d); contiguous,
@@ -334,6 +892,28 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     err = dispatch_d<float>(d, q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
   } else if (dtype == 1) {
     err = dispatch_d<__nv_bfloat16>(d, q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+  }
+  return static_cast<int>(err);
+}
+
+// bf16 q: (b, sq, h, d); k, v: (b, sk, kv, d); out: (b, sq, h, d);
+// contiguous, 16-byte aligned, d 64 or 128, h a multiple of kv.  The
+// tensor-core kernel; flash_attention_launch takes everything else.
+extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
+                                            const void* v, void* out, int b,
+                                            int sq, int sk, int h, int kvh,
+                                            int d, int causal, int q_offset,
+                                            float scale, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || h < kvh || h % kvh != 0 ||
+      h > 65535 || b > 65535 || q_offset < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaErrorInvalidValue;
+  if (d == 64) {
+    err = tc::launch<64>(q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+  } else if (d == 128) {
+    err = tc::launch<128>(q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
   }
   return static_cast<int>(err);
 }

@@ -10,7 +10,9 @@ Implementations (``impl``):
 
 * ``"cuda"`` — the hand-written Hopper kernel (``csrc/fed_reduce.cu``),
   built with ``nvcc`` at first use and launched through ``ctypes`` on the
-  current stream;
+  current stream: one launch per call, whose last block per column tile
+  folds the row splits' partials (an integer ticket per tile, no float
+  atomics);
 * ``"ref"`` — the plain PyTorch version (:mod:`.ref`);
 * ``"auto"`` — chosen by where the tensor lies: a CPU tensor takes the
   plain version, a CUDA tensor the kernel.  There is no fallback: a CUDA
@@ -30,36 +32,56 @@ the kernel); nothing else touches it.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.analysis.sanitizers import hot_path
 from repro_torch.kernels.fed_reduce.ref import fed_reduce_ref
 
-__all__ = ["fed_reduce", "fed_reduce_ref", "plan"]
+__all__ = ["fed_reduce", "fed_reduce_ref", "plan", "Plan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_THREADS = 256  # threads per block of the partial kernel
+_THREADS = 256  # threads per block
 _BLOCKS_PER_SM = 4
-_MIN_ROWS_PER_THREAD = 8
+UNROLL = 8  # independent row loads in flight per thread (csrc UNROLL)
+_MIN_ROWS_PER_THREAD = UNROLL
 _MAX_SPLITS = 65535  # grid.y limit
 
 _lib = None
 _sm_counts: dict[int, int] = {}  # device index -> multiprocessor count
+# device index -> the kernel's int32 tickets, one per column tile, zeroed
+# once here and left at zero by every launch.  Launches on one stream share
+# them safely; two in flight on different streams would not.
+_tickets: dict[int, torch.Tensor] = {}
+
+
+class Plan(NamedTuple):
+    """One launch of the kernel: ``vec`` elements per load, a block of
+    ``tx x ty`` threads, ``splits`` row splits of ``rows_per_split`` rows
+    (grid.y) and ``tiles`` column tiles (grid.x, one ticket each)."""
+
+    vec: int
+    tx: int
+    ty: int
+    splits: int
+    rows_per_split: int
+    tiles: int
 
 
 def plan(n: int, d: int, itemsize: int, aligned: bool, *, sm_count: int
-         ) -> tuple[int, int, int, int, int]:
-    """Launch shape ``(vec, tx, ty, splits, rows_per_split)`` for an
-    ``(n, d)`` stack on a card with ``sm_count`` multiprocessors.
+         ) -> Plan:
+    """Launch shape for an ``(n, d)`` stack on a card with ``sm_count``
+    multiprocessors.
 
     ``vec`` elements per 16-byte load when the rows allow it (else 1);
     ``tx`` threads across column groups (at most 32, fewer for narrow
     leaves, one for the d = 1 bias) and ``ty = 256 / tx`` across rows;
     ``splits`` row splits so that about four blocks run per SM while each
-    thread still reduces at least eight rows.  The plan depends on shapes,
-    alignment and the card only, so the same input on the same card always
-    reduces in the same order.
+    thread still reduces at least one unrolled batch of ``UNROLL`` (eight)
+    rows, all loaded at once; ``tiles`` column tiles.  The plan depends on
+    shapes, alignment and the card only, so the same input on the same card
+    always reduces in the same order.
     """
     vec = 16 // itemsize
     if not aligned or d % vec:
@@ -67,12 +89,12 @@ def plan(n: int, d: int, itemsize: int, aligned: bool, *, sm_count: int
     groups = -(-d // vec)
     tx = min(32, 1 << (groups - 1).bit_length())
     ty = _THREADS // tx
-    grid_x = -(-groups // tx)
-    splits = max(1, min(-(-sm_count * _BLOCKS_PER_SM // grid_x),
+    tiles = -(-groups // tx)
+    splits = max(1, min(-(-sm_count * _BLOCKS_PER_SM // tiles),
                         -(-n // (ty * _MIN_ROWS_PER_THREAD)), _MAX_SPLITS))
     rows_per_split = -(-n // splits)
     splits = -(-n // rows_per_split)  # no empty split
-    return vec, tx, ty, splits, rows_per_split
+    return Plan(vec, tx, ty, splits, rows_per_split, tiles)
 
 
 def _library():
@@ -84,7 +106,8 @@ def _library():
         fn = lib.fed_reduce_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -92,13 +115,28 @@ def _library():
     return _lib
 
 
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else (
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else (
         torch.cuda.current_device())
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = _device_index(device)
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
     return _sm_counts[idx]
+
+
+def _ticket_buffer(device: torch.device, tiles: int) -> torch.Tensor:
+    """At least ``tiles`` zeroed int32 tickets on ``device``, allocated
+    once (and again only for a wider stack)."""
+    idx = _device_index(device)
+    buf = _tickets.get(idx)
+    if buf is None or buf.numel() < tiles:
+        buf = _tickets[idx] = torch.zeros(max(tiles, 64), dtype=torch.int32,
+                                          device=device)
+    return buf
 
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -130,18 +168,21 @@ def _fed_reduce_cuda(stack2d: torch.Tensor, weights: torch.Tensor,
     out = torch.empty(d, dtype=torch.float32, device=stack2d.device)
     if n == 0 or d == 0:
         return out.zero_()
-    vec, tx, ty, splits, rps = plan(n, d, stack2d.element_size(),
-                                    stack2d.data_ptr() % 16 == 0,
-                                    sm_count=_sm_count(stack2d.device))
-    partial = (torch.empty((splits, d), dtype=torch.float32,
-                           device=stack2d.device) if splits > 1 else None)
+    p = plan(n, d, stack2d.element_size(), stack2d.data_ptr() % 16 == 0,
+             sm_count=_sm_count(stack2d.device))
+    partial = tickets = None
+    if p.splits > 1:
+        partial = torch.empty((p.splits, d), dtype=torch.float32,
+                              device=stack2d.device)
+        tickets = _ticket_buffer(stack2d.device, p.tiles)
     with torch.cuda.device(stack2d.device):
         stream = torch.cuda.current_stream(stack2d.device).cuda_stream
         err = _library().fed_reduce_launch(
-            stack2d.data_ptr(), code, vec, weights.data_ptr(),
+            stack2d.data_ptr(), code, p.vec, weights.data_ptr(),
             None if scales is None else scales.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(), n, d, tx, ty,
-            splits, rps, stream)
+            None if partial is None else partial.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), n, d, p.tx,
+            p.ty, p.splits, p.rows_per_split, stream)
     if err != 0:
         raise RuntimeError(f"fed_reduce kernel launch failed: cudaError {err}")
     fed_reduce.launches += 1

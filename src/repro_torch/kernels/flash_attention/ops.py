@@ -4,11 +4,16 @@
 impl)``: q ``(b, sq, h, d)``, k/v ``(b, sk, kv, d)`` -> ``(b, sq, h, d)``.
 Implementations (``impl``):
 
-* ``"cuda"`` — the hand-written Hopper kernel (``csrc/flash_attention.cu``,
+* ``"cuda"`` — the hand-written Hopper kernels (``csrc/flash_attention.cu``,
   forward only), built with ``nvcc`` at first use and launched through
-  ``ctypes`` on the current stream.  Its tiles are its own (64 query rows x
-  64 keys); ``block_q``/``block_k`` shape the plain version only, and
-  passing them with ``impl="cuda"`` raises;
+  ``ctypes`` on the current stream.  :func:`kernel_for` picks one by dtype
+  and head width before the launch: bf16 at d = 64 or 128 (every published
+  config's width) runs on the tensor cores (``"wgmma"``: wgmma with TMA
+  loads), f32 and the other widths on plain FMAs (``"simt"``; f32 on tensor
+  cores would be TF32, outside the f32 tolerance).  Their tiles are their
+  own (64 query rows per warpgroup x 64 keys); ``block_q`` and
+  ``block_k`` shape the plain version only, and passing them with
+  ``impl="cuda"`` raises;
 * ``"chunked"`` — the plain online-softmax version (:mod:`.ref`) in
   ``block_q x block_k`` chunks (default: all of sq x 1024 keys, the
   reference's lowerable path);
@@ -19,8 +24,9 @@ Implementations (``impl``):
 
 The kernel has no backward: LM training (ROADMAP P12) adds one.
 
-``flash_attention.launches`` counts kernel launches (one per call that
-reaches the kernel); nothing else touches it.
+``flash_attention.launches`` counts kernel launches of either kernel (one
+per call that reaches a kernel), ``flash_attention.wgmma_launches`` those
+of the tensor-core kernel alone; nothing else touches them.
 """
 from __future__ import annotations
 
@@ -34,11 +40,12 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 __all__ = ["flash_attention", "attention_chunked", "attention_ref",
-           "HEAD_DIMS", "TILE"]
+           "kernel_for", "HEAD_DIMS", "WGMMA_HEAD_DIMS", "TILE"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128, 256)  # head widths the kernel is built for
-TILE = (64, 64)  # the kernel's (query rows, keys) per block step
+HEAD_DIMS = (16, 32, 64, 128, 256)  # head widths the kernels are built for
+WGMMA_HEAD_DIMS = (64, 128)  # bf16 widths the tensor-core kernel takes
+TILE = (64, 64)  # the kernels' (query rows, keys) per warpgroup step
 
 _lib = None
 
@@ -53,17 +60,41 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.flash_attention_wgmma_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _flash_attention_cuda(q, k, v, causal, q_offset, scale):
+def kernel_for(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call with this dtype and head width launches:
+    ``"wgmma"`` (bf16 at d in ``WGMMA_HEAD_DIMS``, tensor cores) or
+    ``"simt"`` (f32 at any of ``HEAD_DIMS``, bf16 at the others).  Raises
+    for what neither takes; a pure function of its arguments."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def _flash_attention_cuda(q, k, v, causal, q_offset, scale, kernel=None):
+    """Launches ``kernel`` (by default ``kernel_for(q.dtype, d)``; the
+    smoke names ``"simt"`` to time the plain-FMA kernel on bf16)."""
     if q.device.type != "cuda":
         raise ValueError(f"impl='cuda' needs CUDA tensors, q is on {q.device}")
-    code = _DTYPE_CODES.get(q.dtype)
-    if code is None:
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+    b, sq, h, d = q.shape
+    route = kernel_for(q.dtype, d)
+    kernel = route if kernel is None else kernel
+    if kernel not in (route, "simt"):
+        raise ValueError(f"the {kernel!r} kernel does not take {q.dtype} at "
+                         f"head_dim {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
@@ -75,24 +106,27 @@ def _flash_attention_cuda(q, k, v, causal, q_offset, scale):
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel needs a 16-byte "
                              f"aligned {name}")
-    b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
     if q_offset < 0:
         raise ValueError("q_offset must be >= 0")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
-            b, sq, sk, h, kvh, d, int(bool(causal)), int(q_offset),
-            float(scale), stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        shape = (b, sq, sk, h, kvh, d, int(bool(causal)), int(q_offset),
+                 float(scale), stream)
+        lib = _library()
+        if kernel == "wgmma":
+            err = lib.flash_attention_wgmma_launch(*args, *shape)
+        else:
+            err = lib.flash_attention_launch(*args, _DTYPE_CODES[q.dtype],
+                                             *shape)
     if err != 0:
-        raise RuntimeError(
-            f"flash_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention {kernel} kernel launch failed: "
+                           f"cudaError {err}")
     flash_attention.launches += 1
+    if kernel == "wgmma":
+        flash_attention.wgmma_launches += 1
     return out
 
 
@@ -135,3 +169,4 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.wgmma_launches = 0

@@ -230,6 +230,29 @@ def test_kernel_routes_refuse_cpu_tensors_and_fixed_tiles():
                               impl="cuda")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_flash_kernel_route_by_dtype_and_width(dtype, d):
+    """bf16 at the published configs' widths (64, 128) goes to the
+    tensor-core kernel; f32 (TF32 would break its 3e-5 tolerance) and the
+    other widths to the plain-FMA kernel."""
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    assert tflash.kernel_for(dtype, d) == want
+    assert tflash.kernel_for(dtype, d) == want  # a pure function
+
+
+@pytest.mark.parametrize("dtype,d,exc,match", [
+    (torch.float16, 64, TypeError, "float32 or bfloat16"),
+    (torch.float64, 128, TypeError, "float32 or bfloat16"),
+    (torch.bfloat16, 48, ValueError, "head_dim"),
+    (torch.float32, 96, ValueError, "head_dim"),
+    (torch.bfloat16, 512, ValueError, "head_dim")])
+def test_flash_kernel_route_refuses_what_neither_kernel_takes(dtype, d, exc,
+                                                              match):
+    with pytest.raises(exc, match=match):
+        tflash.kernel_for(dtype, d)
+
+
 @pytest.mark.parametrize("d,itemsize,tile", [(128, 2, 64), (128, 4, 32),
                                              (256, 4, 16), (16, 4, 64)])
 def test_decode_tile_fits_shared_memory(d, itemsize, tile):

@@ -84,6 +84,33 @@ def test_kernel_matches_plain_and_repeats(cuda_device, n, d, dtype):
     assert float(((a - plain).abs() / mag).max()) <= 1e-4
 
 
+def test_kernel_leaves_its_tickets_at_zero(cuda_device):
+    """One launch per call: calls of different shapes in a row each give
+    the same bits as a fresh call (a new, zeroed ticket buffer), so every
+    launch leaves its column tiles' tickets at 0."""
+    from repro_torch.kernels.fed_reduce import ops
+
+    shapes = [(8192, 256, "f32"), (8192, 1, "int8"), (1696, 256, "bf16"),
+              (70, 300, "f32"), (5616, 256, "int8"), (8192, 256, "f32")]
+    inputs = [tuple(t if t is None else t.to(cuda_device)
+                    for t in _inputs(i, n, d, dt))
+              for i, (n, d, dt) in enumerate(shapes)]
+    in_a_row = [fed_reduce(U, w, scales=s) for U, w, s in inputs]
+    torch.cuda.synchronize()
+    assert not ops._tickets[cuda_device.index or 0].any()
+    for (U, w, s), got in zip(inputs, in_a_row):
+        ops._tickets.clear()  # a fresh call: a new zeroed buffer
+        before = fed_reduce.launches
+        fresh = fed_reduce(U, w, scales=s)
+        torch.cuda.synchronize()
+        assert fed_reduce.launches == before + 1
+        assert torch.equal(got, fresh)
+        wf = w if s is None else w * s
+        mag = (wf.abs()[:, None] * U.float().abs()).sum(0).clamp_min(1e-30)
+        plain = fed_reduce(U, w, scales=s, impl="ref")
+        assert float(((got - plain).abs() / mag).max()) <= 1e-4
+
+
 def test_kernel_rejects_strided_and_takes_misaligned_stacks(cuda_device):
     U, w, _ = _inputs(1, 65, 257, "f32")
     with pytest.raises(ValueError, match="contiguous"):
@@ -165,13 +192,27 @@ ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 DECODE_CASES = [(2, 256, 8, 2, 64), (1, 512, 4, 4, 128), (3, 300, 6, 1, 64),
                 (2, 64, 16, 16, 32), (3, 96, 6, 2, 16),
                 (16, 577, 24, 8, 128)]
+# (b, sq, sk, h, kv, d, causal, q_offset).  Beyond the reference's cases,
+# the tensor-core kernel's edges (bf16 at d = 64, 128): sq not a multiple of
+# its 64- or 128-row tile (70, 96, 200), a key tail past sk, q_offset 104
+# and 255 with sq = 1, g in {1, 3, 4}, non-causal, a causal 128-row tile
+# with rows for one warpgroup only (sq = 60, sk = 200), and both serving
+# shapes (llama3.2-3b's 24/8 heads of 128, zamba2-1.2b's 32/32 heads of 64).
 FLASH_CASES = [(2, 256, 256, 4, 2, 64, True, 0),
                (1, 128, 384, 8, 8, 128, False, 0),
                (2, 96, 200, 6, 2, 64, True, 104),
                (1, 1, 256, 4, 1, 64, True, 255),
                (1, 512, 512, 2, 1, 32, True, 0),
                (2, 40, 40, 6, 2, 16, True, 0),
-               (2, 512, 512, 24, 8, 128, True, 0)]
+               (2, 512, 512, 24, 8, 128, True, 0),
+               (2, 200, 200, 12, 4, 128, True, 0),
+               (2, 96, 200, 6, 2, 128, True, 104),
+               (1, 1, 256, 4, 1, 128, True, 255),
+               (2, 200, 330, 8, 2, 64, False, 0),
+               (3, 70, 130, 4, 4, 128, False, 0),
+               (1, 60, 200, 4, 2, 128, True, 0),
+               (16, 512, 512, 24, 8, 128, True, 0),
+               (16, 512, 512, 32, 32, 64, True, 0)]
 
 
 def _randn(gen, shape, dtype, device):
@@ -237,12 +278,18 @@ def test_flash_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
     v = _randn(gen, (b, sk, kv, d), dtype, cuda_device)
     kw = dict(causal=causal, q_offset=off)
     before = flash_attention.launches
+    wgmma_before = flash_attention.wgmma_launches
     a = flash_attention(q, k, v, **kw)
     a2 = flash_attention(q, k, v, **kw)
     plain = flash_attention(q, k, v, impl="ref", **kw)
     chunked = flash_attention(q, k, v, impl="chunked", **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 2
+    # bf16 at d = 64 and 128 runs on the tensor cores; f32 and the other
+    # widths on the plain-FMA kernel.
+    on_tensor_cores = dtype == torch.bfloat16 and d in (64, 128)
+    assert flash_attention.wgmma_launches == wgmma_before + (
+        2 if on_tensor_cores else 0)
     assert torch.equal(a, a2)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(a.float(), plain.float(), atol=tol, rtol=tol)

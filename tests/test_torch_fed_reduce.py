@@ -15,6 +15,7 @@ from repro.kernels.fed_reduce.ops import fed_reduce as j_fed_reduce  # noqa: E40
 import repro_torch.core.federation as t_fed  # noqa: E402
 import repro_torch.core.updates as t_upd  # noqa: E402
 from repro_torch.kernels.fed_reduce.ops import (  # noqa: E402
+    UNROLL,
     fed_reduce as t_fed_reduce,
     plan,
 )
@@ -83,10 +84,13 @@ def test_rejects_bad_operands():
 
 @pytest.mark.parametrize("n,d,itemsize", [
     (8192, 256, 4), (8192, 256, 2), (8192, 256, 1), (8192, 1, 4),
-    (8192, 1, 1), (1696, 256, 4), (1, 1, 4), (100000, 300, 4), (5, 7, 2)])
+    (8192, 1, 1), (1696, 256, 4), (1, 1, 4), (100000, 300, 4), (5, 7, 2),
+    (5616, 4096, 2)])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_launch_plan_covers_every_row_and_column(n, d, itemsize, aligned):
-    vec, tx, ty, splits, rps = plan(n, d, itemsize, aligned, sm_count=132)
+    p = plan(n, d, itemsize, aligned, sm_count=132)
+    vec, tx, ty, splits, rps, tiles = p
+    assert (p.vec, p.tiles) == (vec, tiles)
     assert tx * ty == 256 and ty & (ty - 1) == 0
     assert vec in (1, 16 // itemsize)
     if vec > 1:
@@ -94,19 +98,24 @@ def test_launch_plan_covers_every_row_and_column(n, d, itemsize, aligned):
     assert splits * rps >= n and (splits - 1) * rps < n  # no empty split
     assert 1 <= splits <= 65535
     groups = -(-d // vec)
-    assert -(-groups // tx) * tx * vec >= d
-    assert plan(n, d, itemsize, aligned, sm_count=132) == (
-        vec, tx, ty, splits, rps)
+    # One launch: grid (tiles, splits), one ticket per column tile.
+    assert tiles == -(-groups // tx)
+    assert tiles * tx * vec >= d and (tiles - 1) * tx * vec < d
+    assert plan(n, d, itemsize, aligned, sm_count=132) == p
 
 
 @pytest.mark.parametrize("sm_count", [1, 78, 114, 132])
 def test_launch_plan_scales_splits_with_the_card(sm_count):
     """The split count follows the card's multiprocessors (about four
-    blocks per SM) until each thread is down to eight rows."""
-    vec, tx, ty, splits, rps = plan(8192, 256, 4, True, sm_count=sm_count)
-    assert (vec, tx, ty) == (4, 32, 8)
-    assert splits == min(-(-sm_count * 4 // 2), -(-8192 // (ty * 8)))
+    blocks per SM) until each thread is down to one unrolled batch of
+    eight row loads."""
+    vec, tx, ty, splits, rps, tiles = plan(8192, 256, 4, True,
+                                           sm_count=sm_count)
+    assert (vec, tx, ty, tiles) == (4, 32, 8, 2)
+    assert splits == min(-(-sm_count * 4 // 2),
+                         -(-8192 // (ty * UNROLL)))
     assert splits * rps >= 8192 and (splits - 1) * rps < 8192
+    assert UNROLL >= 4 and -(-rps // ty) >= UNROLL
 
 
 def _stacked(rng, n):
