@@ -7,10 +7,12 @@
     python3 chip_smoke.py --ssm-only      # the SSD kernel and SSM serving only
 
 All four kernels (``fed_reduce``, ``decode_attention``, ``flash_attention``
-with its tensor-core and plain-FMA kernels, ``ssd_scan``) are built first
-from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``, one compiler
-per source, all at once.  Nine phases; any
-failure raises and the script exits non-zero:
+and ``ssd_scan``, the last three with tensor-core and plain-FMA paths) are
+built first from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``, one
+compiler per source, all at once; ptxas's registers and spills of the new
+kernels and the tensor-core instructions in each library's SASS
+(``cuobjdump``: HGMMA, HMMA) are printed.  Nine phases; any failure raises
+and the script exits non-zero:
 
 1. **Kernel.**  Runs ``fed_reduce`` on the card against its plain
    PyTorch version at every shape the slice's ``RoundPlan`` gives it: each
@@ -45,11 +47,14 @@ failure raises and the script exits non-zero:
    DECODE_CASES) in f32 and bf16: error within 3e-5 (f32) / 2e-2 (bf16),
    exact zeros for empty slots, stale-KV invariance of a reused slot
    (1e-6), bitwise repeatability; bf16 at d = 64 and 128 runs on the
-   tensor-core flash kernel, the rest on the plain-FMA one.  Times the
-   llama decode shape and both prefill shapes (llama's and zamba2's) with
-   CUDA events: kernel (and, for flash, the plain-FMA kernel on the same
-   bf16 inputs), plain version, ``F.scaled_dot_product_attention`` (GQA; a
-   boolean length mask for decode) as the library yardstick, and the bound.
+   tensor-core flash kernel, the rest on the plain-FMA one; a
+   ``decode_attention`` call is one kernel (``torch.profiler``).  Times
+   both decode shapes (llama's, also at the continuous engine's own
+   occupancy: 3 busy slots of 16) and both prefill shapes (llama's and
+   zamba2's) with CUDA events: kernel (and, for flash, the plain-FMA
+   kernel on the same bf16 inputs), plain version,
+   ``F.scaled_dot_product_attention`` (GQA; a boolean length mask for
+   decode) as the library yardstick, and the bound.
 5. **Serving slice.**  llama3.2-3b at full width (28 layers, d_model 3072,
    24 query / 8 KV heads, vocab 128256 padded to 129024) in bf16, params
    from ``transformer.init`` with a seeded CUDA generator: a 64-request
@@ -77,8 +82,10 @@ failure raises and the script exits non-zero:
    64), chunk 128), a length that pads (500) and decays that overflow above
    the diagonal (A = -64, dt = 0.1).  y and the state within 3e-4 absolute
    in f32, y within 2e-2 relative in bf16, no NaN, two launches bitwise
-   equal.  Times the serving shapes (inputs cycled past the L2): kernel,
-   plain version and the bound; no PyTorch op computes the scan.
+   equal; bf16 at the models' shapes runs on the tensor-core kernel, the
+   rest on the plain-FMA one.  Times the serving shapes (inputs cycled past
+   the L2): kernel, the plain-FMA kernel on the same bf16 inputs, plain
+   version and the bound; no PyTorch op computes the scan.
 8. **SSM serving.**  mamba2-1.3b and then zamba2-1.2b at full width in
    bf16, params from each model's ``init`` with a seeded CUDA generator,
    the same trace through ``BatchedServer(batch_size=16)`` (the continuous
@@ -86,11 +93,12 @@ failure raises and the script exits non-zero:
    to the CPU run's with the smoke-size model), wall ms per prefill and
    decode iteration, decode tokens/s, peak memory; launch counters zeroed
    before and read after: one ``ssd_scan`` per layer per prefill (48 x 4,
-   38 x 4), and for zamba2 one tensor-core ``flash_attention`` per
-   shared-block application per prefill (7 x 4) and one
-   ``decode_attention`` per application per decode step (7 x 256), at
-   shapes phases 4 and 7 checked; a profiled window (1 prefill + 20
-   decode steps) gives the idle share.
+   38 x 4), every one on the tensor-core kernel, and for zamba2 one
+   tensor-core ``flash_attention`` per shared-block application per
+   prefill (7 x 4) and one ``decode_attention`` per application per
+   decode step (7 x 256), at shapes phases 4 and 7 checked; a profiled
+   window (1 prefill + 20 decode steps) gives the idle share and shows
+   each counted scan and decode call as one kernel.
 9. **SSM cross-check.**  Each model at full width and 2 layers (zamba2 with
    its shared block at layer 0): the kernel path against the plain path
    (``block_prefill(impl="chunked")`` layer by layer; for zamba2's
@@ -103,7 +111,11 @@ card's name and power limit from ``nvidia-smi``, and before that one JSON
 line with the kernels' numbers (each kernel's launches summed over the
 main paths that ran it, each path's counter read just after it).
 
-``--profile`` runs the federated slice alone instead: per wire, round 1
+``--compare-with DIR`` times the decode and scan kernels of the checkout at
+DIR (e.g. the parent commit, unpacked by ``git archive``) against this
+checkout's at the serving shapes, in turns (DIR, this, this, DIR), each in
+its own process and build, and prints one ``{"kernel_ab": ...}`` line per
+run.  ``--profile`` runs the federated slice alone instead: per wire, round 1
 under ``torch.profiler`` (device busy time as the union of kernel
 intervals, device idle share, device time by kernel) and round 2 under
 ``cProfile`` (host time by function).  It prints one JSON line per profiled
@@ -648,6 +660,7 @@ DECODE_REPLACES = "src/repro/kernels/decode_attention/decode_attention.py:31"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:33"
 FLASH_KERNEL = "flash_fwd_wgmma_kernel"  # bf16 at d = 64, 128: tensor cores
+DECODE_KERNEL = "decode_kernel (mma stream)"  # bf16 at d = 64, 128: mma.sync
 
 
 def _attn_tol(dtype) -> float:
@@ -689,13 +702,12 @@ def _timed_entry(name, source, replaces, errs, serve_row) -> dict:
 
 def decode_cases(dev, cases=DECODE_CASES) -> tuple[dict, set]:
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, scatter_prefill_rows)
 
     gen = torch.Generator().manual_seed(1)
-    checked, errs, serve_row = set(), [], None
+    checked, errs, serve_row, calls = set(), [], None, []
     for case in cases:
         b, s, h, kv, d = case
         for dtype in (torch.float32, torch.bfloat16):
@@ -734,41 +746,98 @@ def decode_cases(dev, cases=DECODE_CASES) -> tuple[dict, set]:
             if not stale <= 1e-6:
                 raise AssertionError(f"{name} reads stale KV: {stale:.3e}")
             errs.append(err)
+            calls.append((q, kc, vc, lens))
             checked.add(("decode", case, _dtype_name(dtype)))
             row = {"case": list(case), "dtype": _dtype_name(dtype),
                    "max_abs_err": err, "stale_kv_diff": stale,
                    "bitwise_repeatable": True, "empty_slots_zero": True}
-            if case == DECODE_SERVE and dtype == torch.bfloat16:
-                n = _copies(2 * kc.numel() * kc.element_size())
-                ks = [kc.clone() for _ in range(n)]
-                vs = [vc.clone() for _ in range(n)]
-                kts = [k.transpose(1, 2).contiguous() for k in ks]
-                vts = [v.transpose(1, 2).contiguous() for v in vs]
-                q4 = q[:, :, None, :]
-                mask = (torch.arange(s, device=dev)[None] < lens[:, None])[
-                    :, None, None, :]
-                row["ms"] = time_ms(lambda i: decode_attention(
-                    q, ks[i % n], vs[i % n], lens, impl="cuda"))
-                row["plain_ms"] = time_ms(lambda i: decode_attention(
-                    q, ks[i % n], vs[i % n], lens, impl="ref"), iters=10)
-                row["library_ms"] = time_ms(
-                    lambda i: F.scaled_dot_product_attention(
-                        q4, kts[i % n], vts[i % n], attn_mask=mask,
-                        enable_gqa=True))
-                rows_read = int(lens.sum())
-                moved = (2 * rows_read * kv * d * kc.element_size()
-                         + 2 * q.numel() * q.element_size() + 4 * b)
-                ops = 4 * rows_read * h * d
-                bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-                ops_ms = ops / BF16_FLOPS * 1e3
-                row.update(bound_ms=max(bytes_ms, ops_ms),
-                           bound_by="bytes" if bytes_ms >= ops_ms
-                           else "operations", bytes=moved, flops=ops)
-                serve_row = row
-                del ks, vs, kts, vts
+            if (case in (DECODE_SERVE, DECODE_ZAMBA)
+                    and dtype == torch.bfloat16):
+                row.update(decode_timing(q, kc, vc, lens, case))
+                if case == DECODE_SERVE:
+                    # The continuous engine's decode steps: 3 busy slots of
+                    # 16 (lengths 512-577), the rest empty.
+                    busy = torch.zeros(b, dtype=torch.int32)
+                    busy[-3:] = torch.tensor([512, 545, 577],
+                                             dtype=torch.int32)
+                    occ = decode_timing(q, kc, vc, busy.to(dev), case)
+                    row["main_occupancy"] = {
+                        "lengths": busy.tolist(),
+                        **{k: occ[k] for k in ("ms", "plain_ms",
+                                               "library_ms", "bound_ms",
+                                               "bound_by")}}
+                    serve_row = row
             log(json.dumps({"decode_attention_case": row}))
-    return (_timed_entry("decode_attention", DECODE_SOURCE, DECODE_REPLACES,
-                         errs, serve_row), checked)
+    # One kernel per call, the splits' fold included: each call once more
+    # to warm it, then twice per case in a profiled window.
+    calls = calls[1::2][:2] + calls[-2:]  # both bf16 serving shapes first
+    # After the federated phases the profiler drops a window's first few
+    # kernel records (never adds any), so the window opens with a pad of
+    # tiny fill kernels, which the count leaves out.
+    pad = torch.empty(1, device=dev)
+
+    def window():
+        for _ in range(16):
+            pad.fill_(0.0)
+        for _ in range(2):
+            for c in calls:
+                decode_attention(*c, impl="cuda")
+    for c in calls:
+        decode_attention(*c, impl="cuda")
+    launched = [r for r in device_kernels(window)
+                if "fill" not in r[0].lower()]
+    n_launched = sum(n for _, _, n in launched)
+    if n_launched != 2 * len(calls) or any("decode_kernel" not in k
+                                           for k, _, _ in launched):
+        raise AssertionError(f"{2 * len(calls)} decode_attention calls "
+                             f"launched {launched}, not one decode_kernel "
+                             f"each")
+    log(f"decode_attention: {2 * len(calls)} calls, {n_launched} kernel "
+        f"launches ({', '.join(sorted({k for k, _, _ in launched}))[:200]})")
+    entry = _timed_entry("decode_attention", DECODE_SOURCE, DECODE_REPLACES,
+                         errs, serve_row)
+    entry["kernel"] = DECODE_KERNEL  # the main path's: bf16 at d = 64, 128
+    return entry, checked
+
+
+def decode_timing(q, kc, vc, lens, case) -> dict:
+    """A bf16 serving shape's times at these lengths: the kernel, the plain
+    version, SDPA (GQA, a boolean length mask) and the bound (the K/V rows
+    these lengths need, read once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    b, s, h, kv, d = case
+    n = _copies(2 * kc.numel() * kc.element_size())
+    ks = [kc.clone() for _ in range(n)]
+    vs = [vc.clone() for _ in range(n)]
+    kts = [k.transpose(1, 2).contiguous() for k in ks]
+    vts = [v.transpose(1, 2).contiguous() for v in vs]
+    q4 = q[:, :, None, :]
+    mask = (torch.arange(s, device=q.device)[None] < lens[:, None])[
+        :, None, None, :]
+    row = {"kernel": DECODE_KERNEL}
+    row["ms"] = time_ms(lambda i: decode_attention(
+        q, ks[i % n], vs[i % n], lens, impl="cuda"), iters=100)
+    row["plain_ms"] = time_ms(lambda i: decode_attention(
+        q, ks[i % n], vs[i % n], lens, impl="ref"), iters=10)
+    row["library_ms"] = time_ms(
+        lambda i: F.scaled_dot_product_attention(
+            q4, kts[i % n], vts[i % n], attn_mask=mask, enable_gqa=True),
+        iters=100)
+    rows_read = int(lens.clamp(0, s).sum())
+    moved = (2 * rows_read * kv * d * kc.element_size()
+             + 2 * q.numel() * q.element_size() + 4 * b)
+    ops = 4 * rows_read * h * d
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_FLOPS * 1e3
+    row.update(bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes=moved, flops=ops)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
 
 
 def causal_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
@@ -967,27 +1036,34 @@ def device_kernels(fn) -> list:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # let the tracer settle before the first launch
         fn()
         torch.cuda.synchronize()
     return kernel_time(prof)[2]
 
 
-def profile_window(fn, steps: int) -> dict:
+def profile_window(fn, steps: int, match=()) -> dict:
     """``fn()`` under ``torch.profiler`` (CUDA activity only): its host wall,
-    the device's busy time and idle share, and the kernels that took it."""
+    the device's busy time and idle share, the kernels that took it, and
+    how many kernels' names contain each string of ``match``."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # let the tracer settle before the first launch
         w0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - w0) * 1e3
     busy, n, by_name = kernel_time(prof)
+    names = [e.name for e in prof.events()
+             if getattr(e, "device_type", None) == DeviceType.CUDA]
     return {"steps": steps, "wall_ms": wall, "device_busy_ms": busy,
             "kernels": n, "device_idle_share": 1.0 - busy / wall,
-            "top_kernels_ms": by_name[:8]}
+            "top_kernels_ms": by_name[:8],
+            "matched": {m: sum(m in k for k in names) for m in match}}
 
 
 def serving_profile(cfg, params, prompts, card: str) -> dict:
@@ -1258,6 +1334,7 @@ SSD_RAGGED = (2, 500, 64, 64, 1, 128, 128)
 SSD_OVERFLOW = (2, 256, 8, 64, 1, 128, 128)
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:30"
+SSD_KERNELS = {"tc": "ssd_scan_tc_kernel", "simt": "ssd_scan_kernel"}
 
 
 def ssd_inputs(gen, case, dtype, dev, *, overflow: bool = False):
@@ -1300,7 +1377,8 @@ def ssd_cases(dev) -> tuple[dict, set]:
     NaN, two launches bitwise equal.  The serving shapes are timed."""
     import torch
 
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ops import kernel_for, ssd_scan
 
     gen = torch.Generator().manual_seed(3)
     cases = [(c, False) for c in SSD_CASES + [SSD_MAMBA, SSD_ZAMBA,
@@ -1311,6 +1389,7 @@ def ssd_cases(dev) -> tuple[dict, set]:
         for dtype in (torch.float32, torch.bfloat16):
             args = ssd_inputs(gen, case, dtype, dev, overflow=overflow)
             q = case[-1]
+            tc0 = ssd_scan.tc_launches
             y, s = ssd_scan(*args, chunk=q, impl="cuda")
             y2, s2 = ssd_scan(*args, chunk=q, impl="cuda")
             name = (f"ssd_scan{case}{' overflow' if overflow else ''} "
@@ -1322,7 +1401,12 @@ def ssd_cases(dev) -> tuple[dict, set]:
             bitwise = bool(torch.equal(y, y2) and torch.equal(s, s2))
             if not bitwise:
                 raise AssertionError(f"{name} is not repeatable")
+            route = kernel_for(dtype, case[3], case[5], min(q, case[1]))
+            if ssd_scan.tc_launches - tc0 != (2 if route == "tc" else 0):
+                raise AssertionError(f"{name} should run on the {route} "
+                                     f"kernel")
             row = {"case": list(case), "dtype": _dtype_name(dtype),
+                   "kernel": SSD_KERNELS[route],
                    "overflow": overflow, "bitwise_repeatable": bitwise,
                    "finite": finite}
             for plain in ("chunked", "ref"):
@@ -1348,7 +1432,11 @@ def ssd_cases(dev) -> tuple[dict, set]:
                 n = _copies(nbytes)
                 sets = [[t.clone() for t in args] for _ in range(n)]
                 row["ms"] = time_ms(lambda i: ssd_scan(
-                    *sets[i % n], chunk=q, impl="cuda"), iters=20)
+                    *sets[i % n], chunk=q, impl="cuda"), iters=40)
+                # The plain-FMA kernel (the previous design) on the same
+                # inputs, for comparison in this call.
+                row["simt_ms"] = time_ms(lambda i: ops._ssd_scan_cuda(
+                    *sets[i % n], q, kernel="simt"), iters=10)
                 row["plain_ms"] = time_ms(lambda i: ssd_scan(
                     *sets[i % n], chunk=q, impl="chunked"), iters=5)
                 row["library_ms"] = None  # no PyTorch op computes the scan
@@ -1358,8 +1446,10 @@ def ssd_cases(dev) -> tuple[dict, set]:
                     main_row = row
                 del sets
             log(json.dumps({"ssd_scan_case": row}))
-    return (_timed_entry("ssd_scan", SSD_SOURCE, SSD_REPLACES, errs,
-                         main_row), checked)
+    entry = _timed_entry("ssd_scan", SSD_SOURCE, SSD_REPLACES, errs,
+                         main_row)
+    entry["kernel"] = SSD_KERNELS["tc"]  # the main path's: bf16 serving
+    return entry, checked
 
 
 # --------------------------------------------------------------------------
@@ -1384,8 +1474,13 @@ def _ssm_shapes(cfg, batch: int) -> set:
 
 def ssm_profile(api, cfg, params, prompts, card: str) -> dict:
     """Device idle share of fixed-batch serving: one prefill of 16 prompts,
-    then 20 greedy decode steps, each window profiled."""
+    then 20 greedy decode steps, each window profiled; in those windows
+    every counted ``ssd_scan`` tensor-core launch and ``decode_attention``
+    call must be one kernel of its name."""
     import torch
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     toks = torch.as_tensor(prompts[:SERVE_SLOTS], dtype=torch.int32,
                            device=params["ln_f"].device)
@@ -1404,8 +1499,24 @@ def ssm_profile(api, cfg, params, prompts, card: str) -> dict:
             logits, state["cache"] = api.decode_step(
                 params, state["tok"], cfg, state["cache"])
             greedy(logits)
-    out = {"prefill": profile_window(prefill, 1),
-           "decode_steps": profile_window(decode, 20)}
+    # Each counted launch is one kernel of its name: the bf16 scans on the
+    # tensor-core kernel, each decode_attention call one decode_kernel.
+    for _ in range(2):  # again if the tracer dropped records (see phase 4)
+        tc0 = ssd_scan.tc_launches
+        out = {"prefill": profile_window(prefill, 1, ("ssd_scan_tc_kernel",))}
+        d0 = decode_attention.launches
+        out["decode_steps"] = profile_window(decode, 20, ("decode_kernel",))
+        seen = {"ssd_scan_tc_kernel": (out["prefill"]["matched"][
+                    "ssd_scan_tc_kernel"], ssd_scan.tc_launches - tc0),
+                "decode_kernel": (out["decode_steps"]["matched"][
+                    "decode_kernel"], decode_attention.launches - d0)}
+        if all(k == c for k, c in seen.values()):
+            break
+    if any(k != c for k, c in seen.values()) or seen[
+            "ssd_scan_tc_kernel"][1] != cfg.num_layers:
+        raise AssertionError(f"[{cfg.name}] profiled kernels vs counted "
+                             f"launches: {seen}")
+    out["kernels_vs_launches"] = seen
     log(json.dumps({"ssm_serving_profile": out, "arch": cfg.name,
                     "card": card}))
     return out
@@ -1445,8 +1556,8 @@ def ssm_serving_phase(dev, arch: str, checked: set, card: str) -> dict:
     timer = WallTimer()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ssd_scan.launches = 0  # zeroed just before the main path ...
-    decode_attention.launches = flash_attention.launches = 0
+    ssd_scan.launches = ssd_scan.tc_launches = 0  # zeroed just before the
+    decode_attention.launches = flash_attention.launches = 0  # main path ...
     flash_attention.wgmma_launches = 0
     w0 = time.perf_counter()
     server = serve.BatchedServer(
@@ -1460,13 +1571,16 @@ def ssm_serving_phase(dev, arch: str, checked: set, card: str) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - w0
     launches = {"ssd_scan": ssd_scan.launches,
+                "ssd_scan_tc": ssd_scan.tc_launches,
                 "flash_attention": flash_attention.launches,
                 "flash_attention_wgmma": flash_attention.wgmma_launches,
                 "decode_attention": decode_attention.launches}  # ... read
     rep = server.report()
     n_prefill = len(server.metrics)
     n_decode = n_prefill * SERVE_DECODE
+    # Every bf16 prefill's scan runs on the tensor-core kernel.
     expected = {"ssd_scan": cfg.num_layers * n_prefill,
+                "ssd_scan_tc": cfg.num_layers * n_prefill,
                 "flash_attention": apps * n_prefill,
                 "flash_attention_wgmma": apps * n_prefill,
                 "decode_attention": apps * n_decode}
@@ -1610,6 +1724,146 @@ def ssm_phases(dev, checked: set, card: str) -> dict:
 
 # --------------------------------------------------------------------------
 
+# --compare-with DIR: the decode and scan kernels of this checkout and of
+# the checkout at DIR (e.g. the parent commit), timed in turns (DIR, this,
+# this, DIR) on one card, each in its own process with its own build.  The
+# code runs against either package: it uses only the wrappers' public
+# calls, with inputs drawn from fixed seeds.
+AB_CODE = r"""
+import json, math, sys
+sys.path.insert(0, sys.argv[1] + "/src")
+import torch
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+def time_ms(fn, iters):
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    a.record()
+    for i in range(iters):
+        fn(i)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+def copies(nbytes):
+    return max(1, min(16, math.ceil(3 * 50 * 2**20 / nbytes)))
+
+dev = torch.device("cuda")
+out = {"decode": {}, "ssd": {}}
+for name, (b, s, h, kv, d), lens in (
+        ("serve_ragged", (16, 577, 24, 8, 128), None),
+        ("serve_main_occupancy", (16, 577, 24, 8, 128),
+         [0] * 13 + [512, 545, 577]),
+        ("serve_one_row", (16, 577, 24, 8, 128), [1] * 16),
+        ("serve_full", (16, 577, 24, 8, 128), [577] * 16),
+        ("zamba_ragged", (16, 577, 32, 32, 64), None)):
+    g = torch.Generator().manual_seed(21)
+    q = torch.randn((b, h, d), generator=g).bfloat16().to(dev)
+    k = torch.randn((b, s, kv, d), generator=g).bfloat16()
+    v = torch.randn((b, s, kv, d), generator=g).bfloat16()
+    if lens is None:
+        ln = torch.randint(1, s + 1, (b,), generator=g, dtype=torch.int32)
+        ln[0], ln[-1] = 0, s
+    else:
+        ln = torch.tensor(lens, dtype=torch.int32)
+    ln = ln.to(dev)
+    n = copies(2 * k.numel() * 2)
+    ks = [k.to(dev) for _ in range(n)]
+    vs = [v.to(dev) for _ in range(n)]
+    out["decode"][name] = time_ms(lambda i: decode_attention(
+        q, ks[i % n], vs[i % n], ln, impl="cuda"), 100)
+for name, n_state in (("mamba", 128), ("zamba", 64)):
+    g = torch.Generator().manual_seed(22)
+    b, l, h, p = 16, 512, 64, 64
+    x = (torch.randn((b, l, h, p), generator=g) * 0.5).bfloat16()
+    dt = torch.randn((b, l, h), generator=g).abs() * 0.1 + 0.01
+    A = -torch.randn(h, generator=g).abs() - 0.1
+    B = (torch.randn((b, l, 1, n_state), generator=g) * 0.3).bfloat16()
+    C = (torch.randn((b, l, 1, n_state), generator=g) * 0.3).bfloat16()
+    args = [t.to(dev) for t in (x, dt, A, B, C)]
+    n = copies(sum(t.numel() * t.element_size() for t in args))
+    sets = [[t.clone() for t in args] for _ in range(n)]
+    out["ssd"][name] = time_ms(lambda i: ssd_scan(*sets[i % n], chunk=128,
+                                                 impl="cuda"), 20)
+print(json.dumps(out))
+"""
+
+
+def compare_kernels(other: str) -> dict:
+    """``--compare-with``: the kernel times of ``other`` and of this
+    checkout, in turns (other, this, this, other), on one card."""
+    runs = []
+    for label, root in (("other", other), ("this", ROOT), ("this", ROOT),
+                        ("other", other)):
+        proc = subprocess.run([sys.executable, "-c", AB_CODE,
+                               os.path.abspath(root)], capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel timing of {root} failed:\n"
+                               f"{proc.stderr[-3000:]}")
+        row = {"run": label, "root": root,
+               **json.loads(proc.stdout.strip().splitlines()[-1])}
+        log(json.dumps({"kernel_ab": row}))
+        runs.append(row)
+    return {"runs": runs}
+
+
+# The new kernels' instantiations on the main paths, by mangled-name part.
+PTXAS_KERNELS = {
+    "decode_attention": {
+        "d128 g<=4": "decode_kernelI13__nv_bfloat16Li128ELi4ELb1E",
+        "d64 g<=4": "decode_kernelI13__nv_bfloat16Li64ELi4ELb1E"},
+    "ssd_scan": {"n128 q128": "ssd_scan_tc_kernelILi128ELi128E",
+                 "n64 q128": "ssd_scan_tc_kernelILi64ELi128E"}}
+
+
+def ptxas_summary(name: str) -> dict:
+    """Registers and spill bytes ptxas reported for the main paths'
+    instantiations of kernel ``name`` (from its build log)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    lines = _build.BUILD_LOGS.get(name, "").splitlines()
+    out = {}
+    for label, needle in PTXAS_KERNELS.get(name, {}).items():
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and needle in line:
+                text = " ".join(lines[i + 1:i + 4])
+                regs = re.search(r"Used (\d+) registers", text)
+                spill = re.search(r"(\d+) bytes spill stores", text)
+                out[label] = {
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(spill.group(1)) if spill else None}
+                break
+    return out
+
+
+def tensor_core_sass(libs: dict) -> dict:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in each built
+    library's SASS (``cuobjdump -sass``); raises unless flash_attention and
+    ssd_scan hold HGMMA and decode_attention HMMA."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = {}
+    for name, path in libs.items():
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                              text=True, check=True).stdout.splitlines()
+        out[name] = {op: sum(op + "." in line or op + " " in line
+                             for line in sass) for op in ("HGMMA", "HMMA")}
+    want = {"flash_attention": "HGMMA", "ssd_scan": "HGMMA",
+            "decode_attention": "HMMA"}
+    if any(out[name][op] == 0 for name, op in want.items()):
+        raise AssertionError(f"tensor-core instructions missing: {out}")
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1637,6 +1891,9 @@ def main(argv=None) -> int:
     p.add_argument("--profile", action="store_true",
                    help="profile the federated slice's rounds 1 and 2 "
                         "instead")
+    p.add_argument("--compare-with", metavar="DIR",
+                   help="time the decode and scan kernels of the checkout "
+                        "at DIR against this one's, in turns, instead")
     args = p.parse_args(argv)
 
     import torch
@@ -1653,6 +1910,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    if args.compare_with:
+        compare_kernels(args.compare_with)
+        log(card)
+        return 0
     t0 = time.perf_counter()
     libs = _build.build_all(KERNELS)
     log(f"built {', '.join(lib.name for lib in libs.values())} in "
@@ -1661,6 +1922,10 @@ def main(argv=None) -> int:
         log(f"--- {name}: ptxas")
         log("\n".join(line for line in _build.BUILD_LOGS.get(name, "")
                       .splitlines() if "Used" in line or "spill" in line))
+    ptxas = {name: ptxas_summary(name) for name in ("decode_attention",
+                                                      "ssd_scan")}
+    log(json.dumps({"ptxas": ptxas}))
+    log(json.dumps({"tensor_core_sass": tensor_core_sass(libs)}))
     if args.profile:
         run_slice(dev, args.devices, dim=CONFIG.dim, cohort=COHORT,
                   rounds=max(3, args.rounds), bench=args.benchmarking_devices,
@@ -1733,6 +1998,9 @@ def main(argv=None) -> int:
                 e["launches"] = llama[key] + sum(v[key] for v in ssm.values())
             ssd_entry["launches"] = sum(v["ssd_scan"] for v in ssm.values())
         entries += [dec_entry, flash_entry, ssd_entry]
+    for e in entries:
+        if ptxas.get(e["name"]):
+            e["ptxas"] = ptxas[e["name"]]
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -13,12 +13,61 @@
 // the final state (b, h, p, n) is f32.  The wrapper pads l to a multiple of
 // the chunk with dt = 0 identity steps (kernels/ssd_scan/ops.py).
 //
-// Bound: HBM bytes at the serving shapes (x and y dominate; ~0.05 ms at
-// mamba2-1.3b's 16 x 512 prefill), with the operations close behind on the
-// tensor cores.  This version runs plain f32 FMAs on operands read from
-// shared memory, about 0.6 loads per FMA, so shared-memory loads and their
-// latency bound it, far above the HBM bound; tensor cores and sharing C.B^T
-// across the heads of a group are later work.  The design:
+// Two kernels, chosen by the wrapper before any launch
+// (kernels/ssd_scan/ops.py::kernel_for): ssd_scan_tc_kernel for bf16 at the
+// model shapes (p = 64, n in {64, 128}, chunk 64 or 128) on the tensor
+// cores, ssd_scan_kernel (plain f32 FMAs) for f32 and the other shapes.
+//
+// Bound: HBM bytes at the serving shapes (x and y dominate; 0.052 ms at
+// mamba2-1.3b's 16 x 512 prefill), with the operations (~30 GFLOP over the
+// causal triangles) close behind at the bf16 tensor-core rate.
+//
+// ssd_scan_tc_kernel (bf16).  The plain-FMA kernel spends ~0.6 shared
+// loads per f32 FMA and recomputes C.B^T for every head; this one puts all
+// four products on the tensor cores (wgmma m64nNk16, f32 accumulators),
+// computes C.B^T once for the heads a block carries, and keeps operands in
+// bf16 shared memory:
+//
+//   * One block of two warpgroups per (pair of heads of one group,
+//     sequence): 16 x 32 = 512 blocks at the serving shapes, one per SM at
+//     a time (~165 KB of shared memory at n = 128).  The block walks the
+//     chunks in order, as the TPU grid does; each head's state S (P x n f32)
+//     stays in the accumulator registers of one warpgroup for the whole
+//     walk and goes to HBM once, at the end.
+//   * TMA loads each chunk's C and B (q x n) and both heads' x (q x 64)
+//     into 128B-swizzled tiles on one mbarrier; the next chunk's loads are
+//     issued as soon as the current chunk is done with the tiles.  dt is
+//     read with plain loads while they fly.  dt * A is cumsummed by one warp
+//     per head in ssd_scan_kernel's fixed order.
+//   * C.B^T: warpgroup w takes rows [64 w, 64 w + 64) of the chunk (both
+//     at q = 64, one head each), A = C and B = B both K-major, the columns
+//     above its rows skipped.  It stays in registers for both heads.
+//   * y: acc = C.S^T (A = C, B = S K-major, S rounded to bf16), scaled per
+//     row by exp(L_t); then M = C.B^T exp(L_t - L_s) dt_s, selected to 0
+//     above the diagonal (never multiplied by a mask: exp overflows there
+//     at A = -64), is rounded to bf16 in registers, where the accumulator
+//     layout is already wgmma's A-register layout, and acc += M.x with x as
+//     an MN-major B (the transpose bit).  y leaves from registers in bf16.
+//   * The state update S' = exp(L_q) S + (w x)^T B, w_s = exp(L_q - L_s)
+//     dt_s: w x overwrites x in shared memory (per row of the swizzled tile,
+//     so the swizzle needs no thought), as two bf16 terms hi = bf16(w x)
+//     and lo = bf16(w x - hi); two wgmmas per K-step, A = w x and B = B
+//     both MN-major (transposed).  One bf16 rounding of w x would cost 2^-9
+//     of every term: at the serving shape the final state would then miss
+//     its 3e-4 tolerance (tests/test_torch_ssd.py emulates both schemes).
+//     Rounding M and S to bf16 for y is within y's 2e-2.
+//   * Every sum runs in a fixed order and nothing is atomic: the same input
+//     gives the same bits on every launch.
+//   * Descriptors follow flash_attention.cu's, which the card has run: the
+//     128B swizzle, 1024-byte aligned tiles, 8-row groups 1024 bytes apart;
+//     K-major K-steps of 32 bytes inside the atom, MN-major K-steps of 16
+//     rows (2 KB) with 64-column boxes a leading byte offset apart.
+//     Shared memory written by threads (w x, bf16 S) is fenced to the async
+//     proxy before a wgmma reads it.
+//
+// ssd_scan_kernel (f32, and bf16 at other shapes) runs plain f32 FMAs on
+// operands read from shared memory, about 0.6 loads per FMA, so
+// shared-memory loads and their latency bound it, far above the HBM bound:
 //
 //   * One block per (head, batch).  The TPU grid walks the chunks in order
 //     with the state in VMEM scratch; here the block walks them in a loop
@@ -42,6 +91,7 @@
 // Plain C interface, loaded through ctypes; the launch goes on the caller's
 // stream and the function returns its cudaError_t.
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -338,6 +388,512 @@ cudaError_t launch(const void* x, const void* dt, const void* A, const void* B,
   return cudaGetLastError();
 }
 
+
+// --------------------------------------------------------------------------
+// ssd_scan_tc_kernel: bf16 on the tensor cores (wgmma, TMA, mbarriers).
+
+namespace tc {
+
+constexpr int P = 64;           // head dim: one 128-byte row of bf16
+constexpr int TC_THREADS = 256;  // two warpgroups
+constexpr uint32_t SW_ROWS8 = 1024;  // 8 swizzled 128-byte rows
+constexpr uint32_t S_BOX = 64 * 128;  // 64 rows x 64 bf16 columns
+
+template <int N, int Q>
+struct Layout {
+  static constexpr int nb = N / 64;                    // 64-column boxes of B, C, S
+  static constexpr uint32_t box = Q * 128;             // Q rows x 64 bf16 columns
+  static constexpr uint32_t bc_tile = nb * box;        // Q x N bf16
+  static constexpr uint32_t x_tile = box;              // Q x P bf16
+  static constexpr uint32_t s_tile = nb * S_BOX;       // P x N bf16
+  static constexpr uint32_t c_off = 0;
+  static constexpr uint32_t b_off = c_off + bc_tile;
+  static constexpr uint32_t x_off = b_off + bc_tile;   // x of heads 0, 1 (then w x, hi)
+  static constexpr uint32_t xl_off = x_off + 2 * x_tile;  // w x, lo
+  static constexpr uint32_t s_off = xl_off + 2 * x_tile;  // bf16 state of heads 0, 1
+  static constexpr uint32_t f_off = s_off + 2 * s_tile;   // dt, L, exp(L), w: [4][2][Q] f32
+  static constexpr uint32_t bar_off = f_off + 4 * 2 * Q * 4;
+  static constexpr size_t smem = bar_off + 8 + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spins until the barrier's phase with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory at dst; completion is counted in bytes on the mbarrier.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator register
+// across the asynchronous wgmma that owns it.
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+template <int K>
+__device__ __forceinline__ void pin_all(float (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) pin(r[i]);
+}
+
+// A wgmma shared-memory descriptor for a 128B-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = 128B.
+// K-major: 8-row groups 1024 bytes apart (sbo), K-steps of 32 bytes inside
+// the atom.  MN-major: 64-element MN blocks lbo apart, 8 K-rows 1024 bytes
+// apart, K-steps of 16 rows = 2 KB.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// D (64 x 64, f32) += A (64 x 16) . B (16 x 64), both bf16 from shared
+// memory; TA / TB = 1 reads that operand MN-major (transposed).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D (64 x 128, f32) += A (64 x 16) . B (16 x 128), both bf16 from shared
+// memory, both MN-major (transposed).
+__device__ __forceinline__ void wgmma_ss_n128_tt(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (16 x 64, bf16 from
+// shared memory, MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The state update of one head: S (P x N) += A^T . B with A = (w x) (Q x P)
+// and B the chunk's B (Q x N), both MN-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_state(float (&s)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128_tt(s, da, db);
+  } else {
+    wgmma_ss_n64<1, 1>(s, da, db);
+  }
+}
+
+// Grid (head pairs x groups, batch).  A block takes two heads of one group
+// (one if the group's head count is odd) of one sequence and walks its
+// chunks; warpgroup w computes the rows [64 w, 64 w + 64) of every head's y
+// when Q = 128 (head w's rows when Q = 64) and carries head w's state.
+template <int N, int Q>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap x_map,
+                   const __grid_constant__ CUtensorMap b_map,
+                   const __grid_constant__ CUtensorMap c_map, const float* __restrict__ dt,
+                   const float* __restrict__ A, __nv_bfloat16* __restrict__ y,
+                   float* __restrict__ state, int l, int h, int hpg, int pairs) {
+  using LY = Layout<N, Q>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t c_s = base + LY::c_off;
+  const uint32_t b_s = base + LY::b_off;
+  const uint32_t bar = base + LY::bar_off;
+  float* dts = reinterpret_cast<float*>(smem + LY::f_off);  // [2][Q]
+  float* Ls = dts + 2 * Q;
+  float* eL = Ls + 2 * Q;
+  float* ws = eL + 2 * Q;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gi = blockIdx.x / pairs;
+  const int h0 = gi * hpg + 2 * (blockIdx.x % pairs);
+  const int nh = min(2, gi * hpg + hpg - h0);  // heads in this block
+  const int bi = blockIdx.y;
+  const int nc = l / Q;
+  // Accumulator fragment of wgmma m64nN: thread (warp w of its warpgroup,
+  // lane) holds rows r0 = 16 w + lane / 4 and r0 + 8 of the 64; element i
+  // sits in row r0 + 8 ((i >> 1) & 1) and column 8 (i >> 2) + c2 + (i & 1).
+  const int r0 = (warp & 3) * 16 + (lane >> 2);
+  const int c2 = (lane & 3) * 2;
+  const int rt = Q == 128 ? wg : 0;  // this warpgroup's 64-row tile of y
+
+  const CUtensorMap* xm = &x_map;
+  const CUtensorMap* bm = &b_map;
+  const CUtensorMap* cm = &c_map;
+  // Chunk c's C, B and x tiles, one mbarrier phase per chunk (one thread).
+  auto issue = [=](int c) {
+    mbar_expect_tx(bar, 2 * LY::bc_tile + nh * LY::x_tile);
+#pragma unroll
+    for (int x = 0; x < LY::nb; ++x) {
+      tma_load_4d(c_s + x * LY::box, cm, bar, 64 * x, gi, c * Q, bi);
+      tma_load_4d(b_s + x * LY::box, bm, bar, 64 * x, gi, c * Q, bi);
+    }
+    for (int hh = 0; hh < nh; ++hh)
+      tma_load_4d(base + LY::x_off + hh * LY::x_tile, xm, bar, 0, h0 + hh, c * Q, bi);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) issue(0);
+
+  float st[N / 2];  // this warpgroup's head's state, P x N f32
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) st[i] = 0.f;
+
+  for (int c = 0; c < nc; ++c) {
+    const size_t row0 = static_cast<size_t>(bi) * l + static_cast<size_t>(c) * Q;
+    for (int i = tid; i < nh * Q; i += TC_THREADS) {
+      const int hh = i / Q, t = i - hh * Q;
+      dts[hh * Q + t] = dt[(row0 + t) * h + h0 + hh];
+    }
+    __syncthreads();
+    if (warp < nh) {
+      // Inclusive cumsum of dt * A in a fixed order (ssd_scan_kernel's):
+      // each lane sums its run of consecutive steps, then a shuffle scan
+      // adds the runs before it.
+      const float a_h = A[h0 + warp];
+      constexpr int per = Q / 32;
+      const int lo = lane * per;
+      float* L = Ls + warp * Q;
+      const float* d = dts + warp * Q;
+      float run = 0.f;
+#pragma unroll
+      for (int i = 0; i < per; ++i) {
+        run += d[lo + i] * a_h;
+        L[lo + i] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const float prev = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane > 0) {
+#pragma unroll
+        for (int i = 0; i < per; ++i) L[lo + i] += prev;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < nh * Q; i += TC_THREADS) {
+      const int hh = i / Q;
+      const float LQ = Ls[hh * Q + Q - 1];
+      eL[i] = expf(Ls[i]);
+      ws[i] = expf(LQ - Ls[i]) * dts[i];
+    }
+    __syncthreads();
+    mbar_wait(bar, c & 1);
+
+    // C.B^T for this warpgroup's rows, once for every head of the block:
+    // columns [0, 64) in cb0, [64, 128) in cb1 (rows past 63 only).
+    float cb0[32], cb1[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) cb0[i] = cb1[i] = 0.f;
+    pin_all(cb0);
+    pin_all(cb1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint32_t koff = (kk >> 2) * LY::box + (kk & 3) * 32;
+      const uint64_t da = sw128_desc(c_s + koff + rt * 64 * 128, 16, SW_ROWS8);
+      wgmma_ss_n64<0, 0>(cb0, da, sw128_desc(b_s + koff, 16, SW_ROWS8));
+      if (rt == 1) wgmma_ss_n64<0, 0>(cb1, da, sw128_desc(b_s + koff + 64 * 128, 16, SW_ROWS8));
+    }
+    wg_commit();
+    wg_wait_all();
+    pin_all(cb0);
+    pin_all(cb1);
+
+    for (int hh = 0; hh < nh; ++hh) {
+      if (Q == 64 && hh != wg) continue;  // at Q = 64 warpgroup w takes head w
+      const float* L = Ls + hh * Q;
+      const float* d = dts + hh * Q;
+      const int t0 = rt * 64 + r0, t1 = t0 + 8;
+      const uint32_t x_s = base + LY::x_off + hh * LY::x_tile;
+      float acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      if (c > 0) {
+        // exp(L_t) (C_t . S^T): S in bf16, K-major (P rows x N).
+        const uint32_t s_s = base + LY::s_off + hh * LY::s_tile;
+        pin_all(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk) {
+          const uint32_t koff = (kk >> 2) * LY::box + (kk & 3) * 32;
+          wgmma_ss_n64<0, 0>(acc, sw128_desc(c_s + koff + rt * 64 * 128, 16, SW_ROWS8),
+                             sw128_desc(s_s + (kk >> 2) * S_BOX + (kk & 3) * 32, 16, SW_ROWS8));
+        }
+        wg_commit();
+        wg_wait_all();
+        pin_all(acc);
+        const float e0 = eL[hh * Q + t0], e1 = eL[hh * Q + t1];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] *= (i & 2) ? e1 : e0;
+      }
+
+      // M = C.B^T exp(L_t - L_s) dt_s for s <= t, selected to 0 above the
+      // diagonal (never multiplied by a mask), rounded to bf16 as wgmma's A
+      // registers: K-step kk holds keys 16 kk .. 16 kk + 15.
+      const float Lt0 = L[t0], Lt1 = L[t1];
+      uint32_t pa[Q / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < Q / 16; ++kk) {
+        if (kk < 4 * (rt + 1)) {
+          float mv[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int s = 16 * kk + 8 * (j >> 2) + c2 + (j & 1);
+            const int t = (j & 2) ? t1 : t0;
+            const float cbv = (kk < 4 ? cb0 : cb1)[8 * (kk & 3) + j];
+            const float e = __expf(((j & 2) ? Lt1 : Lt0) - L[s]) * d[s];
+            mv[j] = s <= t ? cbv * e : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(mv[2 * j], mv[2 * j + 1]);
+        }
+      }
+      // y += M . x: x MN-major (P contiguous), 16 steps of the chunk per K-step.
+      pin_all(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < Q / 16; ++kk) {
+        if (kk < 4 * (rt + 1))
+          wgmma_rs_n64_tb(acc, pa[kk], sw128_desc(x_s + kk * 2048, LY::box, SW_ROWS8));
+      }
+      wg_commit();
+      wg_wait_all();
+      pin_all(acc);
+
+      __nv_bfloat16* y0 = y + ((row0 + t0) * h + h0 + hh) * P;
+      __nv_bfloat16* y1 = y + ((row0 + t1) * h + h0 + hh) * P;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(y0 + 8 * j + c2) =
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(y1 + 8 * j + c2) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+    __syncthreads();  // every wgmma and thread is done with C, x and S
+
+    // w x in place of x, split in two bf16 terms: hi = bf16(w x) and lo =
+    // bf16(w x - hi), so the state update keeps ~16 bits of each term
+    // (one bf16 rounding would cost 2^-9 of every term).  The swizzle
+    // permutes 16-byte chunks within a 128-byte row: chunk i is row i / 8.
+    for (int i = tid; i < nh * Q * 8; i += TC_THREADS) {
+      const int hh = i / (Q * 8), k = i - hh * Q * 8;
+      const float w = ws[hh * Q + k / 8];
+      uint4* xp = reinterpret_cast<uint4*>(smem + LY::x_off + hh * LY::x_tile) + k;
+      uint4* lp = reinterpret_cast<uint4*>(smem + LY::xl_off + hh * LY::x_tile) + k;
+      uint4 v = *xp, lo;
+      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+      __nv_bfloat162* el = reinterpret_cast<__nv_bfloat162*>(&lo);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(e[j]);
+        const float a = f.x * w, b = f.y * w;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(a, b);
+        const float2 fh = __bfloat1622float2(hi);
+        e[j] = hi;
+        el[j] = __floats2bfloat162_rn(a - fh.x, b - fh.y);
+      }
+      *xp = v;
+      *lp = lo;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // S' = exp(L_Q) S + (w x)^T B, for this warpgroup's head.
+    if (wg < nh) {
+      const float eQ = expf(Ls[wg * Q + Q - 1]);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) st[i] *= eQ;
+      const uint32_t xh = base + LY::x_off + wg * LY::x_tile;
+      const uint32_t xl = base + LY::xl_off + wg * LY::x_tile;
+      pin_all(st);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < Q / 16; ++kk) {
+        const uint64_t db = sw128_desc(b_s + kk * 2048, LY::box, SW_ROWS8);
+        wgmma_state<N>(st, sw128_desc(xh + kk * 2048, LY::box, SW_ROWS8), db);
+        wgmma_state<N>(st, sw128_desc(xl + kk * 2048, LY::box, SW_ROWS8), db);
+      }
+      wg_commit();
+      wg_wait_all();
+      pin_all(st);
+      if (c + 1 < nc) {
+        // bf16 S for the next chunk's C.S^T, K-major with the 128B swizzle:
+        // row p, 16-byte chunk j of a box at chunk j ^ (p & 7).
+        unsigned char* s_s = smem + LY::s_off + wg * LY::s_tile;
+#pragma unroll
+        for (int i = 0; i < N / 2; i += 2) {
+          const int p = r0 + 8 * ((i >> 1) & 1);
+          const int k = 8 * (i >> 2) + c2;
+          const int kc = k & 63;
+          *reinterpret_cast<uint32_t*>(s_s + (k >> 6) * S_BOX + p * 128 +
+                                       (((kc >> 3) ^ (p & 7)) << 4) + (kc & 7) * 2) =
+              pack_bf16(st[i], st[i + 1]);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+    }
+    __syncthreads();  // B, x, w x and S are free: load the next chunk
+    if (tid == 0 && c + 1 < nc) issue(c + 1);
+  }
+
+  if (wg < nh) {
+    float* out = state + (static_cast<size_t>(bi) * h + h0 + wg) * P * N;
+#pragma unroll
+    for (int i = 0; i < N / 2; i += 2) {
+      const int p = r0 + 8 * ((i >> 1) & 1);
+      const int k = 8 * (i >> 2) + c2;
+      *reinterpret_cast<float2*>(out + p * N + k) = make_float2(st[i], st[i + 1]);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so no -lcuda is needed.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess && p != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (b, rows, heads, d) bf16 tensor as a 4-D map with 64 x 1 x box_rows x 1
+// boxes (64 columns = 128 bytes, the 128B swizzle's limit).
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int b, int rows, int heads,
+              int d, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(heads) * d * 2,
+                                 static_cast<cuuint64_t>(rows) * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int N, int Q>
+cudaError_t launch(const void* x, const float* dt, const float* A, const void* B, const void* C,
+                   void* y, float* state, int b, int l, int h, int g, cudaStream_t stream) {
+  using LY = Layout<N, Q>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ssd_scan_tc_kernel<N, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(LY::smem));
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap x_map, b_map, c_map;
+  if (!make_map(encode, &x_map, x, b, l, h, P, Q) || !make_map(encode, &b_map, B, b, l, g, N, Q) ||
+      !make_map(encode, &c_map, C, b, l, g, N, Q)) {
+    return cudaErrorInvalidValue;
+  }
+  const int hpg = h / g;
+  const int pairs = (hpg + 1) / 2;
+  ssd_scan_tc_kernel<N, Q><<<dim3(static_cast<unsigned>(pairs * g), static_cast<unsigned>(b)),
+                             TC_THREADS, LY::smem, stream>>>(
+      x_map, b_map, c_map, dt, A, static_cast<__nv_bfloat16*>(y), state, l, h, hpg, pairs);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // x: (b, l, h, p); dt: (b, l, h) f32; A: (h,) f32; B, C: (b, l, g, n);
@@ -362,4 +918,30 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
     err = launch<__nv_bfloat16>(x, dt, A, B, C, y, state, b, l, h, p, g, n, chunk, stream);
   }
   return static_cast<int>(err);
+}
+
+// The tensor-core kernel: x, B, C bf16 with p = 64, n in {64, 128} and
+// chunk in {64, 128}; dt, A f32; y bf16; state f32.  Shapes and layouts as
+// ssd_scan_launch, contiguous and 16-byte aligned; l a multiple of chunk.
+extern "C" int ssd_scan_tc_launch(const void* x, const void* dt, const void* A,
+                                  const void* B, const void* C, void* y,
+                                  void* state, int b, int l, int h, int p,
+                                  int g, int n, int chunk, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (b < 1 || b > 65535 || l < 1 || h < 1 || g < 1 || h % g != 0 ||
+      p != tc::P || chunk < 1 || l % chunk != 0 || ((h / g + 1) / 2) * g > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  float* sf = static_cast<float*>(state);
+  if (n == 128 && chunk == 128)
+    return static_cast<int>(tc::launch<128, 128>(x, dtf, Af, B, C, y, sf, b, l, h, g, stream));
+  if (n == 128 && chunk == 64)
+    return static_cast<int>(tc::launch<128, 64>(x, dtf, Af, B, C, y, sf, b, l, h, g, stream));
+  if (n == 64 && chunk == 128)
+    return static_cast<int>(tc::launch<64, 128>(x, dtf, Af, B, C, y, sf, b, l, h, g, stream));
+  if (n == 64 && chunk == 64)
+    return static_cast<int>(tc::launch<64, 64>(x, dtf, Af, B, C, y, sf, b, l, h, g, stream));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

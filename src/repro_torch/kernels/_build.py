@@ -20,6 +20,9 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Per source: decode_attention instantiates ~30 kernels (head widths x
+# dtypes x head groups); compiling them on every core halves its build.
+EXTRA_FLAGS = {"decode_attention": ("--split-compile=0",)}
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -45,10 +48,14 @@ def find_nvcc() -> str:
         "built from csrc/ at first use")
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(flags(name)).encode()).hexdigest()[:16]
     return build_dir() / f"{name}-{digest}.so"
 
 
@@ -73,7 +80,7 @@ def build_all(names) -> dict[str, pathlib.Path]:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [find_nvcc(), *flags(name), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))

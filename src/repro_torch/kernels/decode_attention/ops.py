@@ -12,10 +12,13 @@ a ``(b, s, kv, d)`` cache.  Implementations (``impl``):
   plain version, a CUDA tensor the kernel.  There is no fallback: a CUDA
   tensor the kernel does not take raises.
 
-The kernel splits each sequence's cache over several thread blocks
-(flash-decoding) and combines the split partials in split order, so
-``block_k`` here is the number of cache rows one split covers; ``None``
-takes :func:`plan`'s choice.  The plain version ignores it.
+The kernel (one launch per call) splits each sequence's cache over
+several thread blocks (flash-decoding) and folds the split partials in
+split order inside the same launch.  :func:`plan` fixes the number of
+splits from the shapes alone; each block finds its own rows from the
+sequence's length on the card (:func:`split_range`).  ``block_k`` fixes the
+rows one split covers instead (its meaning since the first kernel); the
+plain version ignores it.
 
 Besides the op, this module carries the KV-*arena* slot helpers used by
 continuous batching (``core.serving``): a fixed-capacity cache ``(slots,
@@ -28,11 +31,12 @@ back what was there.  Unlike the reference's functional updates they write
 the cache *in place* (and return it), so an arena is never copied.
 
 ``decode_attention.launches`` counts kernel launches (one per call that
-reaches the kernel); nothing else touches it.
+reaches the kernel, one kernel per launch); nothing else touches it.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -52,56 +56,117 @@ __all__ = [
     "gather_slots",
     "slot_sources",
     "plan",
+    "split_range",
     "tile_rows",
+    "smem_bytes",
+    "kernel_for",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)  # head widths the kernel is built for
+MMA_HEAD_DIMS = (64, 128)  # bf16 widths the tensor-core stream takes
 MAX_GROUP = 16  # query heads per KV head the kernel takes
-_TILE_BYTES = 32 * 1024  # one K tile plus one V tile in shared memory
-_MAX_TILE = 64
-_CTAS_PER_SM = 4
+ROW_GROUP = 16  # a by-length split covers whole groups of 16 rows
+MAX_CLUSTER = 8  # splits the kernel folds within one thread-block cluster
+SMEM_PER_SM = 233472  # Hopper: 228 KB of shared memory per SM
+_SMEM_RESERVED = 1024  # the runtime's share per resident block
+_WARPS, _STAGES, _STEPS = 4, 3, 4  # csrc/decode_attention.cu's ring
+_MMA_ROWS = 16  # cache rows per tile of the tensor-core stream
 
 _lib = None
 _sm_counts: dict[int, int] = {}
+_tickets: dict[int, torch.Tensor] = {}  # device index -> zeroed int32
+
+
+class Plan(NamedTuple):
+    splits: int  # thread blocks per (sequence, KV head)
+    fixed_rows: int  # rows per split, or 0: each block's rows by length
+
+
+def kernel_for(dtype: torch.dtype, d: int) -> str:
+    """How the kernel streams a tile: ``"mma"`` (bf16 at d = 64, 128, every
+    model's width: the tensor cores, the g heads as the rows of an
+    m16n8k16 product) or ``"simt"`` (f32, whose 3e-5 tolerance TF32 would
+    break, and bf16 at the other widths: plain FMAs).  Raises for what
+    neither takes; a pure function of its arguments."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"decode_attention kernel takes float32 or "
+                        f"bfloat16, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got d={d}")
+    return "mma" if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS else "simt"
 
 
 def tile_rows(d: int, itemsize: int) -> int:
-    """Cache rows the kernel stages per step: the largest power of two up to
-    64 whose K and V tiles fit in 32 KiB (64 for bf16 at d <= 128)."""
-    t = _MAX_TILE
-    while t > 1 and 2 * t * d * itemsize > _TILE_BYTES:
-        t //= 2
-    return t
+    """Cache rows one warp stages per ring stage: 16 on the tensor-core
+    stream (``csrc/decode_attention.cu::MmaGeo::TR``); on the plain-FMA
+    stream (``Geo::WR``) four steps of ``32 / (lanes per row)`` rows, a row
+    read in 16-byte chunks by ``d * itemsize / 16`` lanes (at most 32)."""
+    if itemsize == 2 and d in MMA_HEAD_DIMS:
+        return _MMA_ROWS
+    lanes = min(32, d * itemsize // 16)
+    return _STEPS * (32 // lanes)
 
 
-def plan(b: int, kv_heads: int, s: int, d: int, itemsize: int, *,
-         sm_count: int, block_k: "int | None" = None
-         ) -> tuple[int, int, int]:
-    """Launch shape ``(tile, rows_per_split, splits)`` for a ``(b, s, kv,
-    d)`` cache on a card with ``sm_count`` multiprocessors.
+def smem_bytes(d: int, itemsize: int, g: int) -> int:
+    """The kernel's shared memory (``csrc/decode_attention.cu::
+    smem_bytes``): each warp's 3-stage ring of K and V tiles, then each
+    warp's (m, l, acc) for ``g`` heads and the block's folded partial, in
+    f32."""
+    ring = _WARPS * _STAGES * 2 * tile_rows(d, itemsize) * d * itemsize
+    return ring + (_WARPS + 1) * g * (d + 2) * 4
+
+
+def blocks_per_sm(d: int, itemsize: int, g: int) -> int:
+    """Blocks of the kernel one SM holds at once, by shared memory."""
+    return max(1, min(16, SMEM_PER_SM // (smem_bytes(d, itemsize, g)
+                                          + _SMEM_RESERVED)))
+
+
+def plan(b: int, kv_heads: int, s: int, *, d: int, itemsize: int, g: int,
+         sm_count: int, block_k: "int | None" = None) -> Plan:
+    """Launch shape for a ``(b, s, kv, d)`` cache on a card with
+    ``sm_count`` multiprocessors: one thread block per (sequence, KV head,
+    split).
 
     The Hopper analogue of the reference's VMEM heuristic
-    ``tuned_block_k``.  Rule: one thread block per (sequence, KV head,
-    split); split the cache capacity ``s`` until about four blocks run per
-    SM, but never below one tile of rows per split; round each split up to
-    whole tiles.  The plan reads shapes only — never ``lengths``, which live
-    on the card — so it needs no host sync, and the same input always
-    combines its splits in the same order.  ``block_k`` fixes the rows per
-    split instead.
+    ``tuned_block_k``.  Rule: as many splits as keep every block of the
+    launch resident at once (:func:`blocks_per_sm` x ``sm_count`` blocks
+    over all (sequence, KV head) groups: a second wave would wait for the
+    first one's whole chain of round trips), but no more splits than the
+    capacity ``s`` has groups of 16 rows, nor than one cluster of blocks
+    folds (8: the splits of a sequence fold through distributed shared
+    memory; more, as a fixed ``block_k`` may give, fold through an int
+    ticket and L2).  The plan reads shapes only, never ``lengths`` (they live
+    on the card: reading them would sync the host); each block cuts its own
+    sequence by length (:func:`split_range`), and the same input always
+    folds its splits in the same order.  ``block_k`` fixes the rows per
+    split instead, and the splits cover the capacity.
     """
-    if min(b, kv_heads, s, d) < 1:
+    if min(b, kv_heads, s) < 1:
         raise ValueError("empty decode-attention shape")
-    tile = tile_rows(d, itemsize)
-    if block_k is None:
-        want = -(-_CTAS_PER_SM * sm_count // (b * kv_heads))
-        splits = max(1, min(want, -(-s // tile)))
-        rows = -(-(-(-s // splits)) // tile) * tile
-    else:
+    if block_k is not None:
         if block_k < 1:
             raise ValueError("block_k must be >= 1")
-        rows = block_k
-    return tile, rows, -(-s // rows)
+        return Plan(-(-s // block_k), block_k)
+    want = blocks_per_sm(d, itemsize, g) * sm_count // (b * kv_heads)
+    return Plan(max(1, min(want, -(-s // ROW_GROUP), MAX_CLUSTER)), 0)
+
+
+def split_range(length: int, split: int, p: Plan, s: int) -> tuple[int, int]:
+    """Rows ``[lo, hi)`` of the cache that block ``split`` of a sequence of
+    ``length`` valid rows (capacity ``s``) reads under plan ``p``: what the
+    kernel's ``split_rows`` computes on the card.  By length, each split
+    takes ``ceil(length / splits)`` rows rounded up to whole groups of 16,
+    so the splits cover ``[0, length)`` once in equal shares and those past
+    the end are empty (``lo == hi``); length 0 reads nothing."""
+    n = min(max(length, 0), s)
+    if n == 0:
+        return 0, 0
+    rows = p.fixed_rows or -(-(-(-n // p.splits)) // ROW_GROUP) * ROW_GROUP
+    lo = split * rows
+    return (lo, min(lo + rows, n)) if lo < n else (n, n)
 
 
 def _library():
@@ -111,30 +176,43 @@ def _library():
 
         lib = load_library("decode_attention")
         fn = lib.decode_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else (
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else (
         torch.cuda.current_device())
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = _device_index(device)
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
     return _sm_counts[idx]
 
 
+def _ticket_buffer(device: torch.device, groups: int) -> torch.Tensor:
+    """At least ``groups`` zeroed int32 tickets on ``device``, allocated
+    once (and again only for more groups); every launch leaves them at 0."""
+    idx = _device_index(device)
+    buf = _tickets.get(idx)
+    if buf is None or buf.numel() < groups:
+        buf = _tickets[idx] = torch.zeros(max(groups, 256),
+                                          dtype=torch.int32, device=device)
+    return buf
+
+
 def _decode_attention_cuda(q, k_cache, v_cache, lengths, scale, block_k):
     if q.device.type != "cuda":
         raise ValueError(
             f"impl='cuda' needs CUDA tensors, q is on {q.device}")
-    code = _DTYPE_CODES.get(q.dtype)
-    if code is None:
-        raise TypeError(f"decode_attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+    kernel_for(q.dtype, q.shape[2])  # raises for what neither stream takes
+    code = _DTYPE_CODES[q.dtype]
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
@@ -154,18 +232,20 @@ def _decode_attention_cuda(q, k_cache, v_cache, lengths, scale, block_k):
         raise ValueError(f"decode_attention kernel takes head_dim in "
                          f"{HEAD_DIMS} and at most {MAX_GROUP} query heads "
                          f"per KV head, got d={d}, g={g}")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+    if q.data_ptr() % 16 or k_cache.data_ptr() % 16 or \
+            v_cache.data_ptr() % 16:
         raise ValueError("decode_attention kernel needs 16-byte aligned "
-                         "caches")
+                         "q and caches")
     out = torch.empty_like(q)
-    tile, rows, splits = plan(b, kvh, s, d, q.element_size(),
-                              sm_count=_sm_count(q.device), block_k=block_k)
-    part_o = part_ml = None
-    if splits > 1:
-        part_o = torch.empty((b, kvh, splits, g, d), dtype=torch.float32,
+    p = plan(b, kvh, s, d=d, itemsize=q.element_size(), g=g,
+             sm_count=_sm_count(q.device), block_k=block_k)
+    part_o = part_ml = tickets = None
+    if p.splits > 1:
+        part_o = torch.empty((b, kvh, p.splits, g, d), dtype=torch.float32,
                              device=q.device)
-        part_ml = torch.empty((b, kvh, splits, g, 2), dtype=torch.float32,
+        part_ml = torch.empty((b, kvh, p.splits, g, 2), dtype=torch.float32,
                               device=q.device)
+        tickets = _ticket_buffer(q.device, b * kvh)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _library().decode_attention_launch(
@@ -173,7 +253,9 @@ def _decode_attention_cuda(q, k_cache, v_cache, lengths, scale, block_k):
             lengths.data_ptr(), out.data_ptr(),
             None if part_o is None else part_o.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
-            code, b, s, kvh, g, d, rows, splits, float(scale), stream)
+            None if tickets is None else tickets.data_ptr(),
+            code, b, s, kvh, g, d, p.splits, p.fixed_rows, float(scale),
+            stream)
     if err != 0:
         raise RuntimeError(
             f"decode_attention kernel launch failed: cudaError {err}")

@@ -253,30 +253,98 @@ def test_flash_kernel_route_refuses_what_neither_kernel_takes(dtype, d, exc,
         tflash.kernel_for(dtype, d)
 
 
-@pytest.mark.parametrize("d,itemsize,tile", [(128, 2, 64), (128, 4, 32),
-                                             (256, 4, 16), (16, 4, 64)])
+@pytest.mark.parametrize("d,itemsize,tile", [(128, 2, 16), (128, 4, 4),
+                                             (256, 4, 4), (16, 4, 32)])
 def test_decode_tile_fits_shared_memory(d, itemsize, tile):
+    """Rows per warp tile: 16 on the bf16 tensor-core stream (d = 64, 128),
+    four steps of 32 / (lanes per row) rows on the plain-FMA one; a block
+    of any head group fits one SM's opt-in shared memory."""
     assert tdec.tile_rows(d, itemsize) == tile
-    assert 2 * tile * d * itemsize <= 32 * 1024
+    assert tile * d * itemsize <= 4 * 1024  # one warp's K tile
+    for g in (1, 3, 16):
+        assert tdec.smem_bytes(d, itemsize, g) <= tdec.SMEM_PER_SM - 1024
+        assert tdec.blocks_per_sm(d, itemsize, g) >= 1
+
+
+def _plan(b, kv, s, d=128, itemsize=2, g=3, **kw):
+    return tdec.plan(b, kv, s, d=d, itemsize=itemsize, g=g, sm_count=132,
+                     **kw)
 
 
 def test_decode_plan_rule():
-    """About four blocks per SM, splits of whole tiles, never below one
-    tile, capacity (not lengths) decides; block_k overrides."""
-    # The serving arena: 16 slots x 8 KV heads = 128 groups, 577 rows.
-    assert tdec.plan(16, 8, 577, 128, 2, sm_count=132) == (64, 128, 5)
-    # One sequence, one KV head: split down to one tile per block.
-    assert tdec.plan(1, 1, 512, 128, 2, sm_count=132) == (64, 64, 8)
-    # Many groups already fill the card: one split.
-    assert tdec.plan(128, 8, 4096, 128, 2, sm_count=132) == (64, 4096, 1)
-    # A short cache stays one split.
-    assert tdec.plan(2, 2, 40, 64, 4, sm_count=132) == (64, 64, 1)
-    assert tdec.plan(2, 2, 300, 64, 4, sm_count=132, block_k=16) == (
-        64, 16, 19)
-    for args in [(3, 6, 300, 64, 2), (1, 4, 512, 128, 4), (16, 8, 577, 128, 2)]:
-        tile, rows, splits = tdec.plan(*args, sm_count=132)
-        s = args[2]
-        assert rows % tile == 0 and splits == -(-s // rows)
-        assert (splits - 1) * rows < s <= splits * rows
+    """As many splits as keep the launch's blocks resident at once, at most
+    the capacity's 16-row groups and one cluster (8); the capacity, never
+    the lengths, decides; block_k fixes the rows per split instead."""
+    # The serving arena, bf16 tensor-core stream: two ~104 KB blocks fit an
+    # SM, 264 over 16 slots x 8 KV heads = 128 groups.
+    assert tdec.blocks_per_sm(128, 2, 3) == 2
+    assert _plan(16, 8, 577) == (2, 0)
+    # zamba2's 16 x 32 groups already fill the card: one split.
+    assert _plan(16, 32, 577, d=64, g=1) == (1, 0)
+    # One sequence, one KV head: one cluster of 8.
+    assert _plan(1, 1, 512, g=4) == (8, 0)
+    # A short cache: no more splits than 16-row groups.
+    assert _plan(2, 2, 40, d=64, itemsize=4, g=1) == (3, 0)
+    assert _plan(128, 8, 4096) == (1, 0)
+    assert _plan(2, 2, 300, d=64, itemsize=4, block_k=16) == (19, 16)
     with pytest.raises(ValueError):
-        tdec.plan(1, 1, 0, 64, 2, sm_count=132)
+        _plan(1, 1, 0)
+    with pytest.raises(ValueError):
+        _plan(1, 1, 64, block_k=0)
+
+
+@pytest.mark.parametrize("args", [
+    dict(b=16, kv=8, s=577), dict(b=16, kv=32, s=577, d=64, g=1),
+    dict(b=1, kv=1, s=512, g=4), dict(b=3, kv=6, s=300, d=64, itemsize=4,
+                                      g=1),
+    dict(b=2, kv=2, s=300, block_k=16), dict(b=2, kv=2, s=96, block_k=512)])
+def test_decode_splits_cover_each_length_once(args):
+    """The kernel's row ranges (``split_range``, mirrored by its
+    ``split_rows``): for every length 0..s the splits cover [0, length)
+    exactly once, in order, with no overlap; by length every non-empty
+    split has whole 16-row groups but the last, and an equal share; the
+    splits past the end and every split of length 0 read nothing."""
+    b, kv, s = args.pop("b"), args.pop("kv"), args.pop("s")
+    p = _plan(b, kv, s, **args)
+    for length in range(0, s + 1):
+        ranges = [tdec.split_range(length, i, p, s) for i in range(p.splits)]
+        covered = [r for lo, hi in ranges for r in range(lo, hi)]
+        assert covered == list(range(length))  # once each, in order
+        sizes = [hi - lo for lo, hi in ranges if hi > lo]
+        if p.fixed_rows:
+            assert all(n == p.fixed_rows for n in sizes[:-1])
+        elif sizes:
+            assert all(n % tdec.ROW_GROUP == 0 and n == sizes[0]
+                       for n in sizes[:-1])
+            assert sizes[-1] <= sizes[0]
+            assert len(sizes) == -(-length // sizes[0])
+    assert tdec.split_range(-3, 0, p, s) == (0, 0)
+    assert tdec.split_range(s + 50, p.splits - 1, p, s)[1] == s
+
+
+def test_decode_plan_reads_shapes_only():
+    """The plan takes no lengths: one launch shape serves every length of
+    a capacity, and the same shapes give the same plan."""
+    import inspect
+
+    assert "lengths" not in inspect.signature(tdec.plan).parameters
+    assert _plan(16, 8, 577) == _plan(16, 8, 577)
+    p = _plan(16, 8, 577)
+    for length in (0, 1, 15, 16, 17, 300, 576, 577):
+        hi = max(hi for _, hi in (tdec.split_range(length, i, p, 577)
+                                  for i in range(p.splits)))
+        assert hi == length
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_decode_kernel_route_by_dtype_and_width(dtype, d):
+    """bf16 at the models' widths (64, 128) streams on the tensor cores;
+    f32 (TF32 would break its 3e-5 tolerance) and the other widths on
+    plain FMAs."""
+    want = "mma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    assert tdec.kernel_for(dtype, d) == want
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tdec.kernel_for(torch.float16, d)
+    with pytest.raises(ValueError, match="head_dim"):
+        tdec.kernel_for(dtype, d + 8)

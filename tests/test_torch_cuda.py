@@ -246,13 +246,18 @@ def test_decode_kernel_matches_plain_and_repeats(cuda_device, case, dtype,
     torch.testing.assert_close(a.float(), plain.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("block_k", [16, 64, 512])
-def test_decode_kernel_ignores_stale_kv(cuda_device, block_k):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_k", [None, 16, 64, 512])
+def test_decode_kernel_ignores_stale_kv(cuda_device, block_k, dtype):
+    """A reused slot's rows past its new length hold the previous
+    occupant's K/V; under every split rule (by length, fixed rows) and on
+    both streams (f32 plain FMAs, bf16 tensor cores) the kernel never
+    reads them, and an empty slot gives exact zeros."""
     slots, s, h, kv, d, new_len = 4, 96, 24, 8, 128, 24
     gen = torch.Generator().manual_seed(7)
-    old_k = _randn(gen, (slots, s, kv, d), torch.float32, cuda_device)
-    old_v = _randn(gen, (slots, s, kv, d), torch.float32, cuda_device)
-    rows = _randn(gen, (2, new_len, kv, d), torch.float32, cuda_device)
+    old_k = _randn(gen, (slots, s, kv, d), dtype, cuda_device)
+    old_v = _randn(gen, (slots, s, kv, d), dtype, cuda_device)
+    rows = _randn(gen, (2, new_len, kv, d), dtype, cuda_device)
     sid = torch.tensor([2], dtype=torch.int32, device=cuda_device)
     dirty_k = scatter_prefill_rows(old_k.clone(), rows[:1], sid)
     dirty_v = scatter_prefill_rows(old_v.clone(), rows[1:], sid)
@@ -261,11 +266,72 @@ def test_decode_kernel_ignores_stale_kv(cuda_device, block_k):
     clean_v[2, new_len:] = 0.0
     lens = torch.tensor([s, 13, new_len, 0], dtype=torch.int32,
                         device=cuda_device)
-    q = _randn(gen, (slots, h, d), torch.float32, cuda_device)
+    q = _randn(gen, (slots, h, d), dtype, cuda_device)
     a = decode_attention(q, dirty_k, dirty_v, lens, block_k=block_k)
     c = decode_attention(q, clean_k, clean_v, lens, block_k=block_k)
     torch.testing.assert_close(a, c, atol=1e-6, rtol=0)
     assert (a[3] == 0).all()
+
+
+@pytest.mark.parametrize("case,block_k", [
+    ((16, 577, 24, 8, 128), None), ((16, 577, 32, 32, 64), None),
+    ((1, 512, 4, 4, 128), None), ((2, 300, 8, 2, 64), 16),
+    ((3, 96, 24, 8, 16), None)])
+def test_decode_is_one_kernel_per_call(cuda_device, case, block_k):
+    """One launch per call, the splits' fold included, by length (one
+    cluster) or with a fixed block_k (an int ticket)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, s, h, kv, d = case
+    gen = torch.Generator().manual_seed(11)
+    q = _randn(gen, (b, h, d), torch.bfloat16, cuda_device)
+    kc = _randn(gen, (b, s, kv, d), torch.bfloat16, cuda_device)
+    vc = _randn(gen, (b, s, kv, d), torch.bfloat16, cuda_device)
+    lens = torch.randint(0, s + 1, (b,), generator=gen,
+                         dtype=torch.int32).to(cuda_device)
+    decode_attention(q, kc, vc, lens, block_k=block_k)  # build and warm up
+    torch.cuda.synchronize()
+    before = decode_attention.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            decode_attention(q, kc, vc, lens, block_k=block_k)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert decode_attention.launches == before + 3
+    assert len(names) == 3 and all("decode_kernel" in n for n in names)
+
+
+def test_decode_kernel_leaves_its_tickets_at_zero(cuda_device):
+    """Calls of different shapes in a row, fixed-row splits that fold
+    through the tickets among them, each give the bits of a fresh call (a
+    new, zeroed ticket buffer): every launch leaves its tickets at 0."""
+    from repro_torch.kernels.decode_attention import ops
+
+    cases = [((16, 577, 24, 8, 128), 16), ((3, 300, 6, 1, 64), 32),
+             ((16, 577, 24, 8, 128), None), ((2, 256, 8, 2, 64), 16),
+             ((1, 512, 4, 4, 128), 48)]
+    gen = torch.Generator().manual_seed(12)
+    inputs = []
+    for (b, s, h, kv, d), block_k in cases:
+        q = _randn(gen, (b, h, d), torch.bfloat16, cuda_device)
+        kc = _randn(gen, (b, s, kv, d), torch.bfloat16, cuda_device)
+        vc = _randn(gen, (b, s, kv, d), torch.bfloat16, cuda_device)
+        lens = torch.randint(0, s + 1, (b,), generator=gen,
+                             dtype=torch.int32).to(cuda_device)
+        inputs.append((q, kc, vc, lens, block_k))
+    in_a_row = [decode_attention(q, kc, vc, ln, block_k=bk)
+                for q, kc, vc, ln, bk in inputs]
+    torch.cuda.synchronize()
+    assert not ops._tickets[cuda_device.index or 0].any()
+    for (q, kc, vc, ln, bk), got in zip(inputs, in_a_row):
+        ops._tickets.clear()  # a fresh call: a new zeroed buffer
+        fresh = decode_attention(q, kc, vc, ln, block_k=bk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fresh)
+        plain = decode_attention(q, kc, vc, ln, impl="ref")
+        torch.testing.assert_close(got.float(), plain.float(), atol=2e-2,
+                                   rtol=2e-2)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -386,6 +452,68 @@ def test_ssd_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
         assert bool(((y.float() - py.float()).abs()
                      <= 2e-2 * (1 + py.float().abs())).all())
         torch.testing.assert_close(s, ps, atol=3e-4, rtol=0)
+
+
+TC_CASES = [(16, 512, 64, 64, 1, 128, 128),  # mamba2-1.3b serving
+            (16, 512, 64, 64, 1, 64, 128),   # zamba2-1.2b serving
+            (2, 256, 6, 64, 2, 128, 64),     # chunk 64, two groups
+            (1, 256, 8, 64, 2, 64, 64),
+            (2, 192, 3, 64, 1, 64, 128),     # an odd head count per group
+            (2, 500, 8, 64, 1, 128, 128)]    # a length that pads
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_ssd_tc_kernel_matches_plain_and_counts(cuda_device, case):
+    """bf16 at the models' shapes runs on the tensor-core kernel: each
+    call is one launch on both counters, the same bits twice, y within 2e-2
+    relative and the state within 3e-4 of the plain chunked version; f32
+    at the same shape stays on the plain-FMA kernel."""
+    gen = torch.Generator().manual_seed(sum(case) + 1)
+    chunk = case[-1]
+    args = _ssd_inputs(gen, case, torch.bfloat16, cuda_device)
+    before = (ssd_ops.ssd_scan.launches, ssd_ops.ssd_scan.tc_launches)
+    y, s = ssd_ops.ssd_scan(*args, chunk=chunk)
+    y2, s2 = ssd_ops.ssd_scan(*args, chunk=chunk)
+    py, ps = ssd_ops.ssd_scan(*args, chunk=chunk, impl="chunked")
+    torch.cuda.synchronize()
+    assert (ssd_ops.ssd_scan.launches, ssd_ops.ssd_scan.tc_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    assert bool(((y.float() - py.float()).abs()
+                 <= 2e-2 * (1 + py.float().abs())).all())
+    torch.testing.assert_close(s, ps, atol=3e-4, rtol=0)
+    f32 = [t.float() if t.dtype == torch.bfloat16 else t for t in args]
+    tc = ssd_ops.ssd_scan.tc_launches
+    ssd_ops.ssd_scan(*f32, chunk=chunk)
+    assert ssd_ops.ssd_scan.tc_launches == tc
+
+
+def test_ssd_tc_and_plain_fma_kernels_agree(cuda_device):
+    """The two kernels on the same bf16 inputs (the smoke times both)."""
+    gen = torch.Generator().manual_seed(8)
+    args = _ssd_inputs(gen, TC_CASES[0], torch.bfloat16, cuda_device)
+    y, s = ssd_ops._ssd_scan_cuda(*args, 128)
+    ys, ss = ssd_ops._ssd_scan_cuda(*args, 128, kernel="simt")
+    assert bool(((y.float() - ys.float()).abs()
+                 <= 2e-2 * (1 + ys.float().abs())).all())
+    torch.testing.assert_close(s, ss, atol=3e-4, rtol=0)
+    with pytest.raises(ValueError, match="does not take"):
+        ssd_ops._ssd_scan_cuda(*[t.float() if t.dtype == torch.bfloat16
+                                 else t for t in args], 128, kernel="tc")
+
+
+def test_ssd_tc_kernel_overflowing_decays_give_no_nan(cuda_device):
+    gen = torch.Generator().manual_seed(6)
+    args = _ssd_inputs(gen, (2, 256, 8, 64, 1, 128, 128), torch.bfloat16,
+                       cuda_device, A=-64.0, dt=0.1)
+    tc = ssd_ops.ssd_scan.tc_launches
+    y, s = ssd_ops.ssd_scan(*args, chunk=128)
+    py, ps = ssd_ops.ssd_scan(*args, chunk=128, impl="chunked")
+    assert ssd_ops.ssd_scan.tc_launches == tc + 1
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s).all()
+    assert bool(((y.float() - py.float()).abs()
+                 <= 2e-2 * (1 + py.float().abs())).all())
+    torch.testing.assert_close(s, ps, atol=3e-4, rtol=0)
 
 
 def test_ssd_kernel_overflowing_decays_give_no_nan(cuda_device):

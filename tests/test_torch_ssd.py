@@ -191,13 +191,137 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors():
 
 def test_kernel_takes_every_shape_the_models_give_it():
     """Chunk, head dim and state of the reference's SSD_CASES, both serving
-    shapes and both smoke configs fit the kernel's shared memory (216 KB
-    at q = 128, p = 64, n = 128); wider ones are refused."""
+    shapes and both smoke configs fit the plain-FMA kernel's shared memory
+    (216 KB at q = 128, p = 64, n = 128), and take a kernel in both
+    dtypes; the bf16 serving shapes take the tensor-core one.  Wider ones
+    are refused."""
     shapes = [(c[6], c[3], c[5]) for c in SSD_CASES]
     shapes += [(128, 64, 128), (128, 64, 64), (16, 16, 16), (12, 16, 16)]
     for q, p, n in shapes:
         assert tops.kernel_takes(q, p, n), (q, p, n)
+        for dtype in (torch.float32, torch.bfloat16):
+            assert tops.kernel_for(dtype, p, n, q) in ("tc", "simt")
+    for n in (128, 64):  # mamba2-1.3b, zamba2-1.2b at chunk 128
+        assert tops.kernel_for(torch.bfloat16, 64, n, 128) == "tc"
     assert tops.smem_bytes(128, 64, 128) == 216704
     assert not tops.kernel_takes(256, 64, 128)
     assert not tops.kernel_takes(128, 128, 64)
     assert not tops.kernel_takes(128, 64, 256)
+
+
+@pytest.mark.parametrize("dtype,p,n,q,want", [
+    (torch.bfloat16, 64, 128, 128, "tc"),   # mamba2-1.3b serving
+    (torch.bfloat16, 64, 64, 128, "tc"),    # zamba2-1.2b serving
+    (torch.bfloat16, 64, 128, 64, "tc"),
+    (torch.bfloat16, 64, 64, 64, "tc"),
+    (torch.float32, 64, 128, 128, "simt"),  # TF32 would break 3e-4
+    (torch.float32, 64, 64, 128, "simt"),
+    (torch.bfloat16, 32, 16, 32, "simt"),   # the reference's SSD_CASES
+    (torch.bfloat16, 64, 128, 32, "simt"),
+    (torch.bfloat16, 16, 16, 16, "simt"),   # the smoke configs
+    (torch.bfloat16, 64, 96, 128, "simt"),
+    (torch.bfloat16, 64, 128, 100, "simt")])
+def test_ssd_kernel_route_by_dtype_and_shape(dtype, p, n, q, want):
+    """bf16 at the models' shapes (p = 64, n in {64, 128}, chunk 64 or
+    128) takes the tensor-core kernel; f32 and every other shape the
+    plain-FMA one; a pure function of its arguments."""
+    assert tops.kernel_for(dtype, p, n, q) == want
+    assert tops.kernel_for(dtype, p, n, q) == want
+
+
+@pytest.mark.parametrize("dtype,p,n,q,exc,match", [
+    (torch.float16, 64, 128, 128, TypeError, "float32 or bfloat16"),
+    (torch.float32, 128, 64, 128, ValueError, "shared memory"),
+    (torch.bfloat16, 64, 256, 128, ValueError, "shared memory"),
+    (torch.bfloat16, 64, 128, 256, ValueError, "shared memory")])
+def test_ssd_kernel_route_refuses_what_neither_kernel_takes(dtype, p, n, q,
+                                                            exc, match):
+    with pytest.raises(exc, match=match):
+        tops.kernel_for(dtype, p, n, q)
+
+
+@pytest.mark.parametrize("q,n,want", [(128, 128, 168968), (128, 64, 119816),
+                                      (64, 128, 101384), (64, 64, 68616)])
+def test_tc_kernel_shared_memory_fits(q, n, want):
+    """The tensor-core kernel's footprint (csrc/ssd_scan.cu tc::Layout):
+    bf16 C and B tiles, x and its split w x for two heads, two heads' bf16
+    state, four per-step f32 vectors; under Hopper's 227 KB per block."""
+    assert tops.tc_smem_bytes(q, n) == want
+    assert want <= tops.SMEM_LIMIT
+
+
+# --------------------------------------------------------------------------
+# The tensor-core kernel's rounding, emulated on the CPU: C.B^T and every
+# product exact in f32 (bf16 x bf16 is exact, sums in f32), M rounded to
+# bf16 for M.x, the carried state rounded to bf16 for C.S^T, and the state
+# update's operand w x either split in two bf16 terms (hi + lo, as the
+# kernel does) or rounded once.
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _tc_emulation(x, dt, A, B, C, chunk, *, split=True):
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    nc, q = l // chunk, chunk
+    xf = x.float().reshape(b, nc, q, h, p)
+    dtf = dt.float().reshape(b, nc, q, h)
+    Bh = torch.repeat_interleave(B.float(), rep, 2).reshape(b, nc, q, h, n)
+    Ch = torch.repeat_interleave(C.float(), rep, 2).reshape(b, nc, q, h, n)
+    S = torch.zeros(b, h, p, n)
+    causal = torch.ones(q, q, dtype=torch.bool).tril()
+    ys = []
+    for c in range(nc):
+        xc, dtc, Bc, Cc = xf[:, c], dtf[:, c], Bh[:, c], Ch[:, c]
+        L = torch.cumsum(dtc * A[None, None], 1)
+        Lt = L.transpose(1, 2)
+        CB = torch.einsum("bqhn,bshn->bhqs", Cc, Bc)
+        M = torch.where(causal, CB * torch.exp(Lt[..., :, None]
+                                               - Lt[..., None, :])
+                        * dtc.transpose(1, 2)[:, :, None, :], 0.0)
+        y = torch.exp(L)[..., None] * torch.einsum("bhpn,bqhn->bqhp",
+                                                    _bf(S), Cc)
+        ys.append(y + torch.einsum("bhqs,bshp->bqhp", _bf(M), xc))
+        Lq = L[:, -1]
+        wx = (torch.exp(Lq[:, None] - L) * dtc)[..., None] * xc
+        hi = _bf(wx)
+        upd = torch.einsum("bqhp,bqhn->bhpn", hi, Bc)
+        if split:
+            upd = upd + torch.einsum("bqhp,bqhn->bhpn", _bf(wx - hi), Bc)
+        S = torch.exp(Lq)[..., None, None] * S + upd
+    return torch.stack(ys, 1).reshape(b, l, h, p).to(x.dtype), S
+
+
+def _bf16_inputs(seed, case):
+    b, l, h, p, g, n, _ = case
+    x, dt, A, B, C = _t(_inputs(seed, b, l, h, p, g, n))
+    return x.bfloat16(), dt, A, B.bfloat16(), C.bfloat16()
+
+
+@pytest.mark.parametrize("case", [(1, 256, 4, 64, 1, 128, 128),
+                                  (1, 256, 4, 64, 1, 64, 128),
+                                  (1, 256, 4, 64, 2, 128, 64)])
+def test_tc_rounding_holds_bf16_tolerances(case):
+    """With M and S rounded to bf16 and w x split in two bf16 terms, y is
+    within 2e-2 relative and the final state within 3e-4 absolute of the
+    sequential oracle: the card's bf16 tolerances."""
+    args = _bf16_inputs(10, case)
+    y, s = _tc_emulation(*args, case[-1])
+    ry, rs = tops.ssd_ref(*args)
+    yt, yr = y.float(), ry.float()
+    assert bool(((yt - yr).abs() <= 2e-2 * (1 + yr.abs())).all())
+    assert float((s - rs).abs().max()) <= 3e-4
+
+
+def test_one_bf16_rounding_of_the_state_update_misses_its_tolerance():
+    """Rounding w x to bf16 once (2^-9 of every term) misses the state's
+    3e-4, where the split operand stays ~100x inside it."""
+    case = (1, 256, 8, 64, 1, 128, 128)
+    args = _bf16_inputs(0, case)
+    _, rs = tops.ssd_ref(*args)
+    _, single = _tc_emulation(*args, case[-1], split=False)
+    _, split = _tc_emulation(*args, case[-1], split=True)
+    assert float((single - rs).abs().max()) > 3e-4
+    assert float((split - rs).abs().max()) <= 3e-6
