@@ -11,8 +11,8 @@ and ``ssd_scan``, the last three with tensor-core and plain-FMA paths) are
 built first from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``, one
 compiler per source, all at once; ptxas's registers and spills of the new
 kernels and the tensor-core instructions in each library's SASS
-(``cuobjdump``: HGMMA, HMMA) are printed.  Nine phases; any failure raises
-and the script exits non-zero:
+(``cuobjdump``: HGMMA, HMMA) are printed.  Twelve phases; any failure
+raises and the script exits non-zero:
 
 1. **Kernel.**  Runs ``fed_reduce`` on the card against its plain
    PyTorch version at every shape the slice's ``RoundPlan`` gives it: each
@@ -37,6 +37,22 @@ and the script exits non-zero:
    CPU (plain ``fed_reduce``): after every round the params agree within
    1e-6 absolute and the round's update within 1e-3 relative; aggregation
    counts, arrival times and shelf bytes are identical.
+   **3b. The rest of the main path.**  Phase 2's f32 rounds again with
+   ``recycle_buffers=True``: params, arrivals and bytes bitwise equal to
+   phase 2's, the device-tier buffers in the same storage every round,
+   and every round after the first asking the caching allocator for at
+   least those buffers' bytes fewer than phase 2's (peaks printed); a ``Checkpointer`` save (sync
+   and async) and restore of the global params and a live
+   ``UpdateBuffer`` on the card, bitwise; two rounds at 2 000 devices
+   with top-k compression as the ``payload_transform``: each chunk's
+   top-k on the card equal bit for bit to the CPU's on the same rows, and
+   the round's wire bytes to the CPU's; the quickstart example (sections
+   1-5, 8, 9, 10) on the card against its CPU run: every line equal with
+   the accuracies within 1e-4.  Each path's launches are zeroed before
+   it and read after it (the audited ones must equal their expected
+   count), and each wrapper records the shapes it launched at; every
+   such shape no earlier case checked is then held against the plain
+   version (phase 1's and phase 4's checks, seeded inputs).
 4. **Attention kernels.**  ``decode_attention`` and ``flash_attention`` on
    the card against their plain versions on the card, at the serving runs'
    shapes (llama3.2-3b decode: q (16, 24, 128) vs a (16, 577, 8, 128) bf16
@@ -106,6 +122,25 @@ and the script exits non-zero:
    16 teacher-forced decode steps: logits within 2e-2 relative in bf16
    (agreement printed), within 1e-4 with identical greedy tokens in f32.
 
+10. **MoE serving.**  granite-moe-3b at full width and depth (32 layers,
+    d_model 1536, 24/8 heads of 64, 40 experts top-8; 3.38 B params) on
+    phase 5's trace, continuous then fixed, with phase 5's checks: reports
+    equal to the CPU run's, 32 launches per prefill and per decode
+    iteration (tensor-core flash), shapes checked in phase 4; then phase
+    6's cross-check at 2 layers with each path's own routing (f32 gated
+    at 1e-4 with equal tokens; bf16 reported, with the pairs whose choice
+    differed) and with the plain path replaying the kernel path's routing
+    (gated: bf16 2e-2, f32 1e-4 with equal tokens).
+11. **Encoder-decoder.**  seamless-m4t-medium at full width and depth (12
+    + 12 layers, d_model 1024, 16/16 heads of 64): 16 sequences of 256
+    seeded stub frames, decoder prompts of 64, ``prefill`` then 64 greedy
+    ``decode_step``s: 36 ``flash_attention`` launches per prefill
+    (encoder, self, cross; all tensor-core) and 24 ``decode_attention``
+    per step (self, and cross at the full frame count), shapes checked in
+    phase 4; wall ms per prefill and step, peak memory, profiled windows.
+12. **Encoder-decoder cross-check.**  2 + 2 layers at full width, kernel
+    against plain: bf16 2e-2, f32 1e-4 with equal greedy tokens.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``, and before that one JSON
 line with the kernels' numbers (each kernel's launches summed over the
@@ -126,6 +161,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -226,6 +262,46 @@ def chunk_rows(plan, cohort: int) -> list[int]:
 # --------------------------------------------------------------------------
 # phase 1: the kernel against its plain version
 
+def fed_reduce_case(dev, gen, n: int, d: int, dtype) -> tuple[dict, tuple]:
+    """The kernel against its plain version at one shape on seeded inputs
+    (a quarter of the rows undelivered): relative error <= 1e-4 and two
+    launches bitwise equal.  Returns the case's row and its inputs."""
+    import torch
+
+    from repro_torch.kernels.fed_reduce.ops import fed_reduce
+
+    scaled = dtype == torch.int8
+    if scaled:
+        U = torch.randint(-127, 128, (n, d), generator=gen, dtype=torch.int8)
+    else:
+        U = (torch.randn((n, d), generator=gen) * 1e-2).to(dtype)
+    w = torch.rand(n, generator=gen) * 20.0
+    w[torch.rand(n, generator=gen) < 0.25] = 0.0  # undelivered rows
+    s = (torch.rand(n, generator=gen) * 1e-3 + 1e-5) if scaled else None
+    U, w = U.to(dev), w.to(dev)
+    s = None if s is None else s.to(dev)
+    out1 = fed_reduce(U, w, scales=s, impl="cuda")
+    out2 = fed_reduce(U, w, scales=s, impl="cuda")
+    plain = fed_reduce(U, w, scales=s, impl="ref")
+    torch.cuda.synchronize()
+    wf = w if s is None else w * s
+    mag = (wf.abs()[:, None] * U.float().abs()).sum(0).clamp_min(1e-30)
+    err = (out1 - plain).abs()
+    rel = float((err / mag).max())
+    bitwise = bool(torch.equal(out1, out2))
+    name = f"{n}x{d} {_dtype_name(dtype)}"
+    if not (rel <= 1e-4):
+        raise AssertionError(
+            f"fed_reduce[{name}] disagrees with its plain version: "
+            f"relative error {rel:.3e} > 1e-4")
+    if not bitwise:
+        raise AssertionError(f"fed_reduce[{name}] is not repeatable")
+    row = {"case": name, "shape": [n, d], "dtype": _dtype_name(dtype),
+           "max_abs_err": float(err.max()), "max_rel_err": rel,
+           "bitwise_repeatable": bitwise}
+    return row, (U, w, s)
+
+
 def kernel_phase(dev, rows: list[int]) -> tuple[dict, set]:
     """Returns the kernel's JSON entry and the (rows, width, dtype) shapes
     it was checked at."""
@@ -239,33 +315,8 @@ def kernel_phase(dev, rows: list[int]) -> tuple[dict, set]:
     gen = torch.Generator().manual_seed(0)
     results, checked, calls = [], set(), []
     for n, d, dtype in cases:
-        scaled = dtype == torch.int8
-        if scaled:
-            U = torch.randint(-127, 128, (n, d), generator=gen,
-                              dtype=torch.int8)
-        else:
-            U = (torch.randn((n, d), generator=gen) * 1e-2).to(dtype)
-        w = torch.rand(n, generator=gen) * 20.0
-        w[torch.rand(n, generator=gen) < 0.25] = 0.0  # undelivered rows
-        s = (torch.rand(n, generator=gen) * 1e-3 + 1e-5) if scaled else None
-        U, w = U.to(dev), w.to(dev)
-        s = None if s is None else s.to(dev)
-        out1 = fed_reduce(U, w, scales=s, impl="cuda")
-        out2 = fed_reduce(U, w, scales=s, impl="cuda")
-        plain = fed_reduce(U, w, scales=s, impl="ref")
-        torch.cuda.synchronize()
-        wf = w if s is None else w * s
-        mag = (wf.abs()[:, None] * U.float().abs()).sum(0).clamp_min(1e-30)
-        err = (out1 - plain).abs()
-        rel = float((err / mag).max())
-        bitwise = bool(torch.equal(out1, out2))
-        name = f"{n}x{d} {str(dtype).replace('torch.', '')}"
-        if not (rel <= 1e-4):
-            raise AssertionError(
-                f"fed_reduce[{name}] disagrees with its plain version: "
-                f"relative error {rel:.3e} > 1e-4")
-        if not bitwise:
-            raise AssertionError(f"fed_reduce[{name}] is not repeatable")
+        row, (U, w, s) = fed_reduce_case(dev, gen, n, d, dtype)
+        scaled = s is not None
         # Cycle through enough copies of the stack to exceed the L2, as the
         # round finds a chunk buffer written long before its reduction.
         nbytes = U.numel() * U.element_size()
@@ -281,14 +332,10 @@ def kernel_phase(dev, rows: list[int]) -> tuple[dict, set]:
         ops = 2 * n * d + (n if scaled else 0)
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_FLOPS * 1e3
-        row = {"case": name, "shape": [n, d],
-               "dtype": str(dtype).replace("torch.", ""),
-               "max_abs_err": float(err.max()), "max_rel_err": rel,
-               "bitwise_repeatable": bitwise, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "bytes": moved}
+        row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bytes=moved)
         row["bound_share"] = row["bound_ms"] / ms
         results.append(row)
         checked.add((n, d, row["dtype"]))
@@ -452,9 +499,12 @@ class RoundProfiler:
 
 def run_slice(device, n_devices: int, *, dim: int, cohort: int, rounds: int,
               wires=("f32", "int8"), verbose: bool = True, bench: int = 1,
-              profiler: "RoundProfiler | None" = None) -> dict:
+              profiler: "RoundProfiler | None" = None,
+              recycle: bool = False, transform=None) -> dict:
     """Quickstart sections 1-5 (and the int8 wire of section 9) through the
-    port's public API.  Returns per-wire results."""
+    port's public API, optionally with recycled update buffers or a payload
+    transform (``transform()`` builds one per wire).  Returns per-wire
+    results."""
     import numpy as np
     import torch
 
@@ -500,9 +550,20 @@ def run_slice(device, n_devices: int, *, dim: int, cohort: int, rounds: int,
             LogicalTier(local_train, cohort_size=cohort, device=dev),
             tiers={g: DeviceTier(local_train, GRADES[g], cohort_size=cohort,
                                  device=dev) for g in ("High", "Low")},
-            deviceflow=flow, wire=wire, error_feedback=True)
-        params, losses, arrivals, walls = [], [], [], []
+            deviceflow=flow, wire=wire, error_feedback=True,
+            recycle_buffers=recycle,
+            payload_transform=None if transform is None else transform())
+        params, losses, arrivals, walls, mem, kept = [], [], [], [], [], []
+        stat_keys = ("requested_bytes", "allocated_bytes")
         for rnd in range(rounds):
+            if dev.type == "cuda":
+                # The caching allocator's bytes asked for and handed out
+                # (whole cached blocks) in the round, and its peak: what
+                # recycled buffers should cut.
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                stats = torch.cuda.memory_stats(dev)
+                before = {k: stats[f"{k}.all.allocated"] for k in stat_keys}
             with (profiler.round(wire, rnd) if profiler is not None
                   else contextlib.nullcontext()):
                 t = time.perf_counter()
@@ -517,6 +578,16 @@ def run_slice(device, n_devices: int, *, dim: int, cohort: int, rounds: int,
                 if dev.type == "cuda":
                     torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t) * 1e3
+            if dev.type == "cuda":
+                stats = torch.cuda.memory_stats(dev)
+                mem.append({
+                    **{k: stats[f"{k}.all.allocated"] - before[k]
+                       for k in stat_keys},
+                    "peak_bytes": torch.cuda.max_memory_allocated(dev)})
+            if recycle:  # the storage of the buffers kept for next round
+                kept.append(sorted(leaf.data_ptr()
+                                   for bufs in sim._retired.values()
+                                   for b in bufs for leaf in b.leaves2d))
             acc = float(ctr.accuracy(svc.global_params, test_x, test_y))
             loss = float(ctr.bce_loss(svc.global_params, test_x, test_y))
             p = ctr.params_to_numpy(svc.global_params)
@@ -544,7 +615,8 @@ def run_slice(device, n_devices: int, *, dim: int, cohort: int, rounds: int,
             "aggregations": len(svc.history), "arrivals": arrivals,
             "bytes": shelf.total_bytes_dispatched,
             "dispatched": shelf.total_dispatched, "audit": audit,
-            "wall_ms": walls}
+            "wall_ms": walls, "memory": mem, "kept": kept, "svc": svc,
+            "outcome": outcome}
         if verbose:
             log(f"[{wire}] deviceflow traffic: "
                 f"{shelf.total_bytes_dispatched / 2**20:.1f} MiB dispatched "
@@ -647,9 +719,38 @@ FLASH_SERVE = (SERVE_SLOTS, SERVE_PROMPT, SERVE_PROMPT, 24, 8, 128, True, 0)
 # heads of 64, one query head per KV head.
 DECODE_ZAMBA = (SERVE_SLOTS, SERVE_MAX_LEN, 32, 32, 64)
 FLASH_ZAMBA = (SERVE_SLOTS, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 64, True, 0)
-DECODE_CASES = [DECODE_SERVE, DECODE_ZAMBA, (2, 256, 8, 2, 64),
+# granite-moe-3b (24 query / 8 KV heads of 64, g = 3) on the llama trace.
+MOE_ARCH = "granite_moe_3b_a800m"
+DECODE_GRANITE = (SERVE_SLOTS, SERVE_MAX_LEN, 24, 8, 64)
+FLASH_GRANITE = (SERVE_SLOTS, SERVE_PROMPT, SERVE_PROMPT, 24, 8, 64, True, 0)
+# seamless-m4t-medium (16/16 heads of 64): 16 sequences of 256 stub source
+# frames, decoder prompts of 64 and 64 greedy tokens.
+ENCDEC_ARCH = "seamless_m4t_medium"
+ENCDEC_PROMPT = 64
+ENCDEC_DECODE = 64
+ENCDEC_MAX_LEN = ENCDEC_PROMPT + ENCDEC_DECODE + 1
+ENCDEC_FRAMES = 256  # cfg.frontend_tokens
+DECODE_SEAMLESS = (SERVE_SLOTS, ENCDEC_MAX_LEN, 16, 16, 64)  # self
+DECODE_SEAMLESS_X = (SERVE_SLOTS, ENCDEC_FRAMES, 16, 16, 64)  # cross
+FLASH_SEAMLESS_ENC = (SERVE_SLOTS, ENCDEC_FRAMES, ENCDEC_FRAMES, 16, 16, 64,
+                      False, 0)
+FLASH_SEAMLESS_SELF = (SERVE_SLOTS, ENCDEC_PROMPT, ENCDEC_PROMPT, 16, 16, 64,
+                       True, 0)
+FLASH_SEAMLESS_X = (SERVE_SLOTS, ENCDEC_PROMPT, ENCDEC_FRAMES, 16, 16, 64,
+                    False, 0)
+# Cross-attention decode reads every source frame: timed at full lengths.
+FULL_LENGTHS = (DECODE_SEAMLESS_X,)
+TIMED_DECODE = (DECODE_SERVE, DECODE_ZAMBA, DECODE_GRANITE, DECODE_SEAMLESS,
+                DECODE_SEAMLESS_X)
+TIMED_FLASH = (FLASH_SERVE, FLASH_ZAMBA, FLASH_GRANITE, FLASH_SEAMLESS_ENC,
+               FLASH_SEAMLESS_SELF, FLASH_SEAMLESS_X)
+DECODE_NEW = [DECODE_GRANITE, DECODE_SEAMLESS, DECODE_SEAMLESS_X]
+FLASH_NEW = [FLASH_GRANITE, FLASH_SEAMLESS_ENC, FLASH_SEAMLESS_SELF,
+             FLASH_SEAMLESS_X]
+DECODE_CASES = [DECODE_SERVE, DECODE_ZAMBA, *DECODE_NEW, (2, 256, 8, 2, 64),
                 (1, 512, 4, 4, 128), (3, 300, 6, 1, 64), (2, 64, 16, 16, 32)]
-FLASH_CASES = [FLASH_SERVE, FLASH_ZAMBA, (2, 256, 256, 4, 2, 64, True, 0),
+FLASH_CASES = [FLASH_SERVE, FLASH_ZAMBA, *FLASH_NEW,
+               (2, 256, 256, 4, 2, 64, True, 0),
                (1, 128, 384, 8, 8, 128, False, 0),
                (2, 96, 200, 6, 2, 64, True, 104),
                (1, 1, 256, 4, 1, 64, True, 255),
@@ -751,9 +852,11 @@ def decode_cases(dev, cases=DECODE_CASES) -> tuple[dict, set]:
             row = {"case": list(case), "dtype": _dtype_name(dtype),
                    "max_abs_err": err, "stale_kv_diff": stale,
                    "bitwise_repeatable": True, "empty_slots_zero": True}
-            if (case in (DECODE_SERVE, DECODE_ZAMBA)
-                    and dtype == torch.bfloat16):
-                row.update(decode_timing(q, kc, vc, lens, case))
+            if case in TIMED_DECODE and dtype == torch.bfloat16:
+                tl = (torch.full_like(lens, s) if case in FULL_LENGTHS
+                      else lens)
+                row.update(decode_timing(q, kc, vc, tl, case))
+                row["lengths"] = "full" if case in FULL_LENGTHS else "ragged"
                 if case == DECODE_SERVE:
                     # The continuous engine's decode steps: 3 busy slots of
                     # 16 (lengths 512-577), the rest empty.
@@ -875,7 +978,7 @@ def flash_cases(dev, cases=FLASH_CASES) -> tuple[dict, set]:
             checked.add(("flash", case, _dtype_name(dtype)))
             row = {"case": list(case), "dtype": _dtype_name(dtype),
                    "max_abs_err": err, "bitwise_repeatable": True}
-            if case in (FLASH_SERVE, FLASH_ZAMBA) and dtype == torch.bfloat16:
+            if case in TIMED_FLASH and dtype == torch.bfloat16:
                 row.update(flash_timing(q, k, v, case))
                 if case == FLASH_SERVE:
                     serve_row = row
@@ -968,24 +1071,24 @@ def _trace_kw(cfg) -> dict:
                 seed=SERVE_SEED)
 
 
-def cpu_reports() -> dict:
+def cpu_reports(arch: str) -> dict:
     """The same trace on the CPU: the virtual-time reports depend on the
     arrivals and the cost model only, so the continuous engine runs without
-    a model and the fixed batches with the smoke-size model."""
+    a model and the fixed batches with ``arch``'s smoke-size model."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.deviceflow import VirtualClock
     from repro_torch.core.serving import (ContinuousBatchingEngine,
                                           ContinuousServer)
     from repro_torch.launch import serve
 
-    cfg = get_config(SERVE_ARCH, smoke=True)
+    cfg = get_config(arch, smoke=True)
     eng = ContinuousBatchingEngine(slots=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
                                    decode_tokens=SERVE_DECODE,
                                    max_len=SERVE_MAX_LEN, simulate_only=True)
     clock = VirtualClock()
     serve.run_trace(ContinuousServer(eng, clock), clock=clock,
                     **_trace_kw(cfg))
-    return {"continuous": eng.report(), "fixed": fixed_cpu_report(SERVE_ARCH)}
+    return {"continuous": eng.report(), "fixed": fixed_cpu_report(arch)}
 
 
 def fixed_cpu_report(arch: str):
@@ -1092,7 +1195,10 @@ def serving_profile(cfg, params, prompts, card: str) -> dict:
     return out
 
 
-def serving_phase(dev, checked: set, card: str) -> dict:
+def serving_phase(dev, checked: set, card: str,
+                  arch: str = SERVE_ARCH) -> dict:
+    """Phase 5 (llama3.2-3b) and phase 10 (granite-moe-3b): ``arch`` at
+    full width on the trace, continuous then fixed."""
     import dataclasses
 
     import numpy as np
@@ -1107,7 +1213,7 @@ def serving_phase(dev, checked: set, card: str) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import transformer
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = transformer.init(
         torch.Generator(device=dev).manual_seed(SERVE_SEED), cfg, device=dev)
@@ -1125,7 +1231,7 @@ def serving_phase(dev, checked: set, card: str) -> dict:
         return (b, SERVE_MAX_LEN, cfg.num_heads, cfg.num_kv_heads,
                 cfg.head_dim)
 
-    cpu = cpu_reports()
+    cpu = cpu_reports(arch)
     reports, results = {}, {}
     for mode in ("continuous", "fixed"):
         timer = WallTimer()
@@ -1195,7 +1301,8 @@ def serving_phase(dev, checked: set, card: str) -> dict:
                 len(t) != SERVE_DECODE + 1 for t in toks.values()):
             raise AssertionError(f"[{mode}] not every request finished")
         pre, dec = timer.ms["prefill"], timer.ms["decode"]
-        res = {"mode": mode, "report": s, "prefill_calls": n_prefill,
+        res = {"arch": cfg.name, "mode": mode, "report": s,
+               "prefill_calls": n_prefill,
                "decode_iterations": n_decode,
                "wall_ms_per_prefill": sum(pre) / len(pre),
                "wall_ms_per_decode_iteration": sum(dec) / len(dec),
@@ -1246,7 +1353,8 @@ def _leaves(tree):
 
 
 def compare_paths(name: str, kernel, plain, vocab: int, dtype: str,
-                  tol: float, steps: int = 16) -> dict:
+                  tol: float, steps: int = 16,
+                  gate_tokens: bool = True) -> dict:
     """Teacher-forced comparison of two serving paths at full width and 2
     layers.  ``kernel`` and ``plain`` are ``(prefill() -> (logits, cache),
     decode(token, cache) -> (logits, cache))``; both paths get the plain
@@ -1273,7 +1381,7 @@ def compare_paths(name: str, kernel, plain, vocab: int, dtype: str,
         f"{agree}/{total} ({rate:.4f})")
     if not worst <= tol:
         raise AssertionError(f"{name} failed")
-    if dtype == "float32" and agree != total:
+    if gate_tokens and dtype == "float32" and agree != total:
         raise AssertionError(f"{name}: greedy tokens differ")
     return {"max_rel_logit_diff": worst, "tol": tol,
             "greedy_agreement": rate, "steps": steps}
@@ -1290,9 +1398,64 @@ def _float_tree(tree):
 CROSS_DTYPES = (("bfloat16", 2e-2), ("float32", 1e-4))
 
 
+class ForcedRouting:
+    """Teacher-forces an MoE model's discrete choices across two paths, as
+    ``compare_paths`` teacher-forces tokens: the kernel path's calls record
+    each layer's routing (experts and capacity slots), the plain path's
+    calls replay it with their own gate values at those experts.  Without
+    it one near-tie in the router (an 8th and 9th expert a bf16 rounding
+    apart) swaps an expert and, through the capacity ranks, can drop or
+    keep other tokens: the logits then measure that discrete choice, not
+    the kernels.  ``flips`` counts the pairs whose own choice differed."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real = moe, moe.route
+        self.record, self.log, self.i = True, [], 0
+        self.flips = self.pairs = 0
+
+    def __call__(self, router, xt, cfg):
+        import torch
+
+        r = self.real(router, xt, cfg)
+        if self.record:
+            self.log.append(r)
+            return r
+        f = self.log[self.i]
+        self.i += 1
+        self.flips += int((f.expert != r.expert).sum())
+        self.pairs += f.expert.numel()
+        with self.moe._full_f32_matmul():
+            probs = torch.softmax(xt.float() @ router, dim=-1)
+        g = probs.gather(1, f.expert.view(-1, cfg.experts_per_token))
+        g = g / torch.clamp_min(g.sum(-1, keepdim=True), 1e-9)
+        g = g.reshape(-1) * (f.slot < f.capacity).float()
+        return self.moe.Routing(f.expert, f.slot, g, f.capacity, r.aux_loss)
+
+    def path(self, fn, record: bool):
+        def call(*a):
+            self.record = record
+            if record:
+                self.log = []
+            self.i = 0
+            return fn(*a)
+        return call
+
+    @contextlib.contextmanager
+    def installed(self):
+        self.moe.route = self
+        try:
+            yield self
+        finally:
+            self.moe.route = self.real
+
+
 def serving_cross_check(params, cfg, prompts) -> dict:
     """The kernel path against the plain path (``attention_impl="einsum"``)
-    at full width and 2 layers."""
+    at full width and 2 layers.  An MoE model is compared twice: as is
+    (gated in f32, reported in bf16) and with the plain path replaying the
+    kernel path's routing (gated; :class:`ForcedRouting`)."""
     import dataclasses
 
     import torch
@@ -1313,7 +1476,480 @@ def serving_cross_check(params, cfg, prompts) -> dict:
                 lambda c=c: transformer.prefill(p, toks, c, SERVE_MAX_LEN),
                 lambda t, cache, c=c: transformer.decode_step(p, t, c,
                                                               cache)))
-        out[dtype] = compare_paths(f"serving cross-check [{dtype}]", *paths,
+        if not cfg.num_experts:
+            out[dtype] = compare_paths(f"serving cross-check [{dtype}]",
+                                       *paths, cfg.vocab_size, dtype, tol)
+            continue
+        # Each path's own routing: gated in f32 (1e-4, equal tokens); in
+        # bf16 reported only, since near-ties in the router flip experts
+        # between any two attention paths (the reference's own included:
+        # tests/test_torch_moe.py) and the gate is the forced run below.
+        gated = dtype == "float32"
+        free = compare_paths(
+            f"moe cross-check [{dtype}], own routing"
+            + ("" if gated else " (not gated)"), *paths, cfg.vocab_size,
+            dtype, tol if gated else float("inf"), gate_tokens=gated)
+        with ForcedRouting().installed() as fr:
+            forced = compare_paths(
+                f"moe cross-check [{dtype}], kernel path's routing",
+                *[(fr.path(a, rec), fr.path(b, rec))
+                  for (a, b), rec in zip(paths, (True, False))],
+                cfg.vocab_size, dtype, tol)
+        log(f"moe cross-check [{dtype}]: the plain path's own routing "
+            f"differed in {fr.flips} of {fr.pairs} (token, expert) pairs")
+        out[dtype] = {"forced": forced, "own_routing": free,
+                      "flipped_pairs": fr.flips, "pairs": fr.pairs}
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 3b: the rest of the federated main path (recycled buffers, top-k
+# compression, the checkpointer, the quickstart example)
+
+class TopKTransform:
+    """``--compress`` on the columnar plane: each cohort chunk's buffer is
+    top-k compressed (30 %) with its error-feedback memory kept per chunk;
+    a row ships its nonzeros as (value, index) pairs.  Every chunk is also
+    compressed on the CPU from the same rows with a CPU memory: kept
+    values, residuals and nonzero counts must be the card's bit for bit,
+    and ``cpu_bytes`` sums the wire bytes the CPU gives."""
+
+    def __init__(self, fraction: float = 0.3):
+        self.fraction = fraction
+        self.memory: dict = {}
+        self.cpu_memory: dict = {}
+        self.cpu_bytes = 0
+
+    def __call__(self, e):
+        import numpy as np
+        import torch
+
+        from repro_torch.core import ArrivalBatch, UpdateBuffer
+        from repro_torch.optim.compression import topk_compress_rows
+
+        if not (isinstance(e, ArrivalBatch) and e.buffer is not None):
+            return e
+        leaves = e.buffer.leaves2d
+        rows = torch.as_tensor(e.rows, device=leaves[0].device)
+        stacked = {k: leaf.index_select(0, rows).reshape((e.n,) + shape)
+                   for k, leaf, shape in zip(e.buffer.keys, leaves,
+                                             e.buffer.shapes)}
+        key = int(e.device_ids[0])
+        kept, self.memory[key], nnz = topk_compress_rows(
+            stacked, self.memory.get(key), fraction=self.fraction)
+        cpu_kept, self.cpu_memory[key], cpu_nnz = topk_compress_rows(
+            {k: v.cpu() for k, v in stacked.items()},
+            self.cpu_memory.get(key), fraction=self.fraction)
+        if not (np.array_equal(nnz, cpu_nnz)
+                and all(torch.equal(kept[k].cpu(), cpu_kept[k])
+                        for k in kept)
+                and all(torch.equal(a.cpu(), b) for a, b in
+                        zip(self.memory[key], self.cpu_memory[key]))):
+            raise AssertionError(f"top-k of chunk {key} differs between "
+                                 "the card and the CPU")
+        self.cpu_bytes += int(np.maximum(cpu_nnz, 1).sum()) * 8
+        return ArrivalBatch(e.task_id, e.round_idx, rows=np.arange(e.n),
+                            created_t=e.created_t,
+                            nbytes=np.maximum(nnz, 1) * 8,
+                            num_samples=e.num_samples,
+                            device_ids=e.device_ids,
+                            buffer=UpdateBuffer.from_stacked(kept))
+
+
+def _masked(line: str) -> str:
+    """A quickstart line with its accuracies masked (compared apart)."""
+    import re
+
+    return re.sub(r"(test_acc=|run above: )[0-9.]+", r"\1#", line)
+
+
+def start_audit() -> None:
+    """Zeroes every launch count of the federated paths' kernels and starts
+    each wrapper's record of the shapes it launches at: called just before
+    a path runs."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.fed_reduce.ops import fed_reduce
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    fed_reduce.launches = decode_attention.launches = 0
+    flash_attention.launches = flash_attention.wgmma_launches = 0
+    for w in (fed_reduce, decode_attention, flash_attention):
+        w.shapes = set()
+
+
+def read_audit() -> dict:
+    """The counts and shapes since :func:`start_audit`, read just after the
+    path ran; the shape records stop."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.fed_reduce.ops import fed_reduce
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    out = {"fed_reduce": fed_reduce.launches,
+           "decode_attention": decode_attention.launches,
+           "flash_attention": flash_attention.launches,
+           "flash_attention_wgmma": flash_attention.wgmma_launches,
+           "shapes": {w.__name__: w.shapes for w in (
+               fed_reduce, decode_attention, flash_attention)}}
+    for w in (fed_reduce, decode_attention, flash_attention):
+        w.shapes = None
+    return out
+
+
+def check_launched_shapes(dev, shapes: dict, checked: set) -> dict:
+    """Holds each kernel against its plain version at every shape a path
+    launched it at that no earlier case checked (seeded inputs, the checks
+    of :func:`fed_reduce_case`, :func:`decode_cases` and
+    :func:`flash_cases`), and adds those shapes to ``checked``.  These
+    launches come after the path's counts were read.  Returns each
+    kernel's max abs error over the new cases (0.0 where none was new)."""
+    import torch
+
+    errs = dict.fromkeys(("fed_reduce", "decode_attention",
+                          "flash_attention"), 0.0)
+    gen = torch.Generator().manual_seed(3)
+    for n, d, dt in sorted(shapes["fed_reduce"] - checked):
+        row, _ = fed_reduce_case(dev, gen, n, d, getattr(torch, dt))
+        checked.add((n, d, dt))
+        errs["fed_reduce"] = max(errs["fed_reduce"], row["max_abs_err"])
+        log(json.dumps({"fed_reduce_case": row, "launched_by": "path"}))
+    keys = {"decode_attention": {("decode", x[:5], x[5])
+                                 for x in shapes["decode_attention"]},
+            "flash_attention": {("flash", x[:8], x[8])
+                                for x in shapes["flash_attention"]}}
+    for name, run in (("decode_attention", decode_cases),
+                      ("flash_attention", flash_cases)):
+        new = sorted({case for _, case, _ in keys[name] - checked})
+        if new:
+            entry, got = run(dev, new)
+            checked |= got
+            errs[name] = entry["max_abs_err"]
+    left = (shapes["fed_reduce"] | keys["decode_attention"]
+            | keys["flash_attention"]) - checked
+    if left:
+        raise AssertionError(f"launched shapes left unchecked: {left}")
+    return errs
+
+
+def main_path_phase(dev, n_devices: int, rounds: int, checked: set,
+                    slice_res: dict, cross_devices: int, card: str) -> dict:
+    """Recycled rounds, a top-k compressed round, a checkpoint round trip
+    and the quickstart example on the card.  Returns the launches of each
+    path, each read just after it ran, and the max abs errors of the
+    kernels at the shapes these paths launched them at."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.avazu_lr import CONFIG
+    from repro_torch.examples import quickstart
+
+    launches, errs = {}, {}
+
+    def audited(name: str, run):
+        start_audit()  # counts zeroed just before the path ...
+        result = run()
+        launches[name] = read_audit()  # ... and read just after
+        for k, e in check_launched_shapes(
+                dev, launches[name].pop("shapes"), checked).items():
+            errs[k] = max(errs.get(k, 0.0), e)
+        return result
+
+    # Recycled update buffers: the f32 rounds of phase 2 again, each
+    # device-tier chunk's cast back to f32 written into the previous
+    # round's buffer of its (tier, rows) key.  The params must equal phase
+    # 2's bitwise, every round must keep the same storage, and every round
+    # after the first must ask the allocator for at least those buffers'
+    # bytes fewer than phase 2's.  Phase 2's last outputs are dropped
+    # first, so that both runs' peaks see the same live memory.
+    for w in slice_res["wires"].values():
+        for k in ("outcome", "svc", "audit"):
+            w.pop(k, None)
+    rec = audited("recycled", lambda: run_slice(
+        dev, n_devices, dim=CONFIG.dim, cohort=COHORT, rounds=rounds,
+        wires=("f32",), verbose=False, recycle=True))
+    got, want = rec["wires"]["f32"], slice_res["wires"]["f32"]
+    audit = got["audit"]
+    same = (all(np.array_equal(a[k], b[k]) for a, b in
+                zip(got["params"], want["params"]) for k in a)
+            and all(np.array_equal(a, b) for a, b in
+                    zip(got["arrivals"], want["arrivals"]))
+            and (got["aggregations"], got["bytes"]) == (
+                want["aggregations"], want["bytes"]))
+    n_fed = launches["recycled"]["fed_reduce"]
+    log(f"recycled rounds [f32] {n_devices} devices x {rounds}: params, "
+        f"arrivals and bytes bitwise equal to phase 2's {same}; fed_reduce "
+        f"launches {n_fed} (expected {audit.expected})")
+    if not same:
+        raise AssertionError("recycled rounds differ from fresh rounds")
+    if n_fed != audit.expected or audit.expected <= 0:
+        raise AssertionError("recycled rounds' fed_reduce launches")
+    if not audit.shapes <= checked:
+        raise AssertionError(f"recycled rounds reduced unchecked shapes "
+                             f"{sorted(audit.shapes - checked)}")
+    device_rows = [e.num_physical + e.num_benchmarking
+                   for e in rec["plan"].entries]
+    chunks = sum(math.ceil(n / COHORT) for n in device_rows)
+    buffers = sum(device_rows) * (CONFIG.dim + 1) * 4
+    memory = [{"round": r, "fresh": f, "recycled": g,
+               "saved_requested_bytes": (f["requested_bytes"]
+                                         - g["requested_bytes"])}
+              for r, (f, g) in enumerate(zip(want["memory"], got["memory"]))]
+    kept = got["kept"]
+    log(json.dumps({"recycled_memory": {
+        "device_tier_buffer_bytes": buffers, "rounds": memory,
+        "same_storage_every_round": all(k == kept[0] for k in kept),
+        "kept_leaves": len(kept[0]), "card": card}}))
+    if not (len(kept[0]) == 2 * chunks and all(k == kept[0] for k in kept)):
+        raise AssertionError(f"recycled rounds kept {len(kept[0])} leaves "
+                             f"(expected {2 * chunks}) or moved them")
+    if not all(m["saved_requested_bytes"] >= buffers for m in memory[1:]):
+        raise AssertionError(f"recycled rounds did not write into the "
+                             f"retired buffers ({buffers} bytes a round)")
+
+    # Checkpointer: the recycled run's global params and a live update
+    # buffer, saved and restored on the card, bitwise.
+    ck_dir = os.path.join(ROOT, "build", "smoke_checkpoint")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    try:
+        ck = Checkpointer(ck_dir, keep=2)
+        buf = next(b.buffer for b in got["outcome"].batches
+                   if b.buffer is not None)
+        state = {"params": got["svc"].global_params, "buffer": buf}
+        ck.save(1, state, extra={"round": rounds})
+        ck.save_async(2, state)
+        ck.wait()
+        want_buf = buf.materialize()
+        like = {"params": {k: torch.empty_like(v) for k, v in
+                           got["svc"].global_params.items()},
+                "buffer": {k: torch.empty_like(v, device=dev)
+                           for k, v in want_buf.items()}}
+        restored, extra = ck.restore(like)
+        ok = (ck.latest_step() == 2 and extra == {}
+              and all(torch.equal(restored["params"][k], v)
+                      for k, v in got["svc"].global_params.items())
+              and all(restored["buffer"][k].device.type == dev.type
+                      and torch.equal(restored["buffer"][k].cpu(), v)
+                      for k, v in want_buf.items())
+              and ck.restore(like, step=1)[1] == {"round": rounds})
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    log(f"checkpoint: global params and a live {buf} saved, restored on "
+        f"the card bitwise {ok}")
+    if not ok:
+        raise AssertionError("checkpoint round trip is not bitwise")
+
+    # Top-k compression as the payload transform: every chunk's top-k on
+    # the card against the CPU's on the same rows (bitwise), and the round's
+    # wire bytes against the CPU's.  (A whole CPU round would not do: its
+    # training arithmetic differs in the last bits, and magnitudes that tie
+    # or nearly tie at the threshold then keep other entries.)
+    transforms = []
+
+    def make():
+        transforms.append(TopKTransform())
+        return transforms[-1]
+    run = audited("topk", lambda: run_slice(
+        dev, cross_devices, dim=CONFIG.dim, cohort=512, rounds=2,
+        wires=("f32",), verbose=False, bench=0,
+        transform=make))["wires"]["f32"]
+    n_fed = launches["topk"]["fed_reduce"]
+    tk = transforms[0]
+    dense = cross_devices * 2 * (CONFIG.dim + 1) * 4
+    log(f"top-k payload transform [{cross_devices} devices x 2]: wire "
+        f"bytes {run['bytes']} = CPU's {tk.cpu_bytes} (dense {dense}), "
+        f"every chunk's kept values, residuals and counts equal to the "
+        f"CPU's; {run['dispatched']} messages, {run['aggregations']} "
+        f"aggregations; fed_reduce launches {n_fed} (expected "
+        f"{run['audit'].expected}) at shapes {sorted(run['audit'].shapes)}")
+    if run["bytes"] != tk.cpu_bytes or not 0 < run["bytes"] < dense:
+        raise AssertionError(f"top-k round: wire bytes {run['bytes']}, "
+                             f"CPU's {tk.cpu_bytes}")
+    if n_fed != run["audit"].expected:
+        raise AssertionError("top-k round's fed_reduce launches")
+    if not run["audit"].shapes <= checked:
+        raise AssertionError(f"top-k rounds reduced unchecked shapes "
+                             f"{sorted(run['audit'].shapes - checked)}")
+
+    # The quickstart example (sections 1-5, 8, 9, 10) on the card against
+    # its CPU run.
+    def timed_quickstart():
+        t0 = time.perf_counter()
+        out = quickstart.run(dev)
+        return out, time.perf_counter() - t0
+    card_run, wall = audited("quickstart", timed_quickstart)
+    qs = launches["quickstart"]
+    with contextlib.redirect_stdout(io.StringIO()):  # its lines: above
+        cpu_run = quickstart.run("cpu")
+    same_lines = ([_masked(x) for x in card_run["lines"]]
+                  == [_masked(x) for x in cpu_run["lines"]])
+    acc_diff = max(abs(a - b) for a, b in zip(
+        card_run["test_acc"] + [card_run["test_acc_int8"]],
+        cpu_run["test_acc"] + [cpu_run["test_acc_int8"]]))
+    log(f"quickstart on the card in {wall:.1f}s: allocation and "
+        f"virtual-time lines equal to the CPU run's {same_lines}, test_acc "
+        f"within {acc_diff:.2e} (tol 1e-4), tokens identical "
+        f"{card_run['token_identical']}; launches fed_reduce "
+        f"{qs['fed_reduce']}, decode_attention {qs['decode_attention']}, "
+        f"flash_attention {qs['flash_attention']}")
+    if not (same_lines and acc_diff <= 1e-4 and card_run["token_identical"]
+            and min(qs["fed_reduce"], qs["decode_attention"],
+                    qs["flash_attention"]) > 0):
+        raise AssertionError("the quickstart on the card differs from its "
+                             "CPU run")
+    log(json.dumps({"main_path": {"launches": launches,
+                                  "max_abs_err_at_launched_shapes": errs,
+                                  "card": card}}))
+    return {"launches": launches, "max_abs_err": errs}
+
+
+# --------------------------------------------------------------------------
+# phase 11: the encoder-decoder model at seamless-m4t-medium width
+
+def encdec_inputs(cfg, dev):
+    """Seeded stub source frames ``(16, 256, d)`` (bf16) and decoder
+    prompts ``(16, 64)``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SERVE_SEED)
+    src = torch.from_numpy((rng.standard_normal(
+        (SERVE_SLOTS, ENCDEC_FRAMES, cfg.d_model)) * 0.01).astype(
+            np.float32)).to(torch.bfloat16).to(dev)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                        (SERVE_SLOTS, ENCDEC_PROMPT)),
+                           dtype=torch.int32, device=dev)
+    return src, toks
+
+
+def encdec_phase(dev, checked: set, card: str) -> dict:
+    """seamless-m4t-medium at full width: ``prefill`` (encoder, decoder
+    prompt, cross K/V) then 64 greedy ``decode_step``s over 16 sequences."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import encdec
+
+    cfg = get_config(ENCDEC_ARCH)
+    if cfg.frontend_tokens != ENCDEC_FRAMES:
+        raise AssertionError(f"{cfg.name} has {cfg.frontend_tokens} frames")
+    t0 = time.perf_counter()
+    params = encdec.init(torch.Generator(device=dev).manual_seed(SERVE_SEED),
+                         cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{cfg.name}: {n_params} params ({n_params * 2 / 1e9:.2f} GB bf16) "
+        f"initialized on the card in {time.perf_counter() - t0:.1f}s")
+    src, toks = encdec_inputs(cfg, dev)
+    timer = WallTimer()
+    prefill = timer.wrap("prefill", encdec.prefill)
+    step = timer.wrap("decode", encdec.decode_step)
+
+    def generate():
+        logits, cache = prefill(params, src, toks, cfg, ENCDEC_MAX_LEN)
+        out = [logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)]
+        for _ in range(ENCDEC_DECODE):
+            logits, cache = step(params, out[-1], cfg, cache)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError("seamless decode logits not finite")
+            out.append(logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32))
+        return torch.stack(out, dim=1)
+
+    generate()  # warm-up: the timed run below is the main path
+    timer.ms.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode_attention.launches = 0  # zeroed just before the main path ...
+    flash_attention.launches = flash_attention.wgmma_launches = 0
+    tokens = generate()
+    torch.cuda.synchronize()
+    launches = {"decode_attention": decode_attention.launches,
+                "flash_attention": flash_attention.launches,
+                "flash_attention_wgmma":
+                    flash_attention.wgmma_launches}  # ... read just after
+    L, E = cfg.num_layers, cfg.num_encoder_layers
+    # Per prefill: E encoder + L self + L cross flash calls; per decode
+    # step: L self + L cross decode calls.
+    expected = {"decode_attention": 2 * L * ENCDEC_DECODE,
+                "flash_attention": E + 2 * L,
+                "flash_attention_wgmma": E + 2 * L}
+    if launches != expected:
+        raise AssertionError(f"[{cfg.name}] launches {launches}, expected "
+                             f"{expected}")
+    # What the path gives the kernels: the encoder (bidirectional), the
+    # decoder's self-attention (causal) and cross-attention (sq != sk) in
+    # prefill; self and cross decode (every length = the frame count).
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    b, f, sp = SERVE_SLOTS, ENCDEC_FRAMES, ENCDEC_PROMPT
+    shapes = {("flash", (b, f, f, *heads, False, 0), "bfloat16"),
+              ("flash", (b, sp, sp, *heads, True, 0), "bfloat16"),
+              ("flash", (b, sp, f, *heads, False, 0), "bfloat16"),
+              ("decode", (b, ENCDEC_MAX_LEN, *heads), "bfloat16"),
+              ("decode", (b, f, *heads), "bfloat16")}
+    if not shapes <= checked:
+        raise AssertionError(f"unchecked shapes {sorted(shapes - checked)}")
+    if tokens.shape != (SERVE_SLOTS, ENCDEC_DECODE + 1) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("seamless tokens out of range")
+    peak = torch.cuda.max_memory_allocated()
+    pre, dec = timer.ms["prefill"], timer.ms["decode"]
+    res = {"arch": cfg.name, "sequences": SERVE_SLOTS,
+           "source_frames": ENCDEC_FRAMES, "prompt": ENCDEC_PROMPT,
+           "decode_steps": len(dec), "wall_ms_per_prefill": sum(pre) / len(pre),
+           "wall_ms_per_decode_step": sum(dec) / len(dec),
+           "decode_tokens_per_s": SERVE_SLOTS * len(dec) / (sum(dec) / 1e3),
+           "peak_memory_gb": peak / 1e9, "launches": launches,
+           "expected_launches": expected, "card": card}
+    log(json.dumps({"encdec": res}))
+    log(f"  {cfg.name}: {res['wall_ms_per_prefill']:.1f} ms/prefill, "
+        f"{res['wall_ms_per_decode_step']:.2f} ms/decode step, "
+        f"{res['decode_tokens_per_s']:.0f} decode tok/s, peak "
+        f"{peak / 1e9:.2f} GB; launches {launches} = expected")
+    cache = [None]
+
+    def one_prefill():
+        cache[0] = encdec.prefill(params, src, toks, cfg, ENCDEC_MAX_LEN)[1]
+
+    def decode_steps(k=20):
+        tok = toks[:, -1]
+        c = cache[0]
+        for _ in range(k):
+            logits, c = encdec.decode_step(params, tok, cfg, c)
+            tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    prof = {"prefill": profile_window(one_prefill, 1,
+                                      match=("flash_fwd_wgmma",)),
+            "decode_steps": profile_window(decode_steps, 20,
+                                           match=("decode_kernel",))}
+    log(json.dumps({"encdec_profile": prof, "card": card}))
+    return {"params": params, "cfg": cfg, "launches": launches,
+            "result": res, "profile": prof}
+
+
+def encdec_cross_check(params, cfg) -> dict:
+    """Phase 12: the kernel path against the plain path at full width with
+    2 encoder and 2 decoder layers (bf16 2e-2, f32 1e-4 with equal
+    tokens)."""
+    import dataclasses
+
+    from repro_torch.models import encdec
+
+    two = {**params, "encoder": params["encoder"][:2],
+           "decoder": params["decoder"][:2]}
+    src, toks = encdec_inputs(cfg, params["ln_f"].device)
+    out = {}
+    for dtype, tol in CROSS_DTYPES:
+        p = two if dtype == "bfloat16" else _float_tree(two)
+        paths = []
+        for impl in ("auto", "einsum"):
+            c = dataclasses.replace(cfg, num_layers=2, num_encoder_layers=2,
+                                    dtype=dtype, attention_impl=impl)
+            paths.append((
+                lambda c=c: encdec.prefill(p, src, toks, c, ENCDEC_MAX_LEN),
+                lambda t, cache, c=c: encdec.decode_step(p, t, c, cache)))
+        out[dtype] = compare_paths(f"encdec cross-check [{dtype}]", *paths,
                                    cfg.vocab_size, dtype, tol)
     return out
 
@@ -1722,6 +2358,33 @@ def ssm_phases(dev, checked: set, card: str) -> dict:
     return out
 
 
+def family_phases(dev, checked: set, card: str) -> dict:
+    """Phases 10-12: granite-moe-3b served on the trace and its cross-check,
+    then seamless-m4t-medium and its cross-check; returns the launches read
+    on each model's main path."""
+    import torch
+
+    t0 = time.perf_counter()
+    srv = serving_phase(dev, checked, card, arch=MOE_ARCH)
+    log(f"moe serving phase passed in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    serving_cross_check(srv["params"], srv["cfg"], srv["prompts"])
+    log(f"moe cross-check passed in {time.perf_counter() - t0:.1f}s")
+    out = {MOE_ARCH: srv["launches"]}
+    del srv
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ed = encdec_phase(dev, checked, card)
+    log(f"encdec phase passed in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    encdec_cross_check(ed["params"], ed["cfg"])
+    log(f"encdec cross-check passed in {time.perf_counter() - t0:.1f}s")
+    out[ENCDEC_ARCH] = ed["launches"]
+    del ed
+    torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------------
 
 # --compare-with DIR: the decode and scan kernels of this checkout and of
@@ -1933,7 +2596,7 @@ def main(argv=None) -> int:
         log(card)
         return 0
 
-    entries = []
+    entries, main_path = [], None
     if args.ssm_only:
         t0 = time.perf_counter()
         ssd_entry, ssd_checked = ssd_cases(dev)
@@ -1966,6 +2629,16 @@ def main(argv=None) -> int:
             cross_check_phase(args.cross_devices, args.rounds)
             log(f"cross-check phase passed in "
                 f"{time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            main_path = main_path_phase(dev, args.devices, args.rounds,
+                                        checked, res, args.cross_devices,
+                                        card)
+            entry["launches"] += sum(v["fed_reduce"] for v in
+                                     main_path["launches"].values())
+            entry["max_abs_err"] = max(
+                entry["max_abs_err"], main_path["max_abs_err"]["fed_reduce"])
+            del res
+            log(f"main-path phase passed in {time.perf_counter() - t0:.1f}s")
         entries.append(entry)
     if not args.ssm_only:
         t0 = time.perf_counter()
@@ -1991,12 +2664,21 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             ssm = ssm_phases(dev, dec_checked | flash_checked | ssd_checked,
                              card)
-            # Each path's own count, read just after it ran, summed; the
-            # flash entry is the tensor-core kernel's.
+            fam = family_phases(dev, dec_checked | flash_checked, card)
+            # Each path's own count, read just after it ran, summed (the
+            # main-path phase's paths too); the flash entry is the
+            # tensor-core kernel's.
+            paths = (*ssm.values(), *fam.values(),
+                     *(main_path["launches"].values() if main_path else ()))
             for e, key in ((dec_entry, "decode_attention"),
                            (flash_entry, "flash_attention_wgmma")):
-                e["launches"] = llama[key] + sum(v[key] for v in ssm.values())
+                e["launches"] = llama[key] + sum(v[key] for v in paths)
             ssd_entry["launches"] = sum(v["ssd_scan"] for v in ssm.values())
+        if main_path:
+            # The main-path phase's checks at the shapes it launched at.
+            for e in (dec_entry, flash_entry):
+                e["max_abs_err"] = max(e["max_abs_err"],
+                                       main_path["max_abs_err"][e["name"]])
         entries += [dec_entry, flash_entry, ssd_entry]
     for e in entries:
         if ptxas.get(e["name"]):

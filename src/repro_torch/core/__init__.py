@@ -1,9 +1,9 @@
 """SimDC core on PyTorch: the federated round of the paper, end to end.
 
 Exports what the port covers so far — calibration, allocation, DeviceFlow,
-update buffers, aggregation, the grade-partitioned round engine (slice 1)
-and continuous-batching serving (slice 2).  The scheduler and monitoring
-modules are not ported yet (ROADMAP P8, P1).
+update buffers, aggregation, monitoring, the grade-partitioned round engine
+(slice 1) and continuous-batching serving (slice 2).  The scheduler is not
+ported yet (ROADMAP P8).
 """
 from repro_torch.core.allocation import (
     AllocationResult,
@@ -35,6 +35,13 @@ from repro_torch.core.federation import (
     handles_align,
     polynomial_staleness,
     weighted_average,
+)
+from repro_torch.core.monitoring import (
+    InMemorySink,
+    MetricEvent,
+    MetricsBus,
+    TaskMonitor,
+    wire_aggregation_service,
 )
 from repro_torch.core.serving import (
     ContinuousBatchingEngine,
@@ -88,6 +95,8 @@ __all__ = [
     "AggregationService", "ClientCountTrigger", "SampleThresholdTrigger",
     "ScheduledTrigger", "fedavg_delta", "fused_fedavg_delta",
     "handles_align", "polynomial_staleness", "weighted_average",
+    "InMemorySink", "MetricEvent", "MetricsBus", "TaskMonitor",
+    "wire_aggregation_service",
     "ContinuousBatchingEngine", "ContinuousServer", "RequestRecord",
     "ServeCostModel", "ServingReport",
     "DeviceTier", "FederatedRoundOutcome", "GradePlanEntry",

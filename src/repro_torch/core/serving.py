@@ -34,8 +34,9 @@ Stale-KV safety: a reused slot's rows beyond the new prompt keep the retired
 request's K/V, but the slot's length counter is reset at prefill and only
 ever covers rows the current occupant wrote — attention masks the rest.
 
-Mixture-of-experts layers are not ported yet (ROADMAP P9): an MoE config
-raises.
+An MoE config routes each layer's tokens through ``models/moe.py``; the
+capacity counts every row of the call (idle slots and padding rows
+included), as in the reference.
 """
 from __future__ import annotations
 
@@ -60,13 +61,12 @@ from repro_torch.models.layers import (
     _attend,
     _project_qkv,
     embed_apply,
-    mlp_apply,
     rmsnorm,
     rope,
     unembed_apply,
 )
 from repro_torch.models.registry import get_model
-from repro_torch.models.transformer import check_dense, dtype_of
+from repro_torch.models.transformer import dtype_of, ffn_apply
 
 __all__ = [
     "ServeCostModel",
@@ -79,6 +79,13 @@ __all__ = [
     "arena_prefill",
     "arena_decode",
 ]
+
+
+# The encoder-decoder family has no serving path in either package (the
+# reference's server calls its prefill without the source frames).
+NO_ENCDEC_SERVING = (
+    "family 'audio' has no serving path: {} needs source frames, which no "
+    "request carries; drive models.encdec.prefill and decode_step directly")
 
 
 # --------------------------------------------------------------------------- #
@@ -214,11 +221,6 @@ def init_arena(cfg: ModelConfig, slots: int, max_len: int, *,
             "lengths": torch.zeros((slots,), dtype=torch.int32, device=dev)}
 
 
-def _mlp_or_moe(lp, hn, cfg):
-    check_dense(cfg)
-    return mlp_apply(lp["mlp"], hn, cfg)
-
-
 def _greedy(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.argmax(logits[:, : cfg.vocab_size], dim=-1).to(torch.int32)
 
@@ -250,7 +252,7 @@ def arena_prefill(params, tokens: torch.Tensor, slot_ids: torch.Tensor,
         hn = rmsnorm(x, lp["ln2"], cfg.norm_eps)
         scatter_prefill_rows(kv["k"][i], k, slot_ids)
         scatter_prefill_rows(kv["v"][i], v, slot_ids)
-        x = x + _mlp_or_moe(lp, hn, cfg)
+        x = x + ffn_apply(lp, hn, cfg)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     tok = _greedy(unembed_apply(params["embed"], x[:, -1]), cfg)
     lengths = arena["lengths"]
@@ -292,7 +294,7 @@ def arena_decode(params, tok: torch.Tensor, active: torch.Tensor,
                              impl=attn_impl, block_k=block_k)
         x = x + o.reshape(slots, 1, -1) @ lp["attn"]["wo"]
         hn = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp_or_moe(lp, hn, cfg)
+        x = x + ffn_apply(lp, hn, cfg)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     nxt = _greedy(unembed_apply(params["embed"], x[:, 0]), cfg)
     nxt = torch.where(active, nxt, tok)
@@ -354,6 +356,8 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"family {cfg.family!r} has no attention arena: serve "
                     f"{cfg.name} with launch.serve.BatchedServer")
+            if cfg.family == "audio":
+                raise ValueError(NO_ENCDEC_SERVING.format(cfg.name))
             api = get_model(cfg)
             if api.prefill is None or api.decode_step is None:
                 raise ValueError(f"family {cfg.family!r} has no serving path")

@@ -117,6 +117,9 @@ class _ZeroCopyCohortMixin:
     """
 
     _cohort_fn = None  # set by subclasses: (params, batches, rngs) -> (dict, metrics)
+    # Whether ``_cohort_fn`` also takes ``out=``, leaves to write the update
+    # into (see ``run_cohort_zero_copy``).
+    takes_out = False
     device: torch.device
 
     def run_cohort_zero_copy(
@@ -124,10 +127,25 @@ class _ZeroCopyCohortMixin:
         global_params: Params,
         batches: Batch,  # leaves shaped (cohort, ...)
         rngs: torch.Tensor,  # (cohort,) int64 seeds
+        recycle: "UpdateBuffer | None" = None,
     ) -> tuple[UpdateBuffer, dict]:
         """The chunk's device-resident ``UpdateBuffer`` (rows in device
-        order) and stacked metrics."""
-        params, metrics = self._cohort_fn(global_params, batches, rngs)
+        order) and stacked metrics.
+
+        ``recycle`` is a retired f32 buffer of the same rows (see
+        ``HybridSimulation`` ``recycle_buffers``).  A tier whose cohort
+        function ends in a cast back to the params' dtype (``DeviceTier``)
+        writes that cast into the retired leaves of the same size and dtype
+        (``out=`` targets) instead of fresh storage, so their old rows are
+        gone.  A leaf of another layout, and every leaf of a tier without
+        such a cast, gets fresh storage."""
+        if (recycle is not None and self.takes_out and recycle.wire == "f32"
+                and recycle.num_rows == int(rngs.shape[0])):
+            params, metrics = self._cohort_fn(
+                global_params, batches, rngs,
+                out=dict(zip(recycle.keys, recycle.leaves2d)))
+        else:
+            params, metrics = self._cohort_fn(global_params, batches, rngs)
         return UpdateBuffer(flatten_rows(params), *stacked_spec(params)), metrics
 
     def run_cohort_quantized(
@@ -164,6 +182,27 @@ class _ZeroCopyCohortMixin:
         q, s, res = quantize_rows(leaves, compute_residual=error_feedback)
         buf = UpdateBuffer(q, keys, shapes, dtypes, wire="int8", scales=s)
         return buf, metrics, (tuple(res) if error_feedback else None)
+
+
+def _cast_back(new_p: Params, global_params: Params,
+               out: "dict | None" = None) -> Params:
+    """Each float leaf of ``new_p`` cast back to its global dtype; a cast
+    writes into ``out[k]`` when that leaf has the same rows, size, dtype
+    and device (the ``out=`` target of a recycled buffer), else into fresh
+    storage.  A leaf already in its dtype is returned as is."""
+    res = {}
+    for k, v in new_p.items():
+        dt = global_params[k].dtype
+        o = None if out is None else out.get(k)
+        if not global_params[k].is_floating_point() or v.dtype == dt:
+            res[k] = v
+        elif (o is not None and o.dtype == dt and o.device == v.device
+              and o.shape[0] == v.shape[0] and o.numel() == v.numel()
+              and o.is_contiguous()):
+            res[k] = o.view(v.shape).copy_(v)
+        else:
+            res[k] = v.to(dt)
+    return res
 
 
 class LogicalTier(_ZeroCopyCohortMixin):
@@ -220,6 +259,8 @@ class DeviceTier(_ZeroCopyCohortMixin):
     ``run_device`` is the single-device view (same numerics, same fleet).
     """
 
+    takes_out = True  # the cast back writes into a recycled buffer
+
     def __init__(
         self,
         local_train: LocalTrainFn,
@@ -241,18 +282,26 @@ class DeviceTier(_ZeroCopyCohortMixin):
         self.device = resolve_device(device)
         self.fleet = DeviceFleet(grade, 0, seed=seed, jitter=jitter)
         self.reports: list[RoundReport] = []
-        self._cohort_fn = vmap(self._device_step, in_dims=(None, 0, 0))
+        self._backend_fn = vmap(self._backend_step, in_dims=(None, 0, 0))
 
     # -- numerically-distinct backend: cast in, compute, cast back ---------
-    def _device_step(self, global_params: Params, batch: Batch, rng):
+    def _backend_step(self, global_params: Params, batch: Batch, rng):
+        """Cast in and compute: the params come back in the backend dtype."""
         cast_in = lambda x: x.to(self.dtype) if x.is_floating_point() else x
         p = {k: cast_in(v) for k, v in global_params.items()}
         b = {k: cast_in(v) for k, v in batch.items()}
-        new_p, metrics = self.local_train(p, b, rng)
-        new_p = {k: (v.to(global_params[k].dtype)
-                     if global_params[k].is_floating_point() else v)
-                 for k, v in new_p.items()}
-        return new_p, metrics
+        return self.local_train(p, b, rng)
+
+    def _device_step(self, global_params: Params, batch: Batch, rng):
+        new_p, metrics = self._backend_step(global_params, batch, rng)
+        return _cast_back(new_p, global_params), metrics
+
+    def _cohort_fn(self, global_params: Params, batches: Batch,
+                   rngs: torch.Tensor, out: "dict | None" = None):
+        """One vmapped chunk, its params cast back after the vmap: into
+        ``out[k]`` where given and of the same size and dtype."""
+        new_p, metrics = self._backend_fn(global_params, batches, rngs)
+        return _cast_back(new_p, global_params, out), metrics
 
     def run_cohort(
         self,
@@ -469,6 +518,19 @@ class HybridSimulation:
     ``Message``/``ArrivalBatch``) rewrites every emission *before* it is
     submitted to DeviceFlow.  Transforms must preserve ``device_ids`` / row
     counts (arrival times are indexed through them).
+
+    ``recycle_buffers=True`` writes round k+1's device-tier chunk updates
+    into round k's retired update buffers of the same (tier, rows) key:
+    torch has no buffer donation, so the tier's cast back from its backend
+    dtype takes the retired leaves as ``out=`` targets, and a chunk keeps
+    one storage across rounds with no buffer-sized allocation.  The logical
+    tier's update is its training function's own output, with no final op
+    to redirect; its chunks get fresh storage (which the caching allocator
+    takes from freed blocks).  Only enable it when every handle of round k
+    is consumed before round k+1 runs (realtime dispatch with an in-round
+    trigger, as in the quickstart); a handle that outlives its round would
+    read the next round's rows.  It applies to the f32 wire only (int8
+    leaves have another layout), as in the reference.
     """
 
     def __init__(
@@ -479,6 +541,7 @@ class HybridSimulation:
         *,
         tiers: Mapping[str, DeviceTier] | None = None,
         zero_copy: bool = True,
+        recycle_buffers: bool = False,
         stream_chunks: bool = False,
         columnar: bool = True,
         wire: str = "f32",
@@ -492,6 +555,7 @@ class HybridSimulation:
                 "wire='int8' requires zero_copy rounds (quantization runs "
                 "on the device-resident cohort output)")
         self.zero_copy = zero_copy
+        self.recycle_buffers = recycle_buffers
         self.stream_chunks = stream_chunks
         self.wire = wire
         self.error_feedback = error_feedback
@@ -502,6 +566,10 @@ class HybridSimulation:
         # Columnar message plane: zero-copy chunks emit ONE ArrivalBatch per
         # cohort chunk instead of one Message object per device.
         self.columnar = columnar
+        # Recycled update buffers: (tier id, rows) -> [UpdateBuffer], the
+        # previous round's (retired) and this round's (staged).
+        self._retired: dict = {}
+        self._staged: dict = {}
         self.logical = logical
         if tiers is not None and device is not None:
             raise ValueError("pass either device or tiers, not both")
@@ -677,8 +745,15 @@ class HybridSimulation:
             elif self.zero_copy:
                 # The chunk's stacked output never leaves the card; the
                 # next chunk is launched while this one still computes.
+                prev = None
+                key = (id(sim_tier), hi - lo)
+                recycle = self.recycle_buffers and sim_tier.takes_out
+                if recycle and self._retired.get(key):
+                    prev = self._retired[key].pop()
                 buf, metrics = sim_tier.run_cohort_zero_copy(
-                    global_params, chunk, rngs)
+                    global_params, chunk, rngs, recycle=prev)
+                if recycle:
+                    self._staged.setdefault(key, []).append(buf)
                 emit_handles(buf, lo, hi)
             else:
                 out_params, metrics = sim_tier._cohort_fn(
@@ -848,6 +923,8 @@ class HybridSimulation:
             # The round ends when the slowest device reports, not at clock.now.
             self.deviceflow.round_complete(
                 task_id, t=float(np.max(arrival_times)))
+        if self.recycle_buffers:
+            self._retired, self._staged = self._staged, {}
         return FederatedRoundOutcome(
             num_logical=sum(e.num_logical for e in plan.entries),
             num_physical=sum(e.num_physical + e.num_benchmarking
@@ -934,6 +1011,8 @@ class HybridSimulation:
                      if arrival_times is not None and len(arrival_times)
                      else None)
             self.deviceflow.round_complete(task_id, t=t_end)
+        if self.recycle_buffers:
+            self._retired, self._staged = self._staged, {}
         return FederatedRoundOutcome(
             num_logical=num_logical,
             num_physical=n_total - num_logical,

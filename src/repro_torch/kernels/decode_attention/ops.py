@@ -31,7 +31,9 @@ back what was there.  Unlike the reference's functional updates they write
 the cache *in place* (and return it), so an arena is never copied.
 
 ``decode_attention.launches`` counts kernel launches (one per call that
-reaches the kernel, one kernel per launch); nothing else touches it.
+reaches the kernel, one kernel per launch); nothing else touches it.  When
+a caller sets ``decode_attention.shapes`` to a set, each launch also adds
+its ``(b, s, h, kv, d, dtype name)`` to it.
 """
 from __future__ import annotations
 
@@ -260,6 +262,9 @@ def _decode_attention_cuda(q, k_cache, v_cache, lengths, scale, block_k):
         raise RuntimeError(
             f"decode_attention kernel launch failed: cudaError {err}")
     decode_attention.launches += 1
+    if decode_attention.shapes is not None:
+        decode_attention.shapes.add(
+            (b, s, h, kvh, d, str(q.dtype).removeprefix("torch.")))
     return out
 
 
@@ -297,6 +302,7 @@ def decode_attention(
 
 
 decode_attention.launches = 0
+decode_attention.shapes = None
 
 
 # --------------------------------------------------------------------------- #

@@ -27,7 +27,9 @@ multiply before the reduction in the plain version — and no dense f32 copy
 of the stack is ever built.
 
 ``fed_reduce.launches`` counts kernel launches (one per call that reaches
-the kernel); nothing else touches it.
+the kernel); nothing else touches it.  When a caller sets
+``fed_reduce.shapes`` to a set, each launch also adds its ``(rows, width,
+dtype name)`` to it (an audit of the shapes a path launched at).
 """
 from __future__ import annotations
 
@@ -186,6 +188,8 @@ def _fed_reduce_cuda(stack2d: torch.Tensor, weights: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fed_reduce kernel launch failed: cudaError {err}")
     fed_reduce.launches += 1
+    if fed_reduce.shapes is not None:
+        fed_reduce.shapes.add((n, d, str(stack2d.dtype).removeprefix("torch.")))
     return out
 
 
@@ -230,3 +234,4 @@ def fed_reduce(stack: torch.Tensor, weights: torch.Tensor, *,
 
 
 fed_reduce.launches = 0
+fed_reduce.shapes = None

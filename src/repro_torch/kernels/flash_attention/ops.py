@@ -26,7 +26,9 @@ The kernel has no backward: LM training (ROADMAP P12) adds one.
 
 ``flash_attention.launches`` counts kernel launches of either kernel (one
 per call that reaches a kernel), ``flash_attention.wgmma_launches`` those
-of the tensor-core kernel alone; nothing else touches them.
+of the tensor-core kernel alone; nothing else touches them.  When a caller
+sets ``flash_attention.shapes`` to a set, each launch also adds its ``(b,
+sq, sk, h, kv, d, causal, q_offset, dtype name)`` to it.
 """
 from __future__ import annotations
 
@@ -127,6 +129,10 @@ def _flash_attention_cuda(q, k, v, causal, q_offset, scale, kernel=None):
     flash_attention.launches += 1
     if kernel == "wgmma":
         flash_attention.wgmma_launches += 1
+    if flash_attention.shapes is not None:
+        flash_attention.shapes.add(
+            (b, sq, sk, h, kvh, d, bool(causal), int(q_offset),
+             str(q.dtype).removeprefix("torch.")))
     return out
 
 
@@ -170,3 +176,4 @@ def flash_attention(
 
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
+flash_attention.shapes = None

@@ -25,6 +25,10 @@ covers serving traffic exactly like training updates.
 Run on the card (the default) or, with ``--device cpu``, on the CPU::
 
     python -m repro_torch.launch.serve --device cpu
+    python -m repro_torch.launch.serve --arch granite_moe_3b_a800m --device cpu
+
+The encoder-decoder family (``seamless_m4t_medium``) has no serving path, as
+in the reference: both servers refuse it up front with a ``ValueError``.
 
 ``--co-train`` needs the scheduler (``core/scheduler.py``), which is not
 ported yet (ROADMAP P8).
@@ -41,6 +45,7 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.core.deviceflow import Delivery, DeviceFlow, Message, VirtualClock
 from repro_torch.core.serving import (
+    NO_ENCDEC_SERVING,
     ContinuousBatchingEngine,
     ContinuousServer,
     RequestRecord,
@@ -90,6 +95,8 @@ class BatchedServer:
                  decode_tokens: int, max_len: int, seed: int = 0,
                  cost_model: "ServeCostModel | None" = None,
                  fused: bool = True, params=None, device="cuda"):
+        if cfg.family == "audio":
+            raise ValueError(NO_ENCDEC_SERVING.format(cfg.name))
         self.cfg = cfg
         self.api = get_model(cfg)
         self.device = resolve_device(device)

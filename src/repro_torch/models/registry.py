@@ -5,7 +5,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, mamba2, transformer
+from repro_torch.models import encdec, hybrid, mamba2, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +37,11 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             decode_step=mod.decode_step,
         )
     if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the audio family (models/encdec.py) is not ported "
-            "yet (ROADMAP P11)")
+        return ModelApi(
+            init=encdec.init,
+            apply=None,
+            init_cache=encdec.init_cache,
+            prefill=encdec.prefill,
+            decode_step=encdec.decode_step,
+        )
     raise ValueError(f"unknown family {cfg.family}")

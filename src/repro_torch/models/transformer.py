@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM (the dense and VLM-backbone families).
+"""Decoder-only transformer LM (the dense, MoE and VLM-backbone families).
 
 init/apply in the reference's style, with the layers as a Python list of
 per-layer param dicts (the reference stacks them for ``lax.scan``;
@@ -7,8 +7,9 @@ full-sequence forward, prefill and cached decode.  The serving cache is one
 stacked ``(num_layers, b, max_len, kv, hd)`` tensor per K and V plus a host
 int ``pos``; decode writes into it in place.
 
-Mixture-of-experts layers (``models/moe.py``) are not ported yet (ROADMAP
-P9), nor is ``loss_fn``, which waits for LM training and the flash
+A layer of an MoE config carries ``p["moe"]`` (``models/moe.py``) in place
+of ``p["mlp"]``; ``apply`` returns the summed Switch auxiliary loss.
+``loss_fn`` is not ported yet: it waits for LM training and the flash
 kernel's backward (ROADMAP P12).
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     _attend,
     _project_qkv,
@@ -42,14 +44,6 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for configs this port cannot run yet (experts: ROADMAP P9)."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers (models/moe.py) are not "
-            "ported yet (ROADMAP P9)")
-
-
 def _generator(generator, device: torch.device) -> torch.Generator:
     if isinstance(generator, torch.Generator):
         if generator.device.type != device.type:
@@ -60,21 +54,31 @@ def _generator(generator, device: torch.device) -> torch.Generator:
 
 
 def layer_init(generator, cfg: ModelConfig, device) -> Params:
-    check_dense(cfg)
     dt = dtype_of(cfg)
-    return {
+    p = {
         "ln1": torch.ones((cfg.d_model,), dtype=dt, device=device),
         "attn": attention_init(generator, cfg, dt, device),
         "ln2": torch.ones((cfg.d_model,), dtype=dt, device=device),
-        "mlp": mlp_init(generator, cfg, dt, device),
     }
+    if cfg.num_experts:
+        p["moe"] = moe_lib.moe_init(generator, cfg, dt, device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg, dt, device)
+    return p
+
+
+def ffn_apply(p: Params, hn: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's MLP or MoE block with its auxiliary loss dropped (the
+    serving paths; ``layer_apply`` keeps it)."""
+    if cfg.num_experts:
+        return moe_lib.moe_apply(p["moe"], hn, cfg)[0]
+    return mlp_apply(p["mlp"], hn, cfg)
 
 
 def init(generator, cfg: ModelConfig, *, device="cuda") -> Params:
     """Random params from ``generator`` (a ``torch.Generator`` on
     ``device``, or an int seed): the reference's truncated-normal recipe,
     not its bits (torch cannot replay ``jax.random``)."""
-    check_dense(cfg)
     dev = resolve_device(device)
     gen = _generator(generator, dev)
     dt = dtype_of(cfg)
@@ -92,6 +96,9 @@ def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                         positions, causal=True)
     x = x + h
     hn = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if cfg.num_experts:
+        h, aux = moe_lib.moe_apply(p["moe"], hn, cfg)
+        return x + h, aux
     return (x + mlp_apply(p["mlp"], hn, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -101,8 +108,7 @@ def layer_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     h, cache = attention_decode(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps),
                                 cfg, cache)
     x = x + h
-    hn = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], hn, cfg), cache
+    return x + ffn_apply(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cache
 
 
 def _embed(params, tokens, prefix_embeds):
@@ -116,7 +122,6 @@ def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
           prefix_embeds: "torch.Tensor | None" = None
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (b, s_total, padded_vocab) f32, aux_loss)."""
-    check_dense(cfg)
     x = _embed(params, tokens, prefix_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -148,7 +153,6 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
     Returns (last-position logits (b, padded_vocab), cache).
     """
-    check_dense(cfg)
     x = _embed(params, tokens, prefix_embeds)
     b, s, _ = x.shape
     if s > max_len:
@@ -167,7 +171,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         hn = rmsnorm(x, lp["ln2"], cfg.norm_eps)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
-        x = x + mlp_apply(lp["mlp"], hn, cfg)
+        x = x + ffn_apply(lp, hn, cfg)
     cache["pos"] = s
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return unembed_apply(params["embed"], x[:, -1]), cache
@@ -178,7 +182,6 @@ def decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
     """One-token decode: returns (logits (b, padded_vocab), cache).  Writes
     the token's K/V into ``cache`` in place; the returned cache shares its
     tensors and carries ``pos + 1``."""
-    check_dense(cfg)
     pos = int(cache["pos"])
     if pos >= cache["k"].shape[2]:
         raise ValueError(f"cache of {cache['k'].shape[2]} positions is full")
@@ -241,12 +244,15 @@ def params_to_numpy(params: Params, cfg: ModelConfig) -> dict:
     out = {k: _tree_map(_to_numpy, v) for k, v in params.items()
            if k != "layers"}
     layers = [_tree_map(_to_numpy, lp) for lp in params["layers"]]
-    if cfg.scan_layers:
-        def stack(*leaves):
-            if isinstance(leaves[0], dict):
-                return {k: stack(*(lf[k] for lf in leaves))
-                        for k in leaves[0]}
-            return np.stack(leaves)
-        layers = stack(*layers)
-    out["layers"] = layers
+    out["layers"] = _stack(layers) if cfg.scan_layers else layers
     return out
+
+
+def _stack(layers: list) -> dict:
+    """Per-layer numpy dicts restacked on a leading layer axis (the
+    reference's scanned layout)."""
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(lf[k] for lf in leaves)) for k in leaves[0]}
+        return np.stack(leaves)
+    return stack(*layers)

@@ -348,3 +348,26 @@ def test_decode_kernel_route_by_dtype_and_width(dtype, d):
         tdec.kernel_for(torch.float16, d)
     with pytest.raises(ValueError, match="head_dim"):
         tdec.kernel_for(dtype, d + 8)
+
+
+def test_plain_calls_record_no_launch_shape():
+    """A wrapper's shape record (``.shapes``) holds launches only: a call
+    on CPU tensors takes the plain version, launches nothing and adds
+    nothing, whatever the wrapper."""
+    from repro_torch.kernels.fed_reduce.ops import fed_reduce
+
+    q = torch.ones(2, 4, 16)
+    kc = torch.ones(2, 8, 2, 16)
+    fq = torch.ones(2, 5, 4, 16)
+    wrappers = (fed_reduce, tdec.decode_attention, tflash.flash_attention)
+    for f in wrappers:
+        f.shapes = set()
+    try:
+        fed_reduce(torch.ones(3, 2), torch.ones(3))
+        tdec.decode_attention(q, kc, kc, torch.tensor([3, 8],
+                                                      dtype=torch.int32))
+        tflash.flash_attention(fq, kc, kc, causal=True)
+        assert [f.shapes for f in wrappers] == [set(), set(), set()]
+    finally:
+        for f in wrappers:
+            f.shapes = None

@@ -1,9 +1,11 @@
 """Tests that need an NVIDIA card: the ``fed_reduce``, ``decode_attention``,
 ``flash_attention`` and ``ssd_scan`` CUDA kernels against their plain
 versions, a small federated round on the card against the same round on the
-CPU, a short continuous-batching serving run, both with the hot-path sync
-sanitizer armed, and Mamba2 fixed-batch serving against its plain path.  They skip where CUDA is not available.  This file imports no JAX,
-so it runs on a machine that has only PyTorch:
+CPU, a short continuous-batching serving run (dense and MoE), both with
+the hot-path sync sanitizer armed, Mamba2 fixed-batch serving against its
+plain path, MoE routing on the card against the CPU's, and recycled update
+buffers against fresh ones.  They skip where CUDA is not available.  This
+file imports no JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -127,7 +129,8 @@ def test_kernel_rejects_strided_and_takes_misaligned_stacks(cuda_device):
                                rtol=1e-5)
 
 
-def _round(device, wire, streaming, n_high=240, n_low=160, dim=32, rounds=2):
+def _round(device, wire, streaming, n_high=240, n_low=160, dim=32, rounds=2,
+           recycle=False):
     specs = [GradeSpec("High", n_high, benchmarking_devices=1,
                        logical_bundles=32, bundles_per_device=4,
                        physical_devices=40),
@@ -161,7 +164,8 @@ def _round(device, wire, streaming, n_high=240, n_low=160, dim=32, rounds=2):
         LogicalTier(local, cohort_size=64, device=device),
         tiers={g: DeviceTier(local, GRADES[g], cohort_size=64, device=device)
                for g in ("High", "Low")},
-        deviceflow=flow, wire=wire, stream_chunks=streaming)
+        deviceflow=flow, wire=wire, stream_chunks=streaming,
+        recycle_buffers=recycle)
     for rnd in range(rounds):
         sim.run_plan_round(0, rnd, svc.global_params, plan, batches, counts,
                            torch.Generator().manual_seed(rnd), calibrator=cal)
@@ -189,9 +193,12 @@ def test_round_on_card_matches_cpu_under_sync_sanitizer(cuda_device, wire,
 # the llama3.2-3b group of 3 and the serving shapes
 
 ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+# The last three are granite-moe-3b's decode (24/8 heads of 64) and
+# seamless-m4t-medium's self- and cross-attention decode (16/16 of 64).
 DECODE_CASES = [(2, 256, 8, 2, 64), (1, 512, 4, 4, 128), (3, 300, 6, 1, 64),
                 (2, 64, 16, 16, 32), (3, 96, 6, 2, 16),
-                (16, 577, 24, 8, 128)]
+                (16, 577, 24, 8, 128), (16, 577, 24, 8, 64),
+                (16, 129, 16, 16, 64), (16, 256, 16, 16, 64)]
 # (b, sq, sk, h, kv, d, causal, q_offset).  Beyond the reference's cases,
 # the tensor-core kernel's edges (bf16 at d = 64, 128): sq not a multiple of
 # its 64- or 128-row tile (70, 96, 200), a key tail past sk, q_offset 104
@@ -212,7 +219,13 @@ FLASH_CASES = [(2, 256, 256, 4, 2, 64, True, 0),
                (3, 70, 130, 4, 4, 128, False, 0),
                (1, 60, 200, 4, 2, 128, True, 0),
                (16, 512, 512, 24, 8, 128, True, 0),
-               (16, 512, 512, 32, 32, 64, True, 0)]
+               (16, 512, 512, 32, 32, 64, True, 0),
+               # granite-moe-3b's prefill; seamless-m4t-medium's encoder,
+               # decoder self-attention and cross-attention (sq != sk).
+               (16, 512, 512, 24, 8, 64, True, 0),
+               (16, 256, 256, 16, 16, 64, False, 0),
+               (16, 64, 64, 16, 16, 64, True, 0),
+               (16, 64, 256, 16, 16, 64, False, 0)]
 
 
 def _randn(gen, shape, dtype, device):
@@ -595,3 +608,162 @@ def test_mamba2_serving_on_card_matches_plain_path(cuda_device, monkeypatch):
     plain = run()
     assert ssd_ops.ssd_scan.launches == before + 2 * 2
     assert len(kernel) == 6 and kernel == plain
+
+
+# --------------------------------------------------------------------------
+# slice 6: cross-attention decode at full lengths, MoE dispatch, recycled
+# update buffers
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_full_source_lengths(cuda_device, dtype):
+    """seamless-m4t-medium's cross-attention in decode: every length equals
+    the 256 source frames; kernel against plain, bitwise repeatable."""
+    b, s, h, kv, d = 16, 256, 16, 16, 64
+    gen = torch.Generator().manual_seed(256)
+    q = _randn(gen, (b, h, d), dtype, cuda_device)
+    kc = _randn(gen, (b, s, kv, d), dtype, cuda_device)
+    vc = _randn(gen, (b, s, kv, d), dtype, cuda_device)
+    lens = torch.full((b,), s, dtype=torch.int32, device=cuda_device)
+    before = decode_attention.launches
+    a = decode_attention(q, kc, vc, lens)
+    a2 = decode_attention(q, kc, vc, lens)
+    plain = decode_attention(q, kc, vc, lens, impl="ref")
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert torch.equal(a, a2)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(a.float(), plain.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("tokens", [16, 16 * 48])
+def test_moe_dispatch_on_card_equals_cpu(cuda_device, tokens):
+    """granite-moe's MoE block at full width in f32 (TF32 off): the card
+    routes every (token, k) pair to the CPU's expert and slot, at a decode
+    step's 16 tokens (capacity 8: pairs drop) and at a prefill's; the
+    output agrees within 1e-5 relative."""
+    from repro_torch.models import moe
+
+    cfg = get_config("granite_moe_3b_a800m")
+    gen = torch.Generator().manual_seed(tokens)
+    p = moe.moe_init(gen, cfg, torch.float32, "cpu")
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen)
+    want = moe.route(p["router"], x[0], cfg)
+    got = moe.route(p["router"].to(cuda_device), x[0].to(cuda_device), cfg)
+    assert got.capacity == want.capacity
+    assert torch.equal(got.expert.cpu(), want.expert)
+    assert torch.equal(got.slot.cpu(), want.slot)
+    if tokens == 16:
+        assert int((want.slot == want.capacity).sum()) > 0  # drops
+    torch.testing.assert_close(got.gate.cpu(), want.gate, atol=1e-6,
+                               rtol=1e-6)
+    out, aux = moe.moe_apply({k: v.to(cuda_device) for k, v in p.items()},
+                             x.to(cuda_device), cfg)
+    ref, ref_aux = moe.moe_apply(p, x, cfg)
+    err = (out.cpu() - ref).abs().max() / ref.abs().max()
+    assert float(err) <= 1e-5
+    assert abs(float(aux) - float(ref_aux)) <= 1e-5 * float(ref_aux)
+
+
+def test_recycled_rounds_equal_fresh_rounds_on_card(cuda_device):
+    """``recycle_buffers=True`` on the card: the f32 rounds equal the
+    fresh-storage rounds bitwise (params, aggregations, wire bytes)."""
+    fresh = _round(cuda_device, "f32", False, rounds=3)
+    recycled = _round(cuda_device, "f32", False, rounds=3, recycle=True)
+    assert fresh[1:] == recycled[1:]
+    for k in fresh[0]:
+        np.testing.assert_array_equal(fresh[0][k], recycled[0][k])
+
+
+def test_recycled_device_tier_chunk_writes_into_the_retired_leaves(
+        cuda_device):
+    """On the card the device tier's cast back to f32 writes a recycled
+    chunk into the retired buffer's storage, with the fresh chunk's bits,
+    and the caching allocator hands out at least that buffer's bytes
+    fewer."""
+    local = ctr.make_local_train_fn(lr=1e-2, epochs=2)
+    tier = DeviceTier(local, GRADES["High"], device=cuda_device)
+    gen = torch.Generator().manual_seed(5)
+    params = {"w": (torch.randn(256, generator=gen) * 0.1).to(cuda_device),
+              "b": torch.zeros((), device=cuda_device)}
+    batch = {"x": torch.randn(512, 20, 256, generator=gen).to(cuda_device),
+             "y": (torch.rand(512, 20, generator=gen) < 0.3).float()
+             .to(cuda_device),
+             "mask": torch.ones(512, 20, device=cuda_device)}
+    seeds = torch.arange(512, dtype=torch.int64)
+    want, _ = tier.run_cohort_zero_copy(params, batch, seeds)
+    retired = type(want)([torch.zeros_like(l) for l in want.leaves2d],
+                         want.keys, want.shapes, want.dtypes)
+
+    def handed(run):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+        out = run()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.memory_stats()[
+            "allocated_bytes.all.allocated"] - before)
+    (fresh, _), fresh_bytes = handed(
+        lambda: tier.run_cohort_zero_copy(params, batch, seeds))
+    (got, _), got_bytes = handed(
+        lambda: tier.run_cohort_zero_copy(params, batch, seeds,
+                                          recycle=retired))
+    for g, f, r in zip(got.leaves2d, fresh.leaves2d, retired.leaves2d):
+        assert g.data_ptr() == r.data_ptr()
+        assert torch.equal(g, f)
+    assert fresh_bytes - got_bytes >= 512 * 257 * 4
+
+
+def test_wrappers_record_the_shapes_they_launch_at(cuda_device):
+    """With a set in ``.shapes``, each wrapper adds the shape of every
+    launch (and nothing for a plain call)."""
+    gen = torch.Generator().manual_seed(6)
+    U = _randn(gen, (40, 24), torch.float32, cuda_device)
+    w = torch.rand(40, generator=gen).to(cuda_device)
+    q = _randn(gen, (2, 6, 64), torch.bfloat16, cuda_device)
+    kc = _randn(gen, (2, 33, 2, 64), torch.bfloat16, cuda_device)
+    lens = torch.tensor([5, 33], dtype=torch.int32, device=cuda_device)
+    fq = _randn(gen, (2, 16, 6, 64), torch.bfloat16, cuda_device)
+    fk = _randn(gen, (2, 24, 2, 64), torch.bfloat16, cuda_device)
+    wrappers = (fed_reduce, decode_attention, flash_attention)
+    for f in wrappers:
+        f.shapes = set()
+    try:
+        fed_reduce(U, w)
+        fed_reduce(U, w, impl="ref")
+        decode_attention(q, kc, kc, lens)
+        decode_attention(q, kc, kc, lens, impl="ref")
+        flash_attention(fq, fk, fk, causal=False)
+        flash_attention(fq, fk, fk, causal=True, q_offset=8, impl="ref")
+        assert fed_reduce.shapes == {(40, 24, "float32")}
+        assert decode_attention.shapes == {(2, 33, 6, 2, 64, "bfloat16")}
+        assert flash_attention.shapes == {
+            (2, 16, 24, 6, 2, 64, False, 0, "bfloat16")}
+    finally:
+        for f in wrappers:
+            f.shapes = None
+
+
+def test_moe_serving_run_on_card_under_sync_sanitizer(cuda_device):
+    """granite-moe's smoke config serving on the card (f32) with the sync
+    sanitizer armed: the MoE routing adds no host sync to ``step``, and
+    the tokens equal the plain attention path's on the card."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m", smoke=True),
+                              dtype="float32")
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (5, 8))
+
+    def run(attn_impl, attention_impl):
+        c = dataclasses.replace(cfg, attention_impl=attention_impl)
+        eng = ContinuousBatchingEngine(c, slots=3, prompt_len=8,
+                                       decode_tokens=4, seed=0,
+                                       attn_impl=attn_impl,
+                                       device=cuda_device)
+        for i in range(5):
+            eng.submit(i, prompts[i], 0.0)
+        t = 0.0
+        with sanitizers.override(True):
+            while eng.has_work:
+                t += eng.step(t)
+        return {r.request_id: r.tokens for r in eng.report().records}
+
+    assert run("auto", "auto") == run("ref", "einsum")

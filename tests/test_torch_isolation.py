@@ -35,7 +35,7 @@ def test_import_loads_no_jax_and_no_reference_package():
                          capture_output=True, text=True, check=True).stdout
     assert "BAD []" in out, out
     n = int(out.split("MODULES ")[1].split()[0])
-    assert n >= 49  # every ported module was imported
+    assert n >= 66  # every ported module was imported
 
 
 def test_chip_smoke_imports_no_jax():
@@ -52,12 +52,15 @@ def _entry_points():
     from repro_torch.core.simulation import DeviceTier, LogicalTier
     from repro_torch.core.updates import UpdateBuffer
     from repro_torch.launch.serve import BatchedServer, stack_requests
-    from repro_torch.models import ctr, hybrid, mamba2, transformer
+    from repro_torch.examples import federated_ctr, quickstart
+    from repro_torch.models import ctr, encdec, hybrid, mamba2, transformer
 
     fn = ctr.make_local_train_fn()
     lm = get_config("llama3_2_3b", smoke=True)
     ssm = get_config("mamba2_1_3b", smoke=True)
     hyb = get_config("zamba2_1_2b", smoke=True)
+    moe = get_config("granite_moe_3b_a800m", smoke=True)
+    audio = get_config("seamless_m4t_medium", smoke=True)
     buf = UpdateBuffer.from_stacked({"w": torch.ones(2, 3)})
     state = buf.state_dict()
     state["device"] = "cuda"
@@ -83,6 +86,14 @@ def _entry_points():
             dataclasses.replace(ssm, scan_layers=False)),
         "hybrid.init": lambda: hybrid.init(0, hyb),
         "hybrid.init_cache": lambda: hybrid.init_cache(hyb, 1, 4),
+        "transformer.init[moe]": lambda: transformer.init(0, moe),
+        "encdec.init": lambda: encdec.init(0, audio),
+        "encdec.init_cache": lambda: encdec.init_cache(audio, 1, 4, 3),
+        "encdec.params_from_numpy": lambda: encdec.params_from_numpy(
+            {"ln_f": np.ones(4, np.float32), "encoder": [], "decoder": []},
+            dataclasses.replace(audio, scan_layers=False)),
+        "quickstart.run": lambda: quickstart.run(),
+        "federated_ctr.run": lambda: federated_ctr.run(devices=2, rounds=1),
         "init_arena": lambda: init_arena(lm, 2, 4),
         "ContinuousBatchingEngine": lambda: ContinuousBatchingEngine(
             lm, slots=2, prompt_len=4, decode_tokens=2),
@@ -98,6 +109,8 @@ def _entry_points():
     "transformer.init", "transformer.init_cache",
     "transformer.params_from_numpy", "mamba2.init", "mamba2.init_cache",
     "mamba2.params_from_numpy", "hybrid.init", "hybrid.init_cache",
+    "transformer.init[moe]", "encdec.init", "encdec.init_cache",
+    "encdec.params_from_numpy", "quickstart.run", "federated_ctr.run",
     "init_arena",
     "ContinuousBatchingEngine", "BatchedServer", "stack_requests"]))
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):

@@ -19,6 +19,7 @@ from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 
 ARCH = "llama3_2_3b"
@@ -202,24 +203,37 @@ def test_init_draws_the_reference_recipe():
     ("mamba2_1_3b", "P11"), ("zamba2_1_2b", "P11"),
     ("seamless_m4t_medium", "P11")])
 def test_unported_families_raise(arch, exc):
-    """ROADMAP P11 ported the ssm and hybrid families, which now serve (their
-    parity with the reference is in test_torch_mamba2.py); the audio family
-    (models/encdec.py) still raises naming P11."""
+    """ROADMAP P11 ported the ssm, hybrid and audio families, which now run
+    (their parity with the reference is in test_torch_mamba2.py and
+    test_torch_encdec.py).  What still raises is serving the audio family:
+    neither package has a serving path for it."""
     cfg = get_config(arch, smoke=True)
-    if cfg.family == "audio":
-        with pytest.raises(NotImplementedError, match=exc):
-            get_model(cfg)
-        return
     api = get_model(cfg)
     params = api.init(0, cfg, device="cpu")
     tokens = torch.ones((2, 5), dtype=torch.int32)
-    logits, cache = api.prefill(params, tokens, cfg, 7)
+    if cfg.family == "audio":
+        src = torch.zeros((2, 6, cfg.d_model))
+        logits, cache = api.prefill(params, src, tokens, cfg, 7)
+        with pytest.raises(ValueError, match="no serving path"):
+            serve.BatchedServer(cfg, batch_size=2, prompt_len=5,
+                                decode_tokens=1, max_len=7, device="cpu")
+    else:
+        logits, cache = api.prefill(params, tokens, cfg, 7)
     logits, _ = api.decode_step(params, tokens[:, 0], cfg, cache)
     assert logits.shape == (2, 2048) and torch.isfinite(logits).all()
 
 
 def test_experts_raise_naming_p9():
+    """ROADMAP P9 ported the mixture-of-experts layers: an MoE config no
+    longer raises, its layers carry ``moe`` params and serve (parity with
+    the reference is in test_torch_moe.py)."""
     cfg = get_config("granite_moe_3b_a800m", smoke=True)
     api = get_model(cfg)
-    with pytest.raises(NotImplementedError, match="P9"):
-        api.init(0, cfg, device="cpu")
+    params = api.init(0, cfg, device="cpu")
+    assert "moe" in params["layers"][0] and "mlp" not in params["layers"][0]
+    tokens = torch.ones((2, 5), dtype=torch.int32)
+    logits, aux = api.apply(params, tokens, cfg)
+    assert torch.isfinite(logits).all() and float(aux) > 0
+    logits, cache = api.prefill(params, tokens, cfg, 7)
+    logits, _ = api.decode_step(params, tokens[:, 0], cfg, cache)
+    assert torch.isfinite(logits).all()
