@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # from the root of a checkout
     python3 chip_smoke.py --profile       # where a federated round's time goes
     python3 chip_smoke.py --serving-only  # skip the federated-round phases
+    python3 chip_smoke.py --scheduling-only  # phases 1, 2, 13 and 14 only
     python3 chip_smoke.py --ssm-only      # the SSD kernel and SSM serving only
 
 All four kernels (``fed_reduce``, ``decode_attention``, ``flash_attention``
@@ -11,8 +12,8 @@ and ``ssd_scan``, the last three with tensor-core and plain-FMA paths) are
 built first from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``, one
 compiler per source, all at once; ptxas's registers and spills of the new
 kernels and the tensor-core instructions in each library's SASS
-(``cuobjdump``: HGMMA, HMMA) are printed.  Twelve phases; any failure
-raises and the script exits non-zero:
+(``cuobjdump``: HGMMA, HMMA) are printed.  Fourteen phases, run in their
+numbered order; any failure raises and the script exits non-zero:
 
 1. **Kernel.**  Runs ``fed_reduce`` on the card against its plain
    PyTorch version at every shape the slice's ``RoundPlan`` gives it: each
@@ -140,6 +141,31 @@ raises and the script exits non-zero:
     phase 4; wall ms per prefill and step, peak memory, profiled windows.
 12. **Encoder-decoder cross-check.**  2 + 2 layers at full width, kernel
     against plain: bf16 2e-2, f32 1e-4 with equal greedy tokens.
+13. **Scheduled rounds.**  Three federated tasks over phase 2's plan (100 000
+    devices, q_i = 1, cohorts of 8192, two rounds each, chunks streamed
+    into one streaming ``AggregationService`` per task behind a task
+    router) contend for one pool through a preemptive, elastic
+    ``TaskEngine`` on DeviceFlow's clock whose ``round_runner`` calls
+    ``HybridSimulation.run_plan_round``: two priority-0 tasks freeze the
+    whole pool and a priority-5 task arrives inside round 0.  The
+    ``fed_reduce`` launches must equal the aggregations' (buffer, leaf)
+    reductions at checked shapes, a task must be preempted and every
+    task's test loss must fall every aggregation.  The same schedule is
+    snapshotted mid-preemption (``Checkpointer.save(runtime_state=
+    engine.state_dict(deviceflow=..., fleets=..., services=...))``),
+    restored into a fresh world and run to the end: timeline exactly and
+    params bitwise equal to the uninterrupted run's.  At 2 000 devices the
+    card's timeline must equal the CPU's, params within 1e-6.
+14. **Pooled rounds.**  Phase 2's f32 and int8 rounds with the cohort
+    chunks in two worker processes on the card (``FleetWorkerPool``,
+    ``WorkerSpec(smoke_tiers, {"device": "cuda"})``): params, dispatch
+    groups and ``created_t`` stamps, shelf bytes, aggregations and
+    ``fed_reduce`` launches equal to phase 2's bitwise; the segment ring
+    recycles; at 2 000 devices with three workers, worker 1 is killed in
+    round 1 and the round completes bitwise equal to the inline run; no
+    segment is left in ``/dev/shm``.  If ``/dev/shm`` cannot hold a call's
+    input segment the phase runs at the largest device count that fits and
+    says so.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``, and before that one JSON
@@ -403,15 +429,28 @@ class LaunchAudit:
         self.expected = 0
         self.per_aggregation: list[int] = []
         self.shapes: set = set()  # (rows, width, dtype) reduced
+        # Dispatch groups: (t, digest of the device ids, digest of the
+        # created_t stamps) per delivery, to compare two runs group for group.
+        self.groups: list[tuple] = []
 
     def __call__(self, d):
+        import hashlib
+
+        import numpy as np
+
         from repro_torch.core.updates import UpdateHandle
 
         buf = None
         if d.batch is not None:
             buf = d.batch.buffer
-        elif isinstance(d.message.payload, UpdateHandle):
-            buf = d.message.payload.buffer
+            self.groups.append((d.t, *(
+                hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+                for a in (d.batch.device_ids, d.batch.created_t))))
+        else:
+            self.groups.append((d.t, d.message.device_id,
+                                d.message.created_t))
+            if isinstance(d.message.payload, UpdateHandle):
+                buf = d.message.payload.buffer
         if buf is not None:
             self.buffers[id(buf)] = buf
         before = len(self.svc.history)
@@ -464,7 +503,7 @@ class RoundProfiler:
 
         prof = self.profs.get((wire, "torch"))
         if prof is not None:
-            busy, n, by_name = kernel_time(prof)
+            busy, n, by_name = kernel_time(cuda_events(prof))
             fed = [r for r in by_name if "fed_reduce" in r[0]]
             log(json.dumps({"round_profile": {
                 "wire": wire, "round": 1, "wall_ms": wall_ms[1],
@@ -500,11 +539,14 @@ class RoundProfiler:
 def run_slice(device, n_devices: int, *, dim: int, cohort: int, rounds: int,
               wires=("f32", "int8"), verbose: bool = True, bench: int = 1,
               profiler: "RoundProfiler | None" = None,
-              recycle: bool = False, transform=None) -> dict:
+              recycle: bool = False, transform=None, pool=None,
+              on_round=None) -> dict:
     """Quickstart sections 1-5 (and the int8 wire of section 9) through the
-    port's public API, optionally with recycled update buffers or a payload
-    transform (``transform()`` builds one per wire).  Returns per-wire
-    results."""
+    port's public API, optionally with recycled update buffers, a payload
+    transform (``transform()`` builds one per wire) or the cohort chunks in
+    a worker pool (``pool``, a ``FleetWorkerPool`` shared by the wires and
+    left open).  ``on_round(sim, rnd)`` runs before each round.  Returns
+    per-wire results."""
     import numpy as np
     import torch
 
@@ -552,7 +594,8 @@ def run_slice(device, n_devices: int, *, dim: int, cohort: int, rounds: int,
                                  device=dev) for g in ("High", "Low")},
             deviceflow=flow, wire=wire, error_feedback=True,
             recycle_buffers=recycle,
-            payload_transform=None if transform is None else transform())
+            payload_transform=None if transform is None else transform(),
+            worker_pool=pool)
         params, losses, arrivals, walls, mem, kept = [], [], [], [], [], []
         stat_keys = ("requested_bytes", "allocated_bytes")
         for rnd in range(rounds):
@@ -564,6 +607,8 @@ def run_slice(device, n_devices: int, *, dim: int, cohort: int, rounds: int,
                 torch.cuda.reset_peak_memory_stats(dev)
                 stats = torch.cuda.memory_stats(dev)
                 before = {k: stats[f"{k}.all.allocated"] for k in stat_keys}
+            if on_round is not None:
+                on_round(sim, rnd)
             with (profiler.round(wire, rnd) if profiler is not None
                   else contextlib.nullcontext()):
                 t = time.perf_counter()
@@ -614,6 +659,7 @@ def run_slice(device, n_devices: int, *, dim: int, cohort: int, rounds: int,
             "params": params, "test_loss": losses,
             "aggregations": len(svc.history), "arrivals": arrivals,
             "bytes": shelf.total_bytes_dispatched,
+            "bytes_received": shelf.total_bytes_received,
             "dispatched": shelf.total_dispatched, "audit": audit,
             "wall_ms": walls, "memory": mem, "kept": kept, "svc": svc,
             "outcome": outcome}
@@ -874,21 +920,14 @@ def decode_cases(dev, cases=DECODE_CASES) -> tuple[dict, set]:
     # One kernel per call, the splits' fold included: each call once more
     # to warm it, then twice per case in a profiled window.
     calls = calls[1::2][:2] + calls[-2:]  # both bf16 serving shapes first
-    # After the federated phases the profiler drops a window's first few
-    # kernel records (never adds any), so the window opens with a pad of
-    # tiny fill kernels, which the count leaves out.
-    pad = torch.empty(1, device=dev)
 
     def window():
-        for _ in range(16):
-            pad.fill_(0.0)
         for _ in range(2):
             for c in calls:
                 decode_attention(*c, impl="cuda")
     for c in calls:
         decode_attention(*c, impl="cuda")
-    launched = [r for r in device_kernels(window)
-                if "fill" not in r[0].lower()]
+    launched = device_kernels(window)
     n_launched = sum(n for _, _, n in launched)
     if n_launched != 2 * len(calls) or any("decode_kernel" not in k
                                            for k, _, _ in launched):
@@ -1106,14 +1145,18 @@ def fixed_cpu_report(arch: str):
     return fixed.report()
 
 
-def kernel_time(prof) -> tuple[float, int, list]:
-    """Device busy time of a ``torch.profiler`` window (the union of kernel
-    intervals, ms), its kernel count, and ``[name, ms, calls]`` per kernel
-    name (first 90 characters), most device time first."""
+def cuda_events(prof) -> list:
+    """The device kernel records of a ``torch.profiler`` window."""
     from torch.autograd import DeviceType
 
-    kern = [e for e in prof.events()
+    return [e for e in prof.events()
             if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def kernel_time(kern: list) -> tuple[float, int, list]:
+    """Device busy time of kernel records (the union of their intervals,
+    ms), their count, and ``[name, ms, calls]`` per kernel name (first 90
+    characters), most device time first."""
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in kern):
         if cur_e is None or s > cur_e:
@@ -1131,42 +1174,65 @@ def kernel_time(prof) -> tuple[float, int, list]:
     return busy / 1e3, len(kern), rows
 
 
-def device_kernels(fn) -> list:
-    """``[name, ms, launches]`` of each device kernel one call of ``fn``
-    runs, under ``torch.profiler`` (CUDA activity only)."""
+SENTINEL = "spin_kernel"  # torch.cuda._sleep's kernel, launched nowhere else
+
+
+def profiled(fn) -> tuple[list, float]:
+    """``fn()`` under ``torch.profiler`` (CUDA activity only): the kernel
+    records it ran and its host wall (ms).
+
+    The tracer can drop a window's first records, more of them the more
+    windows and kernels ran before (never adding any).  So the window is
+    bracketed by ``pad`` sentinel kernels on each side, and its records
+    count only when the first and the last record are sentinels: then
+    every record of ``fn`` in between was kept.  Otherwise the window
+    runs again with a longer pad, and after the last try this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)  # let the tracer settle before the first launch
-        fn()
+    for pad in (1024, 8192, 32768):
         torch.cuda.synchronize()
-    return kernel_time(prof)[2]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)  # let the tracer settle before the first launch
+            for _ in range(pad):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+            for _ in range(pad):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        kern = sorted(cuda_events(prof), key=lambda e: e.time_range.start)
+        work = [i for i, e in enumerate(kern) if SENTINEL not in e.name]
+        lead = work[0] if work else len(kern)
+        trail = len(kern) - 1 - work[-1] if work else len(kern)
+        if lead and trail:
+            return [kern[i] for i in work], wall
+        log(f"profiler window with a pad of {pad} kept {lead} leading and "
+            f"{trail} trailing sentinels of {pad} each; again with a longer "
+            f"pad")
+    raise AssertionError("the profiler lost records at the edge of every "
+                         "window, so no kernel count can be trusted")
+
+
+def device_kernels(fn) -> list:
+    """``[name, ms, launches]`` of each device kernel one call of ``fn``
+    runs (:func:`profiled`)."""
+    return kernel_time(profiled(fn)[0])[2]
 
 
 def profile_window(fn, steps: int, match=()) -> dict:
-    """``fn()`` under ``torch.profiler`` (CUDA activity only): its host wall,
-    the device's busy time and idle share, the kernels that took it, and
-    how many kernels' names contain each string of ``match``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)  # let the tracer settle before the first launch
-        w0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - w0) * 1e3
-    busy, n, by_name = kernel_time(prof)
-    names = [e.name for e in prof.events()
-             if getattr(e, "device_type", None) == DeviceType.CUDA]
+    """``fn()`` under :func:`profiled`: its host wall, the device's busy
+    time and idle share, the kernels that took it, and how many kernels'
+    names contain each string of ``match``."""
+    kern, wall = profiled(fn)
+    busy, n, by_name = kernel_time(kern)
     return {"steps": steps, "wall_ms": wall, "device_busy_ms": busy,
             "kernels": n, "device_idle_share": 1.0 - busy / wall,
             "top_kernels_ms": by_name[:8],
-            "matched": {m: sum(m in k for k in names) for m in match}}
+            "matched": {m: sum(m in e.name for e in kern) for m in match}}
 
 
 def serving_profile(cfg, params, prompts, card: str) -> dict:
@@ -1557,9 +1623,11 @@ class TopKTransform:
 
 
 def _masked(line: str) -> str:
-    """A quickstart line with its accuracies masked (compared apart)."""
+    """A quickstart line with its accuracies masked (compared apart) and
+    its task ids (a process-wide counter, so the CPU run's differ)."""
     import re
 
+    line = re.sub(r"^task [0-9]+:", "task #:", line)
     return re.sub(r"(test_acc=|run above: )[0-9.]+", r"\1#", line)
 
 
@@ -1802,6 +1870,476 @@ def main_path_phase(dev, n_devices: int, rounds: int, checked: set,
                                   "max_abs_err_at_launched_shapes": errs,
                                   "card": card}}))
     return {"launches": launches, "max_abs_err": errs}
+
+
+# --------------------------------------------------------------------------
+# phase 13: scheduled rounds (TaskEngine over real rounds, snapshot, resume)
+
+TASKS_13 = ((0, 0), (1, 0), (2, 5))  # (task_id, priority)
+ROUNDS_13 = 2
+ARRIVAL_13 = 1.0  # the priority-5 task arrives inside round 0
+
+
+class LossRecorder:
+    """Delivery sink behind a task's ``LaunchAudit``: the test loss after
+    each of the task's aggregations."""
+
+    def __init__(self, audit, test_x, test_y):
+        self.audit, self.test_x, self.test_y = audit, test_x, test_y
+        self.losses: list[float] = []
+
+    def __call__(self, d):
+        from repro_torch.models import ctr
+
+        svc = self.audit.svc
+        before = len(svc.history)
+        self.audit(d)
+        if len(svc.history) > before:
+            self.losses.append(float(ctr.bce_loss(
+                svc.global_params, self.test_x, self.test_y)))
+
+
+class ScheduledWorld:
+    """Three federated tasks over the slice's plan contending for one pool:
+    a preemptive, elastic ``TaskEngine`` on DeviceFlow's clock drives real
+    ``run_plan_round`` calls of one streaming ``HybridSimulation``; each
+    task aggregates in its own streaming ``AggregationService`` behind a
+    task router (the reference's ``launch/train.py --tasks``).  The two
+    priority-0 tasks together freeze the whole pool; the priority-5 task
+    arrives inside round 0 and preempts one of them."""
+
+    def __init__(self, device, n_devices: int, *, dim: int, cohort: int,
+                 bench: int, data=None):
+        import torch
+
+        from repro_torch.configs.avazu_lr import CONFIG
+        from repro_torch.core import (AccumulatedStrategy, AggregationService,
+                                      ClientCountTrigger, DeviceFlow,
+                                      ResourceManager, ResourcePool,
+                                      TaskEngine)
+        from repro_torch.core.devicemodel import GRADES
+        from repro_torch.core.simulation import (DeviceTier, HybridSimulation,
+                                                 LogicalTier)
+        from repro_torch.core.task import OperatorFlow, Task
+        from repro_torch.data.synthetic_ctr import make_federated_ctr
+        from repro_torch.models import ctr
+
+        self.dev = torch.device(device)
+        self.n_devices = n_devices
+        self.specs = grade_specs(n_devices, bench)
+        self.cal, _, _ = calibrated_plan(self.specs)
+        self.data = data or grade_data(self.specs, dim, self.dev)
+        test = make_federated_ctr(num_devices=64, dim=dim, seed=9)
+        test_x = torch.from_numpy(test.features).to(self.dev)
+        test_y = torch.from_numpy(test.labels).to(self.dev)
+        self.tasks = [Task(OperatorFlow(("train",)), tuple(self.specs),
+                           rounds=ROUNDS_13, priority=prio, task_id=tid)
+                      for tid, prio in TASKS_13]
+        self.svcs, self.audits, self.sinks = {}, {}, {}
+        for t in self.tasks:
+            svc = AggregationService(ctr.lr_init(dim, device=self.dev),
+                                     trigger=ClientCountTrigger(n_devices),
+                                     streaming=True)
+            self.svcs[t.task_id] = svc
+            self.audits[t.task_id] = LaunchAudit(svc, n_leaves=2)
+            self.sinks[t.task_id] = LossRecorder(self.audits[t.task_id],
+                                                 test_x, test_y)
+        self.flow = DeviceFlow(lambda d: self.sinks[d.task_id](d))
+        for t in self.tasks:
+            self.flow.register_task(t.task_id,
+                                    AccumulatedStrategy(thresholds=(1,)))
+        local = ctr.make_local_train_fn(lr=CONFIG.lr,
+                                        epochs=CONFIG.local_epochs)
+        self.sim = HybridSimulation(
+            LogicalTier(local, cohort_size=cohort, device=self.dev),
+            tiers={g: DeviceTier(local, GRADES[g], cohort_size=cohort,
+                                 device=self.dev) for g in ("High", "Low")},
+            deviceflow=self.flow, stream_chunks=True)
+        demand = self.tasks[0].demand()
+        self.rm = ResourceManager(ResourcePool(
+            {g: 2 * b for g, (b, _) in demand.items()},
+            {g: 2 * p for g, (_, p) in demand.items()}))
+        self.engine = TaskEngine(self.rm, self.cal,
+                                 round_runner=self.round_runner,
+                                 clock=self.flow.clock, elastic=True,
+                                 preemptive=True)
+        self.walls: list[float] = []
+        self.measured_s = 0.0  # sum of round durations: the serial estimate
+
+    def round_runner(self, task, round_idx, allocation, now):
+        import torch
+
+        from repro_torch.core import RoundPlan
+
+        svc = self.svcs[task.task_id]
+        batches, counts = self.data
+        t0 = time.perf_counter()
+        out = self.sim.run_plan_round(
+            task.task_id, round_idx, svc.global_params,
+            RoundPlan.from_allocation(allocation, task.grades), batches,
+            counts, torch.Generator().manual_seed(1000 * task.task_id
+                                                  + round_idx),
+            calibrator=self.cal)
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        self.walls.append(time.perf_counter() - t0)
+        self.measured_s += out.makespan_s
+        return out.makespan_s
+
+    def submit(self) -> None:
+        for t in self.tasks:
+            self.engine.submit(t, at=ARRIVAL_13 if t.priority else None)
+
+    def mid_preemption(self) -> bool:
+        ex = self.engine.executions
+        hi = ex.get(TASKS_13[-1][0])
+        return (hi is not None and hi.state.value == "running"
+                and any(e.state.value == "paused" for e in ex.values()))
+
+    def timeline(self) -> dict:
+        return {"tasks": {tid: {
+            "started_t": ex.started_t, "finished_t": ex.finished_t,
+            "rounds_done": ex.rounds_done, "preemptions": ex.preemptions,
+            "reallocations": ex.reallocations,
+            "preemption_decisions": [dict(d)
+                                     for d in ex.preemption_decisions],
+            "queueing_delay_s": ex.queueing_delay_s}
+            for tid, ex in sorted(self.engine.executions.items())},
+            "makespan": self.engine.makespan}
+
+    def params(self) -> dict:
+        return {tid: {k: v.detach().clone() for k, v in
+                      svc.global_params.items()}
+                for tid, svc in self.svcs.items()}
+
+    def snapshot(self, ck) -> None:
+        state = self.engine.state_dict(deviceflow=self.flow,
+                                       fleets=self.sim.fleets,
+                                       services=self.svcs)
+        ck.save(1, {"params": {str(t): svc.global_params
+                               for t, svc in self.svcs.items()}},
+                runtime_state=state,
+                extra={"calibrator": self.cal.state_dict()})
+
+    def restore(self, ck) -> None:
+        tree, extra = ck.restore({"params": {
+            str(t): svc.global_params for t, svc in self.svcs.items()}})
+        for t, svc in self.svcs.items():
+            svc.global_params = tree["params"][str(t)]
+        self.cal.load_state_dict(extra["calibrator"])
+        self.engine.load_state_dict(
+            ck.restore_runtime_state(), tasks=self.tasks,
+            deviceflow=self.flow, fleets=self.sim.fleets,
+            services=self.svcs)
+
+
+def scheduled_phase(dev, n_devices: int, cross_devices: int, checked: set,
+                    bench: int, card: str) -> dict:
+    """Phase 13: the scheduled world uninterrupted, then snapshotted
+    mid-preemption through the checkpointer and resumed in a fresh world;
+    then the same schedule at ``cross_devices`` on the card and the CPU.
+    Returns the main path's ``fed_reduce`` launches and the max abs error
+    at the shapes it launched at."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.avazu_lr import CONFIG
+
+    kw = dict(dim=CONFIG.dim, cohort=COHORT, bench=bench)
+    t_phase = time.perf_counter()
+    start_audit()  # counts zeroed just before the main path ...
+    world = ScheduledWorld(dev, n_devices, **kw)
+    world.submit()
+    result = world.engine.drain()
+    audit = read_audit()  # ... and read just after it
+    launches = audit["fed_reduce"]
+    expected = sum(a.expected for a in world.audits.values())
+    errs = check_launched_shapes(dev, audit["shapes"], checked)
+    tl = world.timeline()
+    params = world.params()
+    reduced = set().union(*(a.shapes for a in world.audits.values()))
+    log(f"scheduled rounds [{n_devices} devices, {len(world.tasks)} tasks x "
+        f"{ROUNDS_13}]: {len(world.walls)} rounds, wall s per round "
+        f"{[round(w, 3) for w in world.walls]}; fed_reduce launches "
+        f"{launches} (expected {expected}) at shapes {sorted(reduced)}")
+    if len(result) != len(world.tasks) or result.stranded:
+        raise AssertionError(f"the schedule stranded tasks: {result}")
+    if launches <= 0 or launches != expected:
+        raise AssertionError(f"scheduled rounds launched fed_reduce "
+                             f"{launches} times, expected {expected}")
+    victims = [t for t, v in tl["tasks"].items() if v["preemptions"] >= 1]
+    if not victims:
+        raise AssertionError(f"no task was preempted: {tl}")
+    for tid, sink in world.sinks.items():
+        losses = [math.log(2.0)] + sink.losses
+        if len(sink.losses) != ROUNDS_13 or not all(
+                b < a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"task {tid}'s test loss did not fall "
+                                 f"every aggregation: {losses}")
+    hi = tl["tasks"][TASKS_13[-1][0]]
+    log(json.dumps({"scheduled_timeline": tl, "card": card}))
+    log(f"interleaved makespan {tl['makespan']:.1f}s against the serial "
+        f"estimate {world.measured_s:.1f}s; the priority-5 task queued "
+        f"{hi['queueing_delay_s']:.1f}s; victims {victims}")
+    walls, serial_s = list(world.walls), world.measured_s
+    data = world.data
+    del world, result
+
+    # Snapshot mid-preemption (victim paused, preemptor admitted) through
+    # the checkpointer, restore into a fresh world and run to the end.
+    ck_dir = os.path.join(ROOT, "build", "smoke_schedule")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    try:
+        first = ScheduledWorld(dev, n_devices, data=data, **kw)
+        first.submit()
+        while not first.mid_preemption():
+            if not first.engine.clock.run_one():
+                raise AssertionError("the schedule never preempted")
+        ck = Checkpointer(ck_dir)
+        first.snapshot(ck)
+        rounds_before = len(first.walls)
+        del first
+        second = ScheduledWorld(dev, n_devices, data=data, **kw)
+        second.restore(ck)
+        second.engine.run_until()
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    same_tl = second.timeline() == tl
+    got = second.params()
+    same_params = all(torch.equal(got[t][k], params[t][k])
+                      for t in params for k in params[t])
+    log(f"schedule snapshotted mid-preemption after {rounds_before} rounds "
+        f"and resumed for {len(second.walls)}: timeline equal to the "
+        f"uninterrupted run's {same_tl}, every task's params bitwise equal "
+        f"{same_params}")
+    if not (same_tl and same_params):
+        raise AssertionError(f"the resumed schedule differs: "
+                             f"{second.timeline()} vs {tl}")
+    del second, data
+    torch.cuda.empty_cache()
+
+    # The same schedule at cross_devices on the card and on the CPU.
+    small = {}
+    for d in (dev, torch.device("cpu")):
+        w = ScheduledWorld(d, cross_devices, dim=CONFIG.dim, cohort=512,
+                           bench=bench)
+        w.submit()
+        w.engine.drain()
+        small[d.type] = (w.timeline(), {
+            t: {k: v.cpu() for k, v in p.items()}
+            for t, p in w.params().items()})
+    (g_tl, g_p), (c_tl, c_p) = small["cuda"], small["cpu"]
+    diff = max(float((g_p[t][k] - c_p[t][k]).abs().max())
+               for t in g_p for k in g_p[t])
+    log(f"scheduled rounds [{cross_devices} devices]: card vs CPU timeline "
+        f"equal {g_tl == c_tl}, max param diff {diff:.3e} (tol 1e-6)")
+    if g_tl != c_tl or not diff <= 1e-6:
+        raise AssertionError(f"the scheduled rounds on the card differ from "
+                             f"the CPU's: {g_tl} vs {c_tl}, {diff}")
+    seconds = time.perf_counter() - t_phase
+    log(json.dumps({"scheduled": {
+        "devices": n_devices, "rounds": len(walls),
+        "wall_s_per_round": walls, "makespan_s": tl["makespan"],
+        "serial_estimate_s": serial_s,
+        "priority5_queueing_delay_s": hi["queueing_delay_s"],
+        "fed_reduce_launches": launches, "phase_s": seconds,
+        "card": card}}))
+    return {"launches": launches, "max_abs_err": errs["fed_reduce"]}
+
+
+# --------------------------------------------------------------------------
+# phase 14: pooled rounds (cohort chunks in worker processes on the card)
+
+def smoke_tiers(device: str, cohort: int):
+    """The slice's tiers, rebuilt inside each worker process (module level,
+    so a spawned worker unpickles it by reference)."""
+    from repro_torch.configs.avazu_lr import CONFIG
+    from repro_torch.core.devicemodel import GRADES
+    from repro_torch.core.simulation import DeviceTier, LogicalTier
+    from repro_torch.models import ctr
+
+    local = ctr.make_local_train_fn(lr=CONFIG.lr, epochs=CONFIG.local_epochs)
+    return (LogicalTier(local, cohort_size=cohort, device=device),
+            {g: DeviceTier(local, GRADES[g], cohort_size=cohort,
+                           device=device) for g in ("High", "Low")})
+
+
+def _shm_segments() -> set:
+    return {n for n in os.listdir("/dev/shm") if n.startswith("psm_")}
+
+
+def _same_rounds(got: dict, want: dict) -> dict:
+    """Per-wire bitwise comparison of two ``run_slice`` results."""
+    import numpy as np
+
+    out = {}
+    for wire, w in want.items():
+        g = got[wire]
+        out[wire] = {
+            "params": all(np.array_equal(a[k], b[k]) for a, b in
+                          zip(g["params"], w["params"]) for k in a),
+            "groups": g["groups"] == w["groups"],
+            "bytes": (g["bytes_received"], g["bytes"]) == (
+                w["bytes_received"], w["bytes"]),
+            "aggregations": g["aggregations"] == w["aggregations"],
+            "arrivals": all(np.array_equal(a, b) for a, b in
+                            zip(g["arrivals"], w["arrivals"]))}
+    return out
+
+
+def _slice_summary(res: dict) -> dict:
+    """What phase 14 holds pooled rounds against, kept from a run."""
+    return {wire: {"params": w["params"], "groups": w["audit"].groups,
+                   "bytes_received": w["bytes_received"],
+                   "bytes": w["bytes"], "aggregations": w["aggregations"],
+                   "arrivals": w["arrivals"], "wall_ms": w["wall_ms"]}
+            for wire, w in res["wires"].items()}
+
+
+def pooled_phase(dev, n_devices: int, rounds: int, cross_devices: int,
+                 bench: int, inline: dict, inline_launches: int,
+                 card: str) -> dict:
+    """Phase 14: phase 2's f32 and int8 rounds with the cohort chunks in two
+    worker processes on the card, bitwise against phase 2's inline rounds;
+    then a worker killed mid-round at ``cross_devices`` with three workers.
+    Returns the main path's ``fed_reduce`` launches."""
+    import shutil
+
+    from repro_torch.configs.avazu_lr import CONFIG
+    from repro_torch.kernels.fed_reduce.ops import fed_reduce
+    from repro_torch.runtime.workers import FleetWorkerPool, WorkerSpec
+
+    t_phase = time.perf_counter()
+    df = subprocess.run(["df", "-h", "/dev/shm"], capture_output=True,
+                        text=True).stdout.strip()
+    log(f"/dev/shm:\n{df}")
+    # The largest per-call input segment: one grade's params and batches
+    # (x, y, mask), plus a round's result segments.
+    specs = grade_specs(n_devices, bench)
+    need = max(s.num_devices for s in specs) * RECORDS * (CONFIG.dim + 2) * 4
+    need += n_devices * (CONFIG.dim + 1) * 4 * 2
+    free = shutil.disk_usage("/dev/shm").free
+    n_pool = n_devices
+    if free < need:
+        n_pool = int(n_devices * free / need * 0.8) // 1000 * 1000
+        log(f"pooled rounds cut to {n_pool} devices: /dev/shm has {free} "
+            f"bytes free, {n_devices} devices need {need}")
+        if n_pool < cross_devices:
+            raise AssertionError(f"/dev/shm holds too little ({free} bytes) "
+                                 f"for pooled rounds")
+        fed_reduce.launches = 0
+        ref = run_slice(dev, n_pool, dim=CONFIG.dim, cohort=COHORT,
+                        rounds=rounds, verbose=False, bench=bench)
+        inline_launches = fed_reduce.launches
+        inline = _slice_summary(ref)
+        del ref
+    shm_before = _shm_segments()
+    spec = WorkerSpec(smoke_tiers, {"device": str(dev), "cohort": COHORT})
+    pool = FleetWorkerPool(spec, 2, device=dev)
+    # Host seconds the coordinator spends copying each call's params and
+    # batches off the card into the input segment, and each result segment
+    # back onto the card (the rest of a round is the workers' time).
+    copy_s = {"input": 0.0, "results": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                copy_s[name] += time.perf_counter() - t
+        return run
+    pool._write_input = timed("input", pool._write_input)
+    pool._wrap_result = timed("results", pool._wrap_result)
+    try:
+        t0 = time.perf_counter()
+        pool.start()
+        spawn_s = time.perf_counter() - t0
+        fed_reduce.launches = 0  # zeroed just before the main path ...
+        res = run_slice(dev, n_pool, dim=CONFIG.dim, cohort=COHORT,
+                        rounds=rounds, verbose=False, bench=bench, pool=pool)
+        launches = fed_reduce.launches  # ... and read just after it
+        stats = dict(pool.stats)
+        workers = pool.worker_stats()
+    finally:
+        pool.close()
+    got = _slice_summary(res)
+    same = _same_rounds(got, inline)
+    calls = stats["calls"]
+    log(f"pooled rounds [{n_pool} devices, 2 workers, f32 and int8 x "
+        f"{rounds}]: bitwise equal to the inline rounds {same}; fed_reduce "
+        f"launches {launches} (inline {inline_launches}); spawn "
+        f"{spawn_s:.1f}s; wall s per round "
+        f"{ {w: [round(x / 1e3, 3) for x in v['wall_ms']] for w, v in got.items()} } "
+        f"vs inline { {w: [round(x / 1e3, 3) for x in v['wall_ms']] for w, v in inline.items()} }")
+    if not all(all(v.values()) for v in same.values()):
+        raise AssertionError(f"pooled rounds differ from inline: {same}")
+    if launches != inline_launches or launches <= 0:
+        raise AssertionError(f"pooled rounds launched fed_reduce {launches} "
+                             f"times, inline {inline_launches}")
+    if not (stats["segment_reuses"] > 0
+            and stats["segments_created"] <= stats["chunks"]):
+        raise AssertionError(f"the segment ring did not recycle: {stats}")
+    if not all(w["device"] == str(dev) for w in workers.values()):
+        raise AssertionError(f"a worker computed off the card: {workers}")
+    leaked = _shm_segments() - shm_before
+    log(f"pool closed: {len(leaked)} shared-memory segments left behind")
+    if leaked:
+        raise AssertionError(f"segments left in /dev/shm: {sorted(leaked)}")
+
+    # Worker death: three workers at cross_devices, worker 1 poisoned to
+    # die after one chunk of round 1; the round completes bitwise.
+    small_ref = _slice_summary(run_slice(
+        dev, cross_devices, dim=CONFIG.dim, cohort=512, rounds=2,
+        wires=("f32",), verbose=False, bench=bench))
+    pool3 = FleetWorkerPool(WorkerSpec(smoke_tiers, {"device": str(dev),
+                                                     "cohort": 512}), 3,
+                            device=dev)
+
+    def poison(sim, rnd):
+        if rnd == 1:
+            sim.pool.poison_worker(1, fail_after_chunks=1)
+    try:
+        died = _slice_summary(run_slice(
+            dev, cross_devices, dim=CONFIG.dim, cohort=512, rounds=2,
+            wires=("f32",), verbose=False, bench=bench, pool=pool3,
+            on_round=poison))
+        failures, alive = list(pool3.failures), pool3.alive_workers
+        stats3 = dict(pool3.stats)
+    finally:
+        pool3.close()
+    same3 = _same_rounds(died, small_ref)
+    f = failures[0] if len(failures) == 1 else None
+    log(f"worker death [{cross_devices} devices, 3 workers]: worker 1 died "
+        f"in round 1; failures {failures}; survivors {alive}; round "
+        f"bitwise equal to the inline run {same3}")
+    if not (f is not None and f.worker_id == 1 and f.chunks
+            and set(f.survivors) == set(alive) == {0, 2}
+            and stats3["redispatched_chunks"] == len(f.chunks)
+            and all(v for d in same3.values() for v in d.values())):
+        raise AssertionError(f"worker death was not absorbed: {failures}, "
+                             f"{same3}")
+    leaked = _shm_segments() - shm_before
+    if leaked:
+        raise AssertionError(f"segments left in /dev/shm: {sorted(leaked)}")
+    seconds = time.perf_counter() - t_phase
+    log(json.dumps({"pooled": {
+        "devices": n_pool, "workers": 2, "spawn_s": spawn_s,
+        "wall_ms_per_round": {w: v["wall_ms"] for w, v in got.items()},
+        "inline_wall_ms_per_round": {w: v["wall_ms"]
+                                     for w, v in inline.items()},
+        "bytes_shipped_per_round": stats["bytes_shipped"] / (2 * rounds),
+        "input_bytes_per_round": stats["input_bytes"] / (2 * rounds),
+        "coordinator_copy_s_per_round": {
+            k: v / (2 * rounds) for k, v in copy_s.items()},
+        "calls": calls, "chunks": stats["chunks"],
+        "segments_created": stats["segments_created"],
+        "segment_reuses": stats["segment_reuses"],
+        "workers_stats": workers, "fed_reduce_launches": launches,
+        "phase_s": seconds, "card": card}}))
+    return {"launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -2123,31 +2661,32 @@ def ssm_profile(api, cfg, params, prompts, card: str) -> dict:
     state = {}
 
     def greedy(logits):
-        state["tok"] = logits[:, : cfg.vocab_size].argmax(-1).to(torch.int32)
+        return logits[:, : cfg.vocab_size].argmax(-1).to(torch.int32)
 
+    # A window that lost records runs again (``profiled``), so each call
+    # keeps its own launch count and decodes from the prefill's cache.
     def prefill():
+        tc0 = ssd_scan.tc_launches
         logits, state["cache"] = api.prefill(params, toks, cfg,
                                              SERVE_MAX_LEN)
-        greedy(logits)
+        state["tok"] = greedy(logits)
+        state["tc"] = ssd_scan.tc_launches - tc0
 
     def decode():
+        d0 = decode_attention.launches
+        tok, cache = state["tok"], state["cache"]
         for _ in range(20):
-            logits, state["cache"] = api.decode_step(
-                params, state["tok"], cfg, state["cache"])
-            greedy(logits)
+            logits, cache = api.decode_step(params, tok, cfg, cache)
+            tok = greedy(logits)
+        state["dec"] = decode_attention.launches - d0
     # Each counted launch is one kernel of its name: the bf16 scans on the
     # tensor-core kernel, each decode_attention call one decode_kernel.
-    for _ in range(2):  # again if the tracer dropped records (see phase 4)
-        tc0 = ssd_scan.tc_launches
-        out = {"prefill": profile_window(prefill, 1, ("ssd_scan_tc_kernel",))}
-        d0 = decode_attention.launches
-        out["decode_steps"] = profile_window(decode, 20, ("decode_kernel",))
-        seen = {"ssd_scan_tc_kernel": (out["prefill"]["matched"][
-                    "ssd_scan_tc_kernel"], ssd_scan.tc_launches - tc0),
-                "decode_kernel": (out["decode_steps"]["matched"][
-                    "decode_kernel"], decode_attention.launches - d0)}
-        if all(k == c for k, c in seen.values()):
-            break
+    out = {"prefill": profile_window(prefill, 1, ("ssd_scan_tc_kernel",)),
+           "decode_steps": profile_window(decode, 20, ("decode_kernel",))}
+    seen = {"ssd_scan_tc_kernel": (out["prefill"]["matched"][
+                "ssd_scan_tc_kernel"], state["tc"]),
+            "decode_kernel": (out["decode_steps"]["matched"][
+                "decode_kernel"], state["dec"])}
     if any(k != c for k, c in seen.values()) or seen[
             "ssd_scan_tc_kernel"][1] != cfg.num_layers:
         raise AssertionError(f"[{cfg.name}] profiled kernels vs counted "
@@ -2548,6 +3087,9 @@ def main(argv=None) -> int:
                         "serving phases")
     p.add_argument("--serving-only", action="store_true",
                    help="skip the federated-round phases (1-3)")
+    p.add_argument("--scheduling-only", action="store_true",
+                   help="build, then run the kernel (1), slice (2), "
+                        "scheduled (13) and pooled (14) phases only")
     p.add_argument("--ssm-only", action="store_true",
                    help="build, then run the SSD kernel phase (7), zamba2's "
                         "attention shapes and the SSM phases (8-9) only")
@@ -2596,7 +3138,7 @@ def main(argv=None) -> int:
         log(card)
         return 0
 
-    entries, main_path = [], None
+    entries, main_path, scheduling = [], None, None
     if args.ssm_only:
         t0 = time.perf_counter()
         ssd_entry, ssd_checked = ssd_cases(dev)
@@ -2623,24 +3165,30 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             res = slice_phase(dev, args.devices, args.rounds, checked,
                               args.benchmarking_devices)
-            entry["launches"] = res["launches"]
+            entry["launches"] = slice_launches = res["launches"]
+            inline = _slice_summary(res)  # what phase 14 is held against
             log(f"slice phase passed in {time.perf_counter() - t0:.1f}s")
-            t0 = time.perf_counter()
-            cross_check_phase(args.cross_devices, args.rounds)
-            log(f"cross-check phase passed in "
-                f"{time.perf_counter() - t0:.1f}s")
-            t0 = time.perf_counter()
-            main_path = main_path_phase(dev, args.devices, args.rounds,
-                                        checked, res, args.cross_devices,
-                                        card)
-            entry["launches"] += sum(v["fed_reduce"] for v in
-                                     main_path["launches"].values())
-            entry["max_abs_err"] = max(
-                entry["max_abs_err"], main_path["max_abs_err"]["fed_reduce"])
+            if not args.scheduling_only:
+                t0 = time.perf_counter()
+                cross_check_phase(args.cross_devices, args.rounds)
+                log(f"cross-check phase passed in "
+                    f"{time.perf_counter() - t0:.1f}s")
+                t0 = time.perf_counter()
+                main_path = main_path_phase(dev, args.devices, args.rounds,
+                                            checked, res, args.cross_devices,
+                                            card)
+                entry["launches"] += sum(v["fed_reduce"] for v in
+                                         main_path["launches"].values())
+                entry["max_abs_err"] = max(
+                    entry["max_abs_err"],
+                    main_path["max_abs_err"]["fed_reduce"])
+                log(f"main-path phase passed in "
+                    f"{time.perf_counter() - t0:.1f}s")
             del res
-            log(f"main-path phase passed in {time.perf_counter() - t0:.1f}s")
+            torch.cuda.empty_cache()
+            scheduling = (entry, checked, inline, slice_launches)
         entries.append(entry)
-    if not args.ssm_only:
+    if not (args.ssm_only or args.scheduling_only):
         t0 = time.perf_counter()
         dec_entry, dec_checked = decode_cases(dev)
         flash_entry, flash_checked = flash_cases(dev)
@@ -2680,6 +3228,23 @@ def main(argv=None) -> int:
                 e["max_abs_err"] = max(e["max_abs_err"],
                                        main_path["max_abs_err"][e["name"]])
         entries += [dec_entry, flash_entry, ssd_entry]
+    if scheduling is not None:
+        # Phases 13-14, after phase 12 as numbered.
+        entry, checked, inline, slice_launches = scheduling
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sched = scheduled_phase(dev, args.devices, args.cross_devices,
+                                checked, args.benchmarking_devices, card)
+        entry["launches"] += sched["launches"]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   sched["max_abs_err"])
+        log(f"scheduled phase passed in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        pooled = pooled_phase(dev, args.devices, args.rounds,
+                              args.cross_devices, args.benchmarking_devices,
+                              inline, slice_launches, card)
+        entry["launches"] += pooled["launches"]
+        log(f"pooled phase passed in {time.perf_counter() - t0:.1f}s")
     for e in entries:
         if ptxas.get(e["name"]):
             e["ptxas"] = ptxas[e["name"]]

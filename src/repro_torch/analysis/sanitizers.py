@@ -17,6 +17,9 @@ no-op when disabled, so the hot paths pay only a truthiness check per call.
   transfers, an explicit copy stays legal inside a hot path.
 * :class:`ClockMonotonicityError` — ``VirtualClock.schedule`` normally
   clamps past timestamps to ``now``; under sanitize it raises.
+* :class:`SegmentLeakError` — ``FleetWorkerPool.close()`` raises it under
+  sanitize when a shared-memory segment is still pinned by a view that
+  outlived its ``UpdateBuffer``.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import torch
 
 __all__ = [
     "enabled", "force", "override", "hot_path", "exempt",
-    "SanitizerError", "ClockMonotonicityError",
+    "SanitizerError", "ClockMonotonicityError", "SegmentLeakError",
 ]
 
 _ENV = "SIMDC_SANITIZE"
@@ -66,6 +69,10 @@ class SanitizerError(RuntimeError):
 
 class ClockMonotonicityError(SanitizerError):
     """An event was scheduled in the virtual past."""
+
+
+class SegmentLeakError(SanitizerError):
+    """A worker-pool shared-memory segment outlived pool teardown."""
 
 
 @contextlib.contextmanager

@@ -2,8 +2,8 @@
 
 Exports what the port covers so far — calibration, allocation, DeviceFlow,
 update buffers, aggregation, monitoring, the grade-partitioned round engine
-(slice 1) and continuous-batching serving (slice 2).  The scheduler is not
-ported yet (ROADMAP P8).
+(slice 1), continuous-batching serving (slice 2) and the multi-task
+scheduler (``TaskEngine`` with elastic grants and preemption).
 """
 from repro_torch.core.allocation import (
     AllocationResult,
@@ -14,7 +14,9 @@ from repro_torch.core.allocation import (
 )
 from repro_torch.core.calibration import (
     RuntimeCalibrator,
+    ScheduleEstimate,
     calibrate_runtimes,
+    monte_carlo_schedules,
     table1_runtime,
 )
 from repro_torch.core.deviceflow import (
@@ -42,6 +44,18 @@ from repro_torch.core.monitoring import (
     MetricsBus,
     TaskMonitor,
     wire_aggregation_service,
+)
+from repro_torch.core.scheduler import (
+    DrainResult,
+    ResourceManager,
+    ResourcePool,
+    StrandedTasksError,
+    TaskEngine,
+    TaskExecution,
+    TaskManager,
+    TaskRunner,
+    TaskScheduler,
+    TaskState,
 )
 from repro_torch.core.serving import (
     ContinuousBatchingEngine,
@@ -89,7 +103,8 @@ from repro_torch.core.updates import (
 __all__ = [
     "AllocationResult", "GradeRuntime", "fixed_ratio_allocation",
     "solve_allocation", "solve_allocation_bruteforce",
-    "RuntimeCalibrator", "calibrate_runtimes", "table1_runtime",
+    "RuntimeCalibrator", "ScheduleEstimate", "calibrate_runtimes",
+    "monte_carlo_schedules", "table1_runtime",
     "ArrivalBatch", "Delivery", "DeviceFlow", "Message", "Shelf",
     "VirtualClock",
     "AggregationService", "ClientCountTrigger", "SampleThresholdTrigger",
@@ -97,6 +112,9 @@ __all__ = [
     "handles_align", "polynomial_staleness", "weighted_average",
     "InMemorySink", "MetricEvent", "MetricsBus", "TaskMonitor",
     "wire_aggregation_service",
+    "DrainResult", "ResourceManager", "ResourcePool", "StrandedTasksError",
+    "TaskEngine", "TaskExecution", "TaskManager", "TaskRunner", "TaskScheduler",
+    "TaskState",
     "ContinuousBatchingEngine", "ContinuousServer", "RequestRecord",
     "ServeCostModel", "ServingReport",
     "DeviceTier", "FederatedRoundOutcome", "GradePlanEntry",

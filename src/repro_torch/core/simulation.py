@@ -41,6 +41,11 @@ host-materializing reference path.
 chunk plan forks one sub-generator per chunk from the round generator (which
 advances in place), and each chunk draws one int64 seed per device; the
 local-train function receives its device's seed as ``rng``.
+
+**Multi-process rounds.**  ``HybridSimulation(workers=N,
+worker_spec=WorkerSpec(factory, ...))`` runs the cohort chunks in N spawned
+worker processes (``runtime.workers``); each chunk ships the seed its fork
+drew, so pooled rounds are bit-identical to inline ones.
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ from repro_torch.core.updates import (
     UpdateBuffer,
     UpdateHandle,
     flatten_rows,
+    np_dtype,
     quantize_rows,
     stacked_spec,
 )
@@ -81,12 +87,12 @@ LocalTrainFn = Callable[[Params, Batch, torch.Tensor], tuple[Params, dict]]
 _SEED_HIGH = 1 << 62
 
 
-def fork_rng(rng: torch.Generator) -> torch.Generator:
-    """A new generator seeded from ``rng`` (which advances in place): the
-    port's counterpart of one ``jax.random.split``."""
-    seed = torch.randint(0, _SEED_HIGH, (1,), generator=rng,
-                         dtype=torch.int64)
-    return torch.Generator().manual_seed(int(seed))
+def fork_seed(rng: torch.Generator) -> int:
+    """The seed of one fork of ``rng`` (which advances in place): the
+    port's counterpart of one ``jax.random.split``; the chunk's generator
+    is ``torch.Generator().manual_seed(seed)``."""
+    return int(torch.randint(0, _SEED_HIGH, (1,), generator=rng,
+                             dtype=torch.int64))
 
 
 def device_seeds(rng: torch.Generator, n: int) -> torch.Tensor:
@@ -147,6 +153,19 @@ class _ZeroCopyCohortMixin:
         else:
             params, metrics = self._cohort_fn(global_params, batches, rngs)
         return UpdateBuffer(flatten_rows(params), *stacked_spec(params)), metrics
+
+    def update_spec(self, global_params: Params
+                    ) -> tuple[tuple[str, ...], list[tuple], list[np.dtype]]:
+        """(keys, per-leaf shapes, numpy dtypes) of the ``UpdateBuffer`` this
+        tier's cohort function makes from ``global_params``, known without
+        running it: the layout both ends of a worker pool agree on."""
+        keys = tuple(sorted(global_params))
+        return (keys, [tuple(global_params[k].shape) for k in keys],
+                [np_dtype(self._update_dtype(global_params[k]))
+                 for k in keys])
+
+    def _update_dtype(self, leaf: torch.Tensor) -> torch.dtype:
+        return leaf.dtype  # a cast back to the params' dtype
 
     def run_cohort_quantized(
         self,
@@ -231,6 +250,10 @@ class LogicalTier(_ZeroCopyCohortMixin):
             return vmapped(p, batches, rngs)
 
         self._cohort_fn = cohort
+
+    def _update_dtype(self, leaf: torch.Tensor) -> torch.dtype:
+        # The cohort runs in the tier's dtype and keeps its output there.
+        return self.dtype if leaf.is_floating_point() else leaf.dtype
 
     def run_cohort(
         self,
@@ -531,6 +554,18 @@ class HybridSimulation:
     trigger, as in the quickstart); a handle that outlives its round would
     read the next round's rows.  It applies to the f32 wire only (int8
     leaves have another layout), as in the reference.
+
+    ``workers=N`` (with ``worker_spec=WorkerSpec(factory, ...)``) shards
+    cohort-chunk execution across N spawned worker processes
+    (``runtime.workers.FleetWorkerPool``) on this simulation's device; chunk
+    results return through shared memory as ``UpdateBuffer``s (copied onto
+    the card when the simulation runs there) and re-enter the emission
+    pipeline unchanged, so pooled rounds are bit-identical to in-process
+    ones (both wires, error feedback included) while this coordinator keeps
+    DeviceFlow, fleet sampling and aggregation on the authoritative clock.
+    Call ``close()`` (or use the context-manager form) to stop the pool and
+    release its segments.  Requires ``zero_copy`` rounds; ``worker_pool=``
+    injects a pre-built (e.g. delay-instrumented) pool instead.
     """
 
     def __init__(
@@ -547,6 +582,9 @@ class HybridSimulation:
         wire: str = "f32",
         error_feedback: bool = True,
         payload_transform: "Callable | None" = None,
+        workers: int = 0,
+        worker_spec=None,
+        worker_pool=None,
     ):
         if wire not in ("f32", "int8"):
             raise ValueError(f"unknown wire format {wire!r}")
@@ -554,6 +592,24 @@ class HybridSimulation:
             raise ValueError(
                 "wire='int8' requires zero_copy rounds (quantization runs "
                 "on the device-resident cohort output)")
+        # Multi-process fleet execution (runtime.workers): cohort chunks run
+        # in N worker processes; this coordinator keeps DeviceFlow, fleet
+        # sampling and aggregation on the authoritative clock.
+        self._pool = worker_pool
+        if workers and worker_pool is None:
+            if worker_spec is None:
+                raise ValueError(
+                    "workers=N requires worker_spec=WorkerSpec(factory, ...)"
+                    " — a picklable module-level factory rebuilding "
+                    "(logical, tiers) inside each worker process")
+            if not zero_copy:
+                raise ValueError(
+                    "workers=N requires zero_copy rounds (the transport "
+                    "ships UpdateBuffer leaves)")
+            from repro_torch.runtime.workers import FleetWorkerPool
+
+            self._pool = FleetWorkerPool(worker_spec, workers,
+                                         device=logical.device)
         self.zero_copy = zero_copy
         self.recycle_buffers = recycle_buffers
         self.stream_chunks = stream_chunks
@@ -594,9 +650,27 @@ class HybridSimulation:
         return next(iter(self.tiers.values()))
 
     @property
+    def pool(self):
+        """The ``FleetWorkerPool`` driving multi-process rounds (or None)."""
+        return self._pool
+
+    @property
     def fleets(self) -> "dict[str, DeviceFleet]":
-        """Per-grade fleets, keyed by grade name."""
+        """Per-grade fleets, keyed by grade name — the shape
+        ``TaskEngine.state_dict(fleets=...)`` folds into the one-manifest
+        runtime checkpoint."""
         return {name: tier.fleet for name, tier in self.tiers.items()}
+
+    def close(self) -> None:
+        """Shut down the worker pool (no-op for single-process rounds)."""
+        if self._pool is not None:
+            self._pool.close()
+
+    def __enter__(self) -> "HybridSimulation":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     # -- shared per-grade execution ----------------------------------------
     @hot_path
@@ -722,13 +796,13 @@ class HybridSimulation:
             else:
                 self.deviceflow.submit_many(fresh)
 
-        def run_chunk(sim_tier, lo, hi, sub):
+        def run_chunk(sim_tier, lo, hi, seed):
             # Same per-device seed derivation in every mode, so zero_copy is
             # numerics-preserving.  Host (numpy) leaves move to the tier's
             # device here; leaves already there are sliced as views.
             chunk = {k: torch.as_tensor(v[lo:hi], device=sim_tier.device)
                      for k, v in client_batches.items()}
-            rngs = device_seeds(sub, hi - lo)
+            rngs = device_seeds(torch.Generator().manual_seed(seed), hi - lo)
             if self.zero_copy and self.wire == "int8":
                 # Quantized wire: the chunk's error-feedback residual stays
                 # on the card, keyed by (task, tier, global row range) so the
@@ -763,13 +837,16 @@ class HybridSimulation:
                 metrics_out.append(metrics)
 
         # The chunk plan IS the rng contract: logical cohorts (chunked by
-        # cohort_size) then device cohorts, one generator fork per chunk.
+        # cohort_size) then device cohorts, one generator fork per chunk —
+        # walked identically whether chunks run inline or across a worker
+        # pool (which ships each fork's seed), so pooled rounds stay
+        # bit-identical.
         chunk_plan: list[tuple] = []
         idx = 0
         while idx < num_logical:
             hi = min(idx + self.logical.cohort_size, num_logical)
             chunk_plan.append((self.logical, "logical", idx, hi,
-                               fork_rng(rng)))
+                               fork_seed(rng)))
             idx = hi
         # Device tier: vectorized cohorts through the bf16 backend — one
         # vmapped chunk at a time instead of one call per device.
@@ -777,14 +854,36 @@ class HybridSimulation:
         while idx < n_total:
             hi = min(idx + tier.cohort_size, n_total)
             chunk_plan.append((tier, tier.grade.name, idx, hi,
-                               fork_rng(rng)))
+                               fork_seed(rng)))
             idx = hi
 
-        for sim_tier, _, lo, hi, sub in chunk_plan:
-            n_before = len(emissions)
-            run_chunk(sim_tier, lo, hi, sub)
-            if stream:
-                stream_chunk(n_before)
+        if self._pool is not None and self.zero_copy:
+            # Multi-process path: the chunk results come back through shared
+            # memory (on a card, copied onto it) and re-enter the emission
+            # pipeline in CHUNK order after the barrier, streaming or not,
+            # so pooled rounds are bit-identical to inline ones.  Shipping
+            # params and batches through the
+            # input segment and results back onto the card are explicit
+            # host<->card copies, so the pool call runs outside the
+            # hot-path sync check; the inline path below keeps it.
+            def finish(i, buf, metrics):
+                _, _, lo, hi, _ = chunk_plan[i]
+                n_before = len(emissions)
+                emit_handles(buf, lo, hi)
+                if metrics_out is not None:
+                    metrics_out.append(metrics)
+                if stream:
+                    stream_chunk(n_before)
+
+            sanitizers.exempt(self._run_pooled)(
+                task_id, round_idx, global_params, client_batches,
+                chunk_plan, id_offset, finish)
+        else:
+            for sim_tier, _, lo, hi, seed in chunk_plan:
+                n_before = len(emissions)
+                run_chunk(sim_tier, lo, hi, seed)
+                if stream:
+                    stream_chunk(n_before)
 
         # Deferred host materialization: only the q_i benchmarking devices'
         # updates become host dicts, after the whole grade was launched.
@@ -809,6 +908,26 @@ class HybridSimulation:
             self.deviceflow.submit_many(
                 [emissions[bench_pos.get(r, r)] for r in sorted(mat_set)])
         return emissions, rng
+
+    def _run_pooled(self, task_id: int, round_idx: int,
+                    global_params: Params, client_batches: Batch,
+                    chunk_plan: list, id_offset: int,
+                    finish: Callable) -> None:
+        """One grade's chunk plan through the worker pool; ``finish(i, buf,
+        metrics)`` emits chunk ``i``, in chunk order after the barrier."""
+        from repro_torch.runtime.workers import ChunkSpec
+
+        specs_by_kind = {kind: sim_tier.update_spec(global_params)
+                         for sim_tier, kind, *_ in chunk_plan}
+        wchunks = [ChunkSpec(i, kind, lo, hi, seed, id_offset=id_offset)
+                   for i, (_, kind, lo, hi, seed) in enumerate(chunk_plan)]
+        pooled = self._pool.run_chunks(
+            task_id=task_id, round_idx=round_idx, params=global_params,
+            batches=client_batches, chunks=wchunks,
+            specs_by_kind=specs_by_kind, wire=self.wire,
+            error_feedback=self.error_feedback)
+        for i, (buf, metrics) in enumerate(pooled):
+            finish(i, buf, metrics)
 
     # -- grade-partitioned rounds (allocator-driven) -----------------------
     def run_plan_round(

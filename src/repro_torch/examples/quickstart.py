@@ -14,14 +14,19 @@ Sections, numbered as in the JAX package's ``examples/quickstart.py``:
 4. the cloud service behind DeviceFlow;
 5. grade-partitioned hybrid rounds (zero-copy: updates stay on the card as
    ``UpdateBuffer``s, messages carry handles);
+6. event-driven multi-task scheduling: two contending tasks time-share one
+   pool through ``TaskEngine`` with elastic re-allocation;
+7. preemptive priority scheduling, and ``monte_carlo_schedules`` over
+   sampled timelines;
 8. the columnar message plane (one ``ArrivalBatch`` per cohort chunk);
 9. the int8 wire with error feedback;
-10. continuous-batching serving under diurnal traffic.
+10. continuous-batching serving under diurnal traffic;
+11. multi-process fleet execution: the shared-memory segment layout of one
+    chunk (``HybridSimulation(workers=N, worker_spec=...)`` runs pooled
+    rounds bit-identical to in-process ones).
 
-Sections 6 and 7 (multi-task and preemptive scheduling) need the scheduler
-(``core/scheduler.py``, ROADMAP P8), section 11 the multi-process workers
-(``runtime/workers.py``, P13) and section 12 the simcheck linter (P14);
-none of them is ported yet, so they are left out.
+Section 12 (the simcheck linter and sanitizers catalog) waits for the
+port's tooling (ROADMAP P14) and is left out.
 
 Run on the card (the default) or on the CPU::
 
@@ -44,13 +49,19 @@ from repro_torch.core import (
     ContinuousServer,
     DeviceFlow,
     GradeSpec,
+    OperatorFlow,
+    ResourceManager,
+    ResourcePool,
     RoundPlan,
     RuntimeCalibrator,
     SampleThresholdTrigger,
     ServeCostModel,
+    Task,
+    TaskEngine,
     UpdateBuffer,
     VirtualClock,
     diurnal,
+    monte_carlo_schedules,
     solve_allocation,
 )
 from repro_torch.core.devicemodel import GRADES, DeviceFleet
@@ -63,6 +74,7 @@ from repro_torch.data.synthetic_ctr import make_federated_ctr
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import BatchedServer, run_trace
 from repro_torch.models import ctr
+from repro_torch.runtime.workers import segment_layout
 
 N_HIGH, N_LOW, RECORDS, DIM, ROUNDS = 16, 8, 16, 64, 4
 
@@ -173,6 +185,73 @@ def run(device="cuda") -> dict:
         say(f"benchmark-device report ({rep.grade}): "
             f"{rep.total_power_mah:.2f} mAh, {rep.total_duration_min:.2f} min")
 
+    # 6. Event-driven multi-task scheduling: two contending tasks time-share
+    #    ONE pool.  Task A freezes its full demand; task B is admitted
+    #    elastically on what is left, and when A finishes the engine
+    #    re-solves B's allocation with the freed resources.  Rounds
+    #    interleave as events on the shared VirtualClock, far below the
+    #    serial back-to-back drain.
+    rm = ResourceManager(ResourcePool({"High": 12}, {"High": 4}))
+    make_task = lambda prio: Task(
+        OperatorFlow(("train",)),
+        (GradeSpec("High", 24, logical_bundles=8, bundles_per_device=1,
+                   physical_devices=3),),
+        rounds=3, priority=prio)
+    task_a, task_b = make_task(1), make_task(0)
+    engine = TaskEngine(rm, cal, elastic=True)  # calibrated runtimes
+    engine.submit(task_a)
+    engine.submit(task_b)
+    engine.run_until()
+    serial_s = sum(ex.task.rounds * ex.allocation.makespan
+                   for ex in engine.completed)
+    for ex in engine.completed:
+        say(f"task {ex.task.task_id}: start={ex.started_t:.0f}s "
+            f"finish={ex.finished_t:.0f}s rounds={ex.rounds_done} "
+            f"elastic-reallocations={ex.reallocations}")
+    say(f"interleaved makespan {engine.makespan:.0f}s "
+        f"(serial drain would take ~{serial_s:.0f}s)")
+
+    # 7. Preemptive priority scheduling: two low-priority tasks freeze the
+    #    WHOLE pool; a high-priority task arrives mid-round-0.  Without
+    #    preemption it waits for a full task completion; with
+    #    ``preemptive=True`` a victim's grant is refrozen down (here: to
+    #    zero, PAUSED with its progress kept) at its next round boundary.
+    def contended(preemptive):
+        rm7 = ResourceManager(ResourcePool({"High": 16}, {"High": 6}))
+        eng = TaskEngine(rm7, cal, elastic=True, preemptive=preemptive)
+        low = [make_task(0), make_task(0)]  # together they fill the pool
+        urgent = make_task(9)
+        for t in low:
+            eng.submit(t)
+        eng.submit(urgent, at=60.0)  # arrives while both run round 0
+        eng.run_until()
+        return eng, urgent
+
+    for preemptive in (False, True):
+        eng7, urgent = contended(preemptive)
+        ex = eng7.executions[urgent.task_id]
+        mode = "preemptive" if preemptive else "non-preemptive"
+        victims = [e for e in eng7.completed
+                   if e.task.task_id != urgent.task_id]
+        say(f"{mode}: urgent task queued {ex.queueing_delay_s:.0f}s, "
+            f"victim preemptions={sum(e.preemptions for e in victims)}, "
+            f"victim grant-utilization="
+            f"{min(e.grant_utilization for e in victims):.2f}")
+
+    # Monte-Carlo makespan estimation: the same contention replayed over N
+    # sampled timelines (round durations drawn from the calibrator's
+    # observations, not their mean).
+    low_mc = [make_task(0), make_task(0)]
+    urgent_mc = make_task(9)
+    mc = monte_carlo_schedules(
+        low_mc + [urgent_mc], ResourcePool({"High": 16}, {"High": 6}), cal,
+        arrivals={urgent_mc.task_id: 60.0}, n_samples=24, seed=0)
+    for preemptive, est in mc.items():
+        mode = "preemptive" if preemptive else "non-preemptive"
+        say(f"monte-carlo {mode}: mean makespan {est.mean_makespan_s:.0f}s "
+            f"(p95 {est.p95_makespan_s:.0f}s), urgent mean queue-delay "
+            f"{est.mean_queueing_delay_s(urgent_mc.task_id):.0f}s")
+
     # 8. Columnar message plane: a whole cohort chunk is ONE struct-of-arrays
     #    ``ArrivalBatch`` (row indices into a shared device-resident
     #    ``UpdateBuffer`` plus created_t/nbytes columns), so DeviceFlow does
@@ -239,6 +318,22 @@ def run(device="cuda") -> dict:
         f"(p99 cut {rep_fixed.p99_latency_s / rep_cont.p99_latency_s:.0f}x, "
         f"peak occupancy {occ10}/{eng10.slots}, "
         f"token_identical={same_tokens})")
+
+    # 11. Multi-process fleet execution: ``HybridSimulation(workers=N,
+    #     worker_spec=WorkerSpec(factory, ...))`` runs cohort chunks in N
+    #     spawned workers (on the simulation's card, each with its own CUDA
+    #     context) while this process keeps DeviceFlow, the fleets and
+    #     aggregation on the virtual clock.  Results come back through
+    #     recycled shared-memory segments with only a slim (rows, shm_name)
+    #     header on the pipe, so pooled rounds are bit-identical to
+    #     in-process ones.  Both sides compute the segment layout from the
+    #     update spec: one 8-row int8-wire chunk of a {w: (16,), b: ()}
+    #     model is two int8 wire matrices, then one f32 scale column per
+    #     leaf, each 64-byte aligned.
+    layout11, nbytes11 = segment_layout([(16,), ()], ["float32", "float32"],
+                                        rows=8, wire="int8")
+    say(f"worker transport segment: {nbytes11} bytes: "
+        f"{[(off, shape, str(dt)) for off, shape, dt in layout11]}")
     return {"lines": lines, "test_acc": accs, "test_acc_int8": acc9,
             "token_identical": same_tokens}
 

@@ -30,8 +30,11 @@ Run on the card (the default) or, with ``--device cpu``, on the CPU::
 The encoder-decoder family (``seamless_m4t_medium``) has no serving path, as
 in the reference: both servers refuse it up front with a ``ValueError``.
 
-``--co-train`` needs the scheduler (``core/scheduler.py``), which is not
-ported yet (ROADMAP P8).
+``--co-train`` then runs the serve-over-train preemption schedule
+(``co_serving_schedule``) with its burst at the middle of the served
+horizon::
+
+    python -m repro_torch.launch.serve --co-train --device cpu
 """
 from __future__ import annotations
 
@@ -43,7 +46,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core.allocation import GradeRuntime
 from repro_torch.core.deviceflow import Delivery, DeviceFlow, Message, VirtualClock
+from repro_torch.core.scheduler import ResourceManager, ResourcePool, TaskEngine
 from repro_torch.core.serving import (
     NO_ENCDEC_SERVING,
     ContinuousBatchingEngine,
@@ -53,6 +58,7 @@ from repro_torch.core.serving import (
     ServingReport,
 )
 from repro_torch.core.strategies import TimeIntervalStrategy
+from repro_torch.core.task import GradeSpec, OperatorFlow, Task
 from repro_torch.core.traffic_curves import diurnal, right_tailed_normal
 from repro_torch.core.updates import UpdateBuffer, UpdateHandle
 from repro_torch.device import resolve_device
@@ -243,6 +249,42 @@ def run_trace(server, *, requests: int, prompt_len: int, vocab_size: int,
     return flow
 
 
+def co_serving_schedule(*, peak_t: float, train_rounds: int = 8,
+                        train_round_s: float = 120.0,
+                        serve_rounds: int = 3, serve_round_s: float = 30.0,
+                        serve_priority: int = 5,
+                        cost_model_gate: bool = True):
+    """Serve-over-train preemption at the diurnal peak (SimDC co-serving).
+
+    Background training (priority 0) holds the whole pool; a high-priority
+    serving-burst task arrives at ``peak_t`` and — when the admission cost
+    model judges the priority-weighted benefit to exceed the victim's
+    re-timed lost work — preempts training at its next round boundary.
+    Returns the drained ``TaskEngine`` for inspection.
+    """
+    rm = ResourceManager(ResourcePool({"High": 8}, {"High": 2}))
+    flow = OperatorFlow(("serve",))
+
+    def runtimes(task):
+        per_round = serve_round_s if task.priority >= serve_priority \
+            else train_round_s
+        return [GradeRuntime(alpha=per_round, beta=per_round, lam=0.0)
+                for _ in task.grades]
+
+    eng = TaskEngine(rm, runtimes, preemptive=True,
+                     preemption_cost_model=cost_model_gate)
+    train = Task(flow, (GradeSpec("High", 10, logical_bundles=8,
+                                  physical_devices=2),),
+                 rounds=train_rounds, priority=0)
+    burst = Task(flow, (GradeSpec("High", 10, logical_bundles=8,
+                                  physical_devices=2),),
+                 rounds=serve_rounds, priority=serve_priority)
+    eng.submit(train)
+    eng.submit(burst, at=peak_t)
+    eng.drain()
+    return eng
+
+
 def print_report(name: str, rep: ServingReport, slo_s: float) -> None:
     s = rep.summary(slo_s)
     print(f"  {name:12s} p50={s['p50_latency_s'] * 1e3:8.1f}ms "
@@ -273,15 +315,12 @@ def main(argv=None):
                     help="real users each simulated request stands for "
                          "(reporting only)")
     ap.add_argument("--co-train", action="store_true",
-                    help="serve-over-train preemption at the curve peak "
-                         "(needs core/scheduler.py: not ported yet)")
+                    help="run the serve-over-train preemption schedule at "
+                         "the curve peak")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where the model runs (cuda, or cpu)")
     args = ap.parse_args(argv)
-    if args.co_train:
-        ap.error("--co-train needs the scheduler (core/scheduler.py), which "
-                 "is not ported yet (ROADMAP P8)")
 
     cfg = get_config(args.arch, smoke=True)
     device = resolve_device(args.device)
@@ -334,6 +373,15 @@ def main(argv=None):
         f, c = reports["fixed"], reports["continuous"]
         if c.p99_latency_s > 0:
             print(f"  p99 latency cut: {f.p99_latency_s / c.p99_latency_s:.2f}x")
+    if args.co_train:
+        peak_t = horizon * 0.5 if horizon else 300.0
+        eng = co_serving_schedule(peak_t=peak_t)
+        train_ex = next(ex for ex in eng.completed if ex.task.priority == 0)
+        burst_ex = next(ex for ex in eng.completed if ex.task.priority > 0)
+        print(f"\nco-training: serving burst at t={peak_t:.1f}s "
+              f"queued {burst_ex.queueing_delay_s:.1f}s; training preempted "
+              f"{train_ex.preemptions}x, decisions "
+              f"{train_ex.preemption_decisions}")
     return 0
 
 

@@ -35,7 +35,29 @@ def test_import_loads_no_jax_and_no_reference_package():
                          capture_output=True, text=True, check=True).stdout
     assert "BAD []" in out, out
     n = int(out.split("MODULES ")[1].split()[0])
-    assert n >= 66  # every ported module was imported
+    assert n >= 70  # every ported module was imported
+
+
+def test_new_runtime_modules_import_no_jax_and_no_reference():
+    """The scheduler, fault tolerance and workers stand alone: each imported
+    on its own pulls in neither JAX nor the reference package."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in ("repro_torch.core.scheduler",
+                     "repro_torch.runtime.fault_tolerance",
+                     "repro_torch.runtime.workers",
+                     "repro_torch.core.calibration",
+                     "repro_torch.launch.serve"):
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "repro" or m.startswith("repro."))
+        print("BAD", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True).stdout
+    assert "BAD []" in out, out
 
 
 def test_chip_smoke_imports_no_jax():
@@ -54,6 +76,7 @@ def _entry_points():
     from repro_torch.launch.serve import BatchedServer, stack_requests
     from repro_torch.examples import federated_ctr, quickstart
     from repro_torch.models import ctr, encdec, hybrid, mamba2, transformer
+    from repro_torch.runtime.workers import FleetWorkerPool, WorkerSpec
 
     fn = ctr.make_local_train_fn()
     lm = get_config("llama3_2_3b", smoke=True)
@@ -100,6 +123,7 @@ def _entry_points():
         "BatchedServer": lambda: BatchedServer(
             lm, batch_size=2, prompt_len=4, decode_tokens=2, max_len=7),
         "stack_requests": lambda: stack_requests(np.ones((2, 4))),
+        "FleetWorkerPool": lambda: FleetWorkerPool(WorkerSpec(print), 2),
     }
 
 
@@ -112,7 +136,8 @@ def _entry_points():
     "transformer.init[moe]", "encdec.init", "encdec.init_cache",
     "encdec.params_from_numpy", "quickstart.run", "federated_ctr.run",
     "init_arena",
-    "ContinuousBatchingEngine", "BatchedServer", "stack_requests"]))
+    "ContinuousBatchingEngine", "BatchedServer", "stack_requests",
+    "FleetWorkerPool"]))
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device works")

@@ -305,6 +305,48 @@ def test_main_runs_on_cpu_when_asked(capsys):
 
 
 def test_main_co_train_names_the_missing_scheduler(capsys):
-    with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--co-train"])
-    assert "P8" in capsys.readouterr().err
+    """``--co-train`` runs the serve-over-train schedule (it used to exit
+    naming the missing scheduler): the burst preempts training once."""
+    assert serve.main(["--device", "cpu", "--co-train", "--requests", "6",
+                       "--prompt-len", "4", "--decode-tokens", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "co-training: serving burst at t=" in out
+    assert "training preempted 1x" in out and "'preempted': True" in out
+
+
+def _cli(module, *args):
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               JAX_PLATFORMS="cpu")
+    return subprocess.run([sys.executable, "-m", module, *args], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          check=True).stdout.splitlines()
+
+
+def test_co_train_cli_prints_the_reference_lines():
+    """``python -m repro_torch.launch.serve --co-train --device cpu`` and
+    ``python -m repro.launch.serve --co-train``, each in a fresh process:
+    the same lines, the co-training decision log included."""
+    got = _cli("repro_torch.launch.serve", "--co-train", "--device", "cpu")
+    want = _cli("repro.launch.serve", "--co-train")
+    assert got == want
+    assert any(line.startswith("co-training: serving burst") for line in got)
+
+
+def test_co_serving_schedule_matches_reference():
+    for kw in ({"peak_t": 30.0}, {"peak_t": 500.0, "cost_model_gate": False},
+               {"peak_t": 30.0, "train_rounds": 2}):
+        got, want = serve.co_serving_schedule(**kw), jserve.co_serving_schedule(
+            **kw)
+        rows = [[(ex.task.priority, ex.started_t, ex.finished_t,
+                  ex.preemptions, ex.queueing_delay_s,
+                  [{k: v for k, v in d.items() if k != "preemptor"}
+                   for d in ex.preemption_decisions])
+                 for ex in sorted(e.completed, key=lambda x: x.task.task_id)]
+                for e in (got, want)]
+        assert rows[0] == rows[1]
+        assert got.makespan == want.makespan
