@@ -6,13 +6,15 @@
     python3 chip_smoke.py --serving-only  # skip the federated-round phases
     python3 chip_smoke.py --scheduling-only  # phases 1, 2, 13 and 14 only
     python3 chip_smoke.py --ssm-only      # the SSD kernel and SSM serving only
+    python3 chip_smoke.py --training-only # phases 1, 4 and 15-17 only
 
 All four kernels (``fed_reduce``, ``decode_attention``, ``flash_attention``
-and ``ssd_scan``, the last three with tensor-core and plain-FMA paths) are
+with its backward, and ``ssd_scan``, the last three with tensor-core and
+plain-FMA paths) are
 built first from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``, one
 compiler per source, all at once; ptxas's registers and spills of the new
 kernels and the tensor-core instructions in each library's SASS
-(``cuobjdump``: HGMMA, HMMA) are printed.  Fourteen phases, run in their
+(``cuobjdump``: HGMMA, HMMA) are printed.  Seventeen phases, run in their
 numbered order; any failure raises and the script exits non-zero:
 
 1. **Kernel.**  Runs ``fed_reduce`` on the card against its plain
@@ -166,6 +168,48 @@ numbered order; any failure raises and the script exits non-zero:
     segment is left in ``/dev/shm``.  If ``/dev/shm`` cannot hold a call's
     input segment the phase runs at the largest device count that fits and
     says so.
+
+15. **Backward kernel.**  The forward kernel with its log-sum-exp against
+    ``attention_fwd_lse``, then the flash backward (``flash_bwd_dot_kernel``,
+    then the dK/dV and dQ kernels: ``mma.sync`` for bf16 at d = 64, 128,
+    plain FMAs otherwise) on the card against ``attention_bwd_ref`` on the
+    card, from the forward kernel's own o and log-sum-exp: llama3.2-3b's
+    training shape (1 x 4096, 24/8 heads of 128, causal) in bf16, the same
+    at 6/2 heads in f32, granite's (16 x 512, 24/8 of 64), seamless's
+    encoder (16 x 256, non-causal) and cross-attention (64 x 256), the
+    smoke width (8 x 64 and 4 x 128, 6/2 of 16), a ragged 4 000 and a
+    query offset: o, dQ, dK, dV within 3e-5 (f32) / 2e-2 (bf16), the
+    log-sum-exp within 1e-3, two backward calls bitwise equal;
+    ``torch.func.vmap(grad(...))`` through ``FlashAttention`` equal to a
+    per-sample loop.  Times llama's training shape and the smoke width:
+    kernel (and the plain-FMA kernels on the same bf16 inputs), plain
+    version, SDPA's autograd backward, the forward with its log-sum-exp,
+    SDPA's forward, and the bounds (10 d flops per pair per head).
+16. **Cloud training.**  llama3.2-3b at full width and depth (28 layers,
+    3.61 B params, seeded bf16 weights, f32 master, m and v) through
+    ``launch/train.py``'s own step (``make_cloud_step``): sequences of 4096
+    from ``TokenPipeline``, 8 microbatches of one (32 768 tokens a step),
+    one warm-up and three timed steps, then one profiled step; per step the
+    loss, lr and grad norm (finite), wall s, tokens/s, the share of 989
+    TFLOP/s that 6 N tokens / wall gives, peak memory, and flash launches
+    equal to the audit (448 forward and 224 backward per step under remat),
+    the profiled step's kernels too.  Then 2 layers at full width, 2 steps,
+    kernel path against plain path on the card: loss and grad norm per
+    step, every updated leaf and each leaf's first-step gradient within
+    2e-2 relative (bf16) and 1e-4 (f32); each leaf's change logged.
+17. **The LM examples.**  ``examples/lm_pretrain.py`` on the card, 200
+    steps with checkpoints every 50, straight through and in a process
+    killed after its step-100 save, resumed through ``TrainingSupervisor``:
+    the resumed losses bitwise equal; ``examples/lm_federation.py`` (5
+    rounds, 8 clients, curve traffic, top-k 0.05) and ``--tasks 3
+    --preemptive`` on the card against the same command on the CPU from the
+    same params: every virtual-time line, the aggregations and the wire
+    bytes equal, client losses within 2e-2; their ``fed_reduce`` and flash
+    launches (forward and backward, under vmap) printed and nonzero.  Then
+    every forward and backward shape that phases 16 and 17 launched and
+    phase 15 did not check is checked as phase 15 checks its cases.
+
+``--training-only`` runs phases 1, 4 and 15-17.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``, and before that one JSON
@@ -2925,6 +2969,614 @@ def family_phases(dev, checked: set, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 15: the flash backward against its plain version
+
+TRAIN_ARCH = "llama3_2_3b"
+TRAIN_SEQ = 4096  # the reference's train_4k sequence
+TRAIN_MICRO = 8  # one sequence per microbatch, 32 768 tokens a step
+TRAIN_STEPS = 3  # timed, after one warm-up step
+# (b, sq, sk, h, kv, d, causal, q_offset) and the dtypes it is checked in:
+# llama's training shape, the same at 2 KV heads in f32, granite's and
+# seamless's shapes, the smoke width (a federated chunk of 8 clients and a
+# pretraining microbatch), a ragged key length and a query offset.
+BWD_LLAMA = (1, TRAIN_SEQ, TRAIN_SEQ, 24, 8, 128, True, 0)
+BWD_SMOKE = (8, 64, 64, 6, 2, 16, True, 0)
+BWD_CASES = [
+    (BWD_LLAMA, ("bfloat16",)),
+    ((1, TRAIN_SEQ, TRAIN_SEQ, 6, 2, 128, True, 0), ("float32",)),
+    (FLASH_GRANITE, ("bfloat16", "float32")),
+    (FLASH_SEAMLESS_ENC, ("bfloat16", "float32")),
+    (FLASH_SEAMLESS_X, ("bfloat16", "float32")),
+    (BWD_SMOKE, ("float32", "bfloat16")),
+    ((4, 128, 128, 6, 2, 16, True, 0), ("float32", "bfloat16")),
+    ((1, 4000, 4000, 24, 8, 128, True, 0), ("bfloat16",)),
+    ((2, 96, 200, 6, 2, 64, True, 104), ("float32", "bfloat16")),
+]
+TIMED_BWD = (BWD_LLAMA, BWD_SMOKE)
+BWD_REPLACES = "src/repro/kernels/flash_attention/ref.py:49"
+
+
+def _randn(gen, shape, dtype, dev):
+    import torch
+
+    return torch.randn(shape, generator=gen).to(getattr(torch, dtype)).to(dev)
+
+
+def bwd_case(dev, gen, case, dtype: str) -> tuple[dict, tuple]:
+    """The forward kernel with its log-sum-exp at ``case`` against
+    ``attention_fwd_lse``, then the backward kernels against
+    ``attention_bwd_ref`` on the card, from the forward kernel's own o and
+    log-sum-exp; two backward calls must give the same bits."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    b, sq, sk, h, kv, d, causal, off = case
+    q, do = (_randn(gen, (b, sq, h, d), dtype, dev) for _ in range(2))
+    k, v = (_randn(gen, (b, sk, kv, d), dtype, dev) for _ in range(2))
+    scale = d ** -0.5
+    o, lse = ops._flash_attention_cuda(q, k, v, causal, off, scale,
+                                       with_lse=True)
+    got = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
+                                        scale)
+    again = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
+                                          scale)
+    plain = ops.attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                  q_offset=off)
+    plain_o, plain_lse = ops.attention_fwd_lse(q, k, v, causal=causal,
+                                               q_offset=off)
+    torch.cuda.synchronize()
+    fwd_err = _check_close(f"flash_attention{case} {dtype} o (with lse)", o,
+                           plain_o, q.dtype)
+    name = f"flash_attention_bwd{case} {dtype}"
+    errs = [_check_close(f"{name} {g}", a, p, q.dtype)
+            for g, a, p in zip(("dq", "dk", "dv"), got, plain)]
+    lse_err = float((lse - plain_lse).abs().max())
+    if lse_err > 1e-3:
+        raise AssertionError(f"{name}: lse off by {lse_err:.3e}")
+    if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+        raise AssertionError(f"{name} is not bitwise repeatable")
+    row = {"case": list(case), "dtype": dtype, "max_abs_err": max(errs),
+           "fwd_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
+           "bitwise_repeatable": True,
+           "kernel": ops.kernel_for_bwd(q.dtype, d)}
+    return row, (q, k, v, o, lse, do)
+
+
+def bwd_timing(tensors, case) -> dict:
+    """Times at a timed shape: the backward kernels, the plain version,
+    the autograd backward of ``F.scaled_dot_product_attention`` (GQA) as
+    the library yardstick, the forward kernel with its log-sum-exp and
+    SDPA's forward, and the bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+
+    q, k, v, o, lse, do = tensors
+    b, sq, sk, h, kv, d, causal, off = case
+    scale = d ** -0.5
+    big = q.numel() >= 2**24
+    row = {"kernel": ops.kernel_for_bwd(q.dtype, d)}
+    row["ms"] = time_ms(lambda i: ops._flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal, off, scale), iters=10 if big else 40)
+    if row["kernel"] != "simt":  # the plain-FMA kernels on the same inputs
+        row["simt_ms"] = time_ms(lambda i: ops._flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal, off, scale, kernel="simt"),
+            iters=3 if big else 20)
+    row["plain_ms"] = time_ms(lambda i: ops.attention_bwd_ref(
+        q, k, v, o, lse, do, causal=causal, q_offset=off), iters=3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    row["library_ms"] = time_ms(lambda i: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=10 if big else 40)
+    row["fwd_ms"] = time_ms(lambda i: ops._flash_attention_cuda(
+        q, k, v, causal, off, scale, with_lse=True), iters=10 if big else 40)
+    with torch.no_grad():
+        row["fwd_library_ms"] = time_ms(
+            lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True),
+            iters=10 if big else 40)
+    del out
+    pairs = causal_pairs(sq, sk, causal, off) * b * h
+    size = q.element_size()
+    moved = (4 * b * sq * h + 4 * b * sk * kv) * d * size + 2 * b * h * sq * 4
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 10 * d * pairs / peak * 1e3
+    row.update(bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes=moved, flops=10 * d * pairs)
+    fwd_bytes = (2 * b * sq * h + 2 * b * sk * kv) * d * size + b * h * sq * 4
+    row["fwd_bound_ms"] = max(fwd_bytes / HBM_BYTES_PER_S,
+                              4 * d * pairs / peak) * 1e3
+    row["tflops"] = 10 * d * pairs / (row["ms"] * 1e9)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def vmap_grad_check(dev) -> float:
+    """``FlashAttention`` under ``torch.func.vmap(grad(...))`` on the card
+    (the federated clients' path) equals a loop of per-sample grads."""
+    import torch
+    from torch.func import grad, vmap
+
+    from repro_torch.kernels.flash_attention.ops import FlashAttention
+
+    gen = torch.Generator().manual_seed(15)
+    n, (b, s, _, h, kv, d, causal, off) = 4, BWD_SMOKE
+    q = _randn(gen, (n, 1, s, h, d), "float32", dev)
+    k, v = (_randn(gen, (n, 1, s, kv, d), "float32", dev) for _ in range(2))
+
+    def loss(q, k, v):
+        return (FlashAttention.apply(q, k, v, causal, off, d ** -0.5)[0]
+                ** 2).sum()
+
+    batched = vmap(grad(loss, argnums=(0, 1, 2)))(q, k, v)
+    err = 0.0
+    for i in range(n):
+        for a, w in zip(batched, grad(loss, argnums=(0, 1, 2))(q[i], k[i],
+                                                               v[i])):
+            err = max(err, float((a[i] - w).abs().max()))
+    torch.cuda.synchronize()
+    if err > 1e-6:
+        raise AssertionError(f"vmap(grad) through FlashAttention differs "
+                             f"from the per-sample loop by {err:.3e}")
+    return err
+
+
+def bwd_phase(dev) -> tuple[dict, set, float]:
+    """Phase 15: every case of ``BWD_CASES``, the timed shapes, the
+    ``vmap(grad)`` check; returns the kernel's JSON entry, the checked
+    (case, dtype) pairs and the forward's max abs error over them."""
+    import torch
+
+    gen = torch.Generator().manual_seed(15)
+    checked, errs, fwd_errs, main_row = set(), [], [], None
+    for case, dtypes in BWD_CASES:
+        for dtype in dtypes:
+            row, tensors = bwd_case(dev, gen, case, dtype)
+            if case in TIMED_BWD and dtype == "bfloat16":
+                row.update(bwd_timing(tensors, case))
+                if case == BWD_LLAMA:
+                    main_row = row
+            del tensors
+            errs.append(row["max_abs_err"])
+            fwd_errs.append(row["fwd_max_abs_err"])
+            checked.add((case, dtype))
+            log(json.dumps({"flash_attention_bwd_case": row}))
+    err = vmap_grad_check(dev)
+    log(f"vmap(grad) through FlashAttention on the card equals the "
+        f"per-sample loop (max abs difference {err:.3e})")
+    entry = _timed_entry("flash_attention_bwd", FLASH_SOURCE, BWD_REPLACES,
+                         errs, main_row)
+    entry["kernel"] = main_row["kernel"] if main_row else None
+    torch.cuda.empty_cache()
+    return entry, checked, max(fwd_errs)
+
+
+def start_training_audit() -> None:
+    """Starts the flash wrappers' records of the shapes the training
+    paths launch the forward (with its log-sum-exp) and the backward at."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    flash_attention.shapes = set()
+    flash_attention.bwd_shapes = set()
+
+
+def check_training_shapes(dev, checked: set) -> tuple[float, float]:
+    """Stops the records of :func:`start_training_audit` and runs
+    :func:`bwd_case` (forward and backward against their plain versions) at
+    every forward or backward shape launched since that phase 15 did not
+    check; returns the forward's and the backward's max abs errors over
+    those cases (0.0 where none was new)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    launched = flash_attention.shapes | flash_attention.bwd_shapes
+    flash_attention.shapes = flash_attention.bwd_shapes = None
+    gen = torch.Generator().manual_seed(17)
+    new = sorted(s for s in launched if (s[:8], s[8]) not in checked)
+    fwd_err = bwd_err = 0.0
+    for s in new:
+        row, _ = bwd_case(dev, gen, s[:8], s[8])
+        checked.add((s[:8], s[8]))
+        log(json.dumps({"flash_attention_bwd_case": row,
+                        "launched_by": "path"}))
+        fwd_err = max(fwd_err, row["fwd_max_abs_err"])
+        bwd_err = max(bwd_err, row["max_abs_err"])
+    log(f"forward and backward shapes launched by phases 16-17: "
+        f"{len(launched)}, {len(new)} checked here")
+    return fwd_err, bwd_err
+
+
+# --------------------------------------------------------------------------
+# phase 16: cloud training at llama3.2-3b's published width and depth
+
+def _zero_flash_counters():
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    flash_attention.launches = 0
+    flash_attention.wgmma_launches = 0
+    flash_attention.bwd_launches = 0
+    flash_attention.mma_bwd_launches = 0
+
+
+def _flash_counters() -> dict:
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_wgmma": flash_attention.wgmma_launches,
+            "flash_attention_bwd": flash_attention.bwd_launches,
+            "flash_attention_bwd_mma": flash_attention.mma_bwd_launches}
+
+
+def training_phase(dev, card: str) -> dict:
+    """Phase 16: ``cloud_training``'s own step function
+    (``make_cloud_step``) on llama3.2-3b at full width and depth, seeded
+    random bf16 weights, one warm-up step then ``TRAIN_STEPS`` timed ones,
+    then one profiled step; the launch counts per step must equal the
+    audit's (2 forward launches per layer and microbatch under remat, one
+    backward)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distribution.steps import init_train_state
+    from repro_torch.launch.train import make_cloud_step
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_MICRO, "train",
+                        microbatches=TRAIN_MICRO)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    log(f"{cfg.name} training state: {n_params} params, bf16 params + f32 "
+        f"master, m, v in {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+        f"initialized in {time.perf_counter() - t0:.1f}s")
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_MICRO, seed=0)
+    step = make_cloud_step(cfg, shape, pipe, device=dev)
+    tokens = TRAIN_SEQ * TRAIN_MICRO
+    L, n = cfg.num_layers, TRAIN_MICRO
+    expected = {"flash_attention": 2 * L * n, "flash_attention_wgmma":
+                2 * L * n, "flash_attention_bwd": L * n,
+                "flash_attention_bwd_mma": L * n}
+    rows = []
+    for i in range(1 + TRAIN_STEPS):
+        _zero_flash_counters()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        state, m = step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        launches = _flash_counters()
+        loss, lr, gn = (float(m[k]) for k in ("loss", "lr", "grad_norm"))
+        if not all(math.isfinite(x) for x in (loss, lr, gn)):
+            raise AssertionError(f"training step {i}: loss {loss}, lr {lr}, "
+                                 f"grad_norm {gn}")
+        if launches != expected:
+            raise AssertionError(f"training step {i}: flash launches "
+                                 f"{launches}, expected {expected}")
+        row = {"step": i, "warm_up": i == 0, "loss": loss, "lr": lr,
+               "grad_norm": gn, "wall_s": wall, "tokens_per_s": tokens / wall,
+               "peak_share": 6 * n_params * tokens / wall / BF16_FLOPS}
+        rows.append(row)
+        log(f"train step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{loss:.4f} lr {lr:.3e} grad_norm {gn:.4f} | {wall:.3f} s, "
+            f"{row['tokens_per_s']:.0f} tok/s, 6N share of 989 TFLOP/s "
+            f"{row['peak_share']:.3f}; flash launches {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    match = ("flash_fwd_wgmma_kernel", "flash_bwd_dot_kernel",
+             "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel")
+    _zero_flash_counters()
+    prof = profile_window(lambda: step(state), 1, match=match)
+    if _flash_counters() != expected:
+        raise AssertionError(f"profiled training step: flash launches "
+                             f"{_flash_counters()}, expected {expected}")
+    want = {match[0]: 2 * L * n, match[1]: L * n, match[2]: L * n,
+            match[3]: L * n}
+    if prof["matched"] != want:
+        raise AssertionError(f"profiled training step ran {prof['matched']} "
+                             f"flash kernels, the audit expects {want}")
+    timed = rows[1:]
+    res = {"arch": cfg.name, "params": n_params, "seq_len": TRAIN_SEQ,
+           "microbatches": TRAIN_MICRO, "tokens_per_step": tokens,
+           "steps": rows,
+           "wall_s_per_step": sum(r["wall_s"] for r in timed) / len(timed),
+           "peak_memory_gib": peak / 2**30,
+           "launches_per_step": expected,
+           "profiled_step": {k: prof[k] for k in (
+               "wall_ms", "device_busy_ms", "kernels", "device_idle_share",
+               "top_kernels_ms", "matched")},
+           "card": card}
+    res["tokens_per_s"] = tokens / res["wall_s_per_step"]
+    res["peak_share"] = 6 * n_params * tokens / res["wall_s_per_step"] \
+        / BF16_FLOPS
+    log(json.dumps({"training": res}))
+    log(f"llama3.2-3b training: {res['wall_s_per_step']:.3f} s/step, "
+        f"{res['tokens_per_s']:.0f} tok/s, 6N share {res['peak_share']:.3f}, "
+        f"peak {res['peak_memory_gib']:.2f} GiB; profiled step "
+        f"{prof['device_idle_share']:.3f} idle, flash kernels "
+        f"{prof['matched']} = audit")
+    total = {k: v * (2 + TRAIN_STEPS) for k, v in expected.items()}
+    del state, step
+    torch.cuda.empty_cache()
+    return {"launches": total, "summary": res}
+
+
+def _leaf_rel_errs(got: list, want: list) -> list:
+    """Each leaf's ``|got - want| / |want|`` (Frobenius norms)."""
+    return [float((a - b).norm() / b.norm().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def training_cross_check(dev) -> dict:
+    """Phase 16's cross-check: full width at 2 layers, 2 steps of 2
+    microbatches of 4096 tokens, the kernel path against the plain path
+    (``attention_impl="einsum"``, autograd through the plain ops), both on
+    the card, within 2e-2 relative in bf16 and 1e-4 in f32 (TF32 off):
+    each step's loss and grad norm, each updated leaf, and each leaf's
+    first-step gradient, read as AdamW's first moment after one step
+    (``(1 - b1)`` times the clipped mean of the microbatches' f32
+    gradients).  Two steps move a weight by ~3 % of its size, so the
+    updated leaves alone would hide an error in the gradients; Adam's
+    near-sign steps hide their magnitude too, so the gradients are held
+    directly.  Each leaf's change in its f32 master over the 2 steps is
+    logged, not held: Adam's first steps turn bf16 rounding in gradients
+    near 0 into sign flips.  Every reading is logged before any limit is
+    applied."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distribution.steps import init_train_state
+    from repro_torch.launch.train import make_cloud_step
+    from repro_torch.optim.optimizers import AdamWConfig, tree_leaves
+
+    shape = ShapeConfig("train_4k_x", TRAIN_SEQ, 2, "train", microbatches=2)
+    opt = AdamWConfig(warmup_steps=1)  # the peak lr from the first step
+    out = {}
+    for dtype, tol in (("bfloat16", 2e-2), ("float32", 1e-4)):
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2,
+                                  dtype=dtype)
+        runs = {}
+        for path, c in (("kernel", cfg), ("plain", dataclasses.replace(
+                cfg, attention_impl="einsum"))):
+            _zero_flash_counters()
+            state = init_train_state(c, seed=0, device=dev)
+            start = [t.clone() for t in tree_leaves(state["opt"]["master"])]
+            step = make_cloud_step(
+                c, shape, TokenPipeline(c.vocab_size, TRAIN_SEQ, 2, seed=0),
+                opt_cfg=opt, device=dev)
+            metrics, grads = [], None
+            for i in range(2):
+                state, m = step(state)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                if i == 0:
+                    grads = [t.cpu() for t in tree_leaves(state["opt"]["m"])]
+            moved = [(t - s0).cpu() for t, s0 in zip(
+                tree_leaves(state["opt"]["master"]), start)]
+            params = [t.float().cpu() for t in tree_leaves(state["params"])]
+            runs[path] = (metrics, params, grads, moved, _flash_counters())
+            del state, step, start
+            torch.cuda.empty_cache()
+        (mk, pk, gk, dk, lk), (mp, pp, gp, dp, lp) = (runs["kernel"],
+                                                      runs["plain"])
+        metric_err = max(abs(a - b) / abs(b) for x, y in zip(mk, mp)
+                         for a, b in zip(x, y))
+        grad_errs, delta_errs = _leaf_rel_errs(gk, gp), _leaf_rel_errs(dk, dp)
+        res = {"dtype": dtype, "limit": tol, "metrics_kernel": mk,
+               "metrics_plain": mp, "max_metric_rel_err": metric_err,
+               "max_leaf_rel_err": max(_leaf_rel_errs(pk, pp)),
+               "max_grad_rel_err": max(grad_errs),
+               "max_change_rel_err": max(delta_errs),
+               "median_change_rel_err": sorted(delta_errs)[
+                   len(delta_errs) // 2],
+               "leaves": len(gk), "launches_kernel": lk,
+               "launches_plain": lp}
+        log(json.dumps({"training_cross_check": res}))
+        log(f"training cross-check [{dtype}]: loss/grad_norm per step "
+            f"kernel {mk} vs plain {mp}, worst relative {metric_err:.3e}; "
+            f"{len(gk)} leaves: updated worst relative "
+            f"{res['max_leaf_rel_err']:.3e}, first-step gradient worst "
+            f"relative {max(grad_errs):.3e} (limit {tol}); change over 2 "
+            f"steps worst relative {max(delta_errs):.3e} (not held)")
+        out[dtype] = res
+        del runs, pk, pp, gk, gp, dk, dp
+    for dtype, res in out.items():
+        tol = res["limit"]
+        lk, lp = res["launches_kernel"], res["launches_plain"]
+        if lk["flash_attention_bwd"] != 2 * 2 * 2 or lp[
+                "flash_attention_bwd"] != 0:
+            raise AssertionError(f"[{dtype}] the kernel path launched {lk}, "
+                                 f"the plain path {lp}")
+        if not (res["max_metric_rel_err"] <= tol
+                and res["max_leaf_rel_err"] <= tol
+                and res["max_grad_rel_err"] <= tol):
+            raise AssertionError(f"training cross-check [{dtype}] over its "
+                                 f"limits: {res}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 17: the LM examples and the federated LM loop
+
+def _run_captured(argv, **init) -> tuple[str, dict]:
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train.run(argv, **init)
+    return buf.getvalue(), res
+
+
+def _cpu_init(cfg, seed, device):
+    """The seeded smoke params drawn on the CPU and moved to ``device``, so
+    the card's and the CPU's runs start from the same numbers."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizers import tree_map
+
+    return tree_map(lambda t: t.to(device),
+                    get_model(cfg).init(seed, cfg, device="cpu"))
+
+
+def _virtual_lines(text: str) -> list:
+    """The run's virtual-time lines: rounds without the client loss, task
+    lines without the task id (each package counts its own), the makespan
+    line without the host wall."""
+    import re
+
+    out = []
+    for line in text.splitlines():
+        if line.startswith("round"):
+            out.append(re.sub(r"client-loss \S+ ", "", line))
+        elif line.startswith("task"):
+            out.append(re.sub(r"^task \d+:", "task:", line))
+        elif line.startswith("interleaved"):
+            out.append(re.sub(r"; wall \S+", "", line))
+    return out
+
+
+def pretrain_resume_check(dev) -> dict:
+    """``examples/lm_pretrain.py`` on the card, 200 steps with checkpoints
+    every 50: once straight through, once in a process killed after its
+    step-100 save and resumed through ``TrainingSupervisor``; the resumed
+    steps' losses must equal the uninterrupted run's bit for bit.  The
+    checkpoints live in a temporary directory, removed at the end."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="lm_pretrain_") as root:
+        return _pretrain_resume(root)
+
+
+def _pretrain_resume(root: str) -> dict:
+    import signal
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.examples import lm_pretrain
+
+    whole_dir, killed_dir = (os.path.join(root, x) for x in ("a", "b"))
+    _zero_flash_counters()
+    t0 = time.perf_counter()
+    _, res = _run_captured(lm_pretrain.argv(
+        ["--device", "cuda", "--checkpoint-dir", whole_dir]))
+    wall = time.perf_counter() - t0
+    launches = _flash_counters()
+    whole = res["losses"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.lm_pretrain",
+         "--device", "cuda", "--checkpoint-dir", killed_dir], env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    marker = os.path.join(killed_dir, f"step_{100:010d}", "manifest.json")
+    deadline = time.time() + 300
+    while not os.path.exists(marker):
+        if proc.poll() is not None or time.time() > deadline:
+            proc.kill()
+            raise AssertionError(f"the pretraining process ended or stalled "
+                                 f"before its step-100 save: "
+                                 f"{proc.stderr.read().decode()[-2000:]}")
+        time.sleep(0.02)
+    proc.send_signal(signal.SIGKILL)
+    proc.wait()
+    latest = Checkpointer(killed_dir).latest_step()
+    _, rest = _run_captured(lm_pretrain.argv(
+        ["--device", "cuda", "--checkpoint-dir", killed_dir]))
+    rest = rest["losses"]
+    same = len(rest) == 200 - latest and rest == whole[latest:]
+    out = {"steps": len(whole), "wall_s": wall, "killed_after_step": latest,
+           "resumed_steps": len(rest), "bitwise_equal": same,
+           "first_loss": whole[0], "final_loss": whole[-1],
+           "launches": launches}
+    log(f"lm_pretrain on the card: 200 steps in {wall:.1f}s, loss "
+        f"{whole[0]:.4f} -> {whole[-1]:.4f}; killed after the step-{latest} "
+        f"save and resumed: {len(rest)} losses bitwise equal to the "
+        f"uninterrupted run's {same}; flash launches {launches}")
+    if not same or launches["flash_attention_bwd"] <= 0:
+        raise AssertionError(f"pretraining resume check failed: {out}")
+    return out
+
+
+def federation_check(dev, argv: list, name: str) -> dict:
+    """``argv`` through the port's CLI on the card and on the CPU from the
+    same params: every virtual-time line, the aggregation count and the
+    wire bytes equal, client losses within 2e-2."""
+    import re
+
+    from repro_torch.kernels.fed_reduce.ops import fed_reduce
+
+    _zero_flash_counters()
+    fed_reduce.launches = 0
+    t0 = time.perf_counter()
+    card_text, card = _run_captured(argv + ["--device", "cuda"],
+                                    init_params=_cpu_init)
+    wall = time.perf_counter() - t0
+    launches = {**_flash_counters(), "fed_reduce": fed_reduce.launches}
+    cpu_text, cpu = _run_captured(argv + ["--device", "cpu"],
+                                  init_params=_cpu_init)
+    lines, cpu_lines = _virtual_lines(card_text), _virtual_lines(cpu_text)
+    for line in lines:
+        log(f"  {line}")
+    same = lines == cpu_lines and len(lines) > 0
+    res = {"name": name, "wall_s": wall, "virtual_lines_equal": same,
+           "launches": launches}
+    losses = [float(x) for x in re.findall(r"client-loss (\S+)", card_text)]
+    cpu_losses = [float(x) for x in re.findall(r"client-loss (\S+)",
+                                               cpu_text)]
+    res["client_loss_max_rel_err"] = max(
+        (abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)),
+        default=0.0)
+    ok = same and res["client_loss_max_rel_err"] <= 2e-2
+    if "wire_bytes_received" in card:
+        res.update(aggregations=card["aggregations"],
+                   cpu_aggregations=cpu["aggregations"],
+                   wire_bytes=card["wire_bytes_received"],
+                   cpu_wire_bytes=cpu["wire_bytes_received"])
+        ok = ok and card["aggregations"] == cpu["aggregations"] and \
+            res["wire_bytes"] == res["cpu_wire_bytes"]
+    log(json.dumps({"federated_lm": res}))
+    log(f"{name} on the card in {wall:.1f}s: virtual-time lines equal to the "
+        f"CPU run's {same}; launches {launches}")
+    if not ok or launches["fed_reduce"] <= 0 or min(
+            launches["flash_attention"], launches["flash_attention_bwd"]) <= 0:
+        raise AssertionError(f"{name}: the card run differs from the CPU "
+                             f"run or skipped a kernel: {res}")
+    return res
+
+
+def training_examples_phase(dev) -> dict:
+    """Phase 17: the pretraining example with its kill-and-resume check,
+    the federation example and ``--tasks 3 --preemptive`` on the card
+    against the CPU."""
+    from repro_torch.examples import lm_federation
+
+    out = {"pretrain": pretrain_resume_check(dev)}
+    fed_argv = lm_federation.argv([])[:-2]  # its flags, without --device
+    out["federation"] = federation_check(dev, fed_argv, "lm_federation")
+    out["tasks"] = federation_check(
+        dev, ["--smoke", "--tasks", "3", "--preemptive"], "--tasks 3")
+    out["launches"] = {k: sum(out[p]["launches"].get(k, 0) for p in
+                              ("pretrain", "federation", "tasks"))
+                       for k in ("flash_attention", "flash_attention_bwd",
+                                 "fed_reduce")}
+    return out
+
+
+# --------------------------------------------------------------------------
 
 # --compare-with DIR: the decode and scan kernels of this checkout and of
 # the checkout at DIR (e.g. the parent commit), timed in turns (DIR, this,
@@ -3021,7 +3673,14 @@ PTXAS_KERNELS = {
         "d128 g<=4": "decode_kernelI13__nv_bfloat16Li128ELi4ELb1E",
         "d64 g<=4": "decode_kernelI13__nv_bfloat16Li64ELi4ELb1E"},
     "ssd_scan": {"n128 q128": "ssd_scan_tc_kernelILi128ELi128E",
-                 "n64 q128": "ssd_scan_tc_kernelILi64ELi128E"}}
+                 "n64 q128": "ssd_scan_tc_kernelILi64ELi128E"},
+    "flash_attention": {
+        "bwd dkdv mma d128": "flash_bwd_dkdv_mma_kernelILi128E",
+        "bwd dq mma d128": "flash_bwd_dq_mma_kernelILi128E",
+        "bwd dkdv mma d64": "flash_bwd_dkdv_mma_kernelILi64E",
+        "bwd dq mma d64": "flash_bwd_dq_mma_kernelILi64E",
+        "bwd dkdv f32 d16": "flash_bwd_dkdv_kernelIfLi16E",
+        "bwd dq f32 d16": "flash_bwd_dq_kernelIfLi16E"}}
 
 
 def ptxas_summary(name: str) -> dict:
@@ -3090,6 +3749,9 @@ def main(argv=None) -> int:
     p.add_argument("--scheduling-only", action="store_true",
                    help="build, then run the kernel (1), slice (2), "
                         "scheduled (13) and pooled (14) phases only")
+    p.add_argument("--training-only", action="store_true",
+                   help="build, then run the kernel (1), attention kernel "
+                        "(4) and training (15-17) phases only")
     p.add_argument("--ssm-only", action="store_true",
                    help="build, then run the SSD kernel phase (7), zamba2's "
                         "attention shapes and the SSM phases (8-9) only")
@@ -3129,6 +3791,7 @@ def main(argv=None) -> int:
                       .splitlines() if "Used" in line or "spill" in line))
     ptxas = {name: ptxas_summary(name) for name in ("decode_attention",
                                                       "ssd_scan")}
+    ptxas["flash_attention_bwd"] = ptxas_summary("flash_attention")
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"tensor_core_sass": tensor_core_sass(libs)}))
     if args.profile:
@@ -3139,6 +3802,7 @@ def main(argv=None) -> int:
         return 0
 
     entries, main_path, scheduling = [], None, None
+    fed_entry = flash_entry = None
     if args.ssm_only:
         t0 = time.perf_counter()
         ssd_entry, ssd_checked = ssd_cases(dev)
@@ -3161,7 +3825,8 @@ def main(argv=None) -> int:
         entry, checked = kernel_phase(dev, rows)
         log(f"kernel phase passed in {time.perf_counter() - t0:.1f}s")
         entry["launches"] = None
-        if not args.kernel_only:
+        fed_entry = entry
+        if not (args.kernel_only or args.training_only):
             t0 = time.perf_counter()
             res = slice_phase(dev, args.devices, args.rounds, checked,
                               args.benchmarking_devices)
@@ -3195,11 +3860,15 @@ def main(argv=None) -> int:
         log(f"attention kernel phase passed in "
             f"{time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
-        ssd_entry, ssd_checked = ssd_cases(dev)
-        log(f"ssd kernel phase passed in {time.perf_counter() - t0:.1f}s")
+        ssd_entry = None
+        if not args.training_only:
+            ssd_entry, ssd_checked = ssd_cases(dev)
+            log(f"ssd kernel phase passed in "
+                f"{time.perf_counter() - t0:.1f}s")
         for e in (dec_entry, flash_entry, ssd_entry):
-            e["launches"] = None
-        if not args.kernel_only:
+            if e is not None:
+                e["launches"] = None
+        if not (args.kernel_only or args.training_only):
             t0 = time.perf_counter()
             srv = serving_phase(dev, dec_checked | flash_checked, card)
             log(f"serving phase passed in {time.perf_counter() - t0:.1f}s")
@@ -3227,7 +3896,8 @@ def main(argv=None) -> int:
             for e in (dec_entry, flash_entry):
                 e["max_abs_err"] = max(e["max_abs_err"],
                                        main_path["max_abs_err"][e["name"]])
-        entries += [dec_entry, flash_entry, ssd_entry]
+        entries += [e for e in (dec_entry, flash_entry, ssd_entry)
+                    if e is not None]
     if scheduling is not None:
         # Phases 13-14, after phase 12 as numbered.
         entry, checked, inline, slice_launches = scheduling
@@ -3245,6 +3915,41 @@ def main(argv=None) -> int:
                               inline, slice_launches, card)
         entry["launches"] += pooled["launches"]
         log(f"pooled phase passed in {time.perf_counter() - t0:.1f}s")
+    if not (args.ssm_only or args.scheduling_only or args.serving_only):
+        # Phases 15-17, last as numbered.
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        bwd_entry, bwd_checked, fwd_err = bwd_phase(dev)
+        bwd_entry["launches"] = None
+        flash_entry["max_abs_err"] = max(flash_entry["max_abs_err"], fwd_err)
+        log(f"backward kernel phase passed in "
+            f"{time.perf_counter() - t0:.1f}s")
+        if not args.kernel_only:
+            start_training_audit()
+            t0 = time.perf_counter()
+            train = training_phase(dev, card)
+            log(f"training phase passed in {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            training_cross_check(dev)
+            log(f"training cross-check passed in "
+                f"{time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            ex = training_examples_phase(dev)
+            log(f"training examples phase passed in "
+                f"{time.perf_counter() - t0:.1f}s")
+            fwd_err, bwd_err = check_training_shapes(dev, bwd_checked)
+            # Each path's own count, read just after it ran.
+            bwd_entry["launches"] = (train["launches"]["flash_attention_bwd"]
+                                     + ex["launches"]["flash_attention_bwd"])
+            bwd_entry["max_abs_err"] = max(bwd_entry["max_abs_err"],
+                                           bwd_err)
+            flash_entry["max_abs_err"] = max(flash_entry["max_abs_err"],
+                                             fwd_err)
+            flash_entry["launches"] = ((flash_entry["launches"] or 0) + train[
+                "launches"]["flash_attention_wgmma"])
+            fed_entry["launches"] = ((fed_entry["launches"] or 0)
+                                     + ex["launches"]["fed_reduce"])
+        entries.append(bwd_entry)
     for e in entries:
         if ptxas.get(e["name"]):
             e["ptxas"] = ptxas[e["name"]]

@@ -1,7 +1,9 @@
-// flash_attention: GQA attention forward (causal with a query offset), for
-// Hopper.  Two kernels, chosen by dtype and head width before any launch:
-// flash_fwd_wgmma_kernel (bf16 at d = 64 or 128, tensor cores) and
-// flash_fwd_kernel (f32, and bf16 at d = 16, 32, 256; plain FMAs).
+// flash_attention: GQA attention forward (causal with a query offset) and
+// its backward, for Hopper.  Two forward kernels, chosen by dtype and head
+// width before any launch: flash_fwd_wgmma_kernel (bf16 at d = 64 or 128,
+// tensor cores) and flash_fwd_kernel (f32, and bf16 at d = 16, 32, 256;
+// plain FMAs).  Either also writes each row's log-sum-exp (lse, (b, h, sq)
+// f32) when the caller passes a buffer for it; serving passes none.
 //
 // Both replace the Pallas TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py (_flash_kernel, l.33,
@@ -100,6 +102,34 @@
 //   * GQA reads K/V of head h / g for any g (3 at llama3.2-3b): nothing is
 //     repeated in memory.  Causal blocks entirely above the diagonal are
 //     never loaded; the key tail past sk is zero-filled and masked.
+//
+// The backward.  There is no Pallas backward kernel to replace: the
+// reference differentiates its lowerable chunked path,
+// src/repro/kernels/flash_attention/ref.py:49 (attention_chunked), with
+// jax.grad.  Given q, k, v, the forward's o and lse, and dO:
+//
+//     P = exp(S - lse), D = rowsum(dO o O), dV = P^T dO, dP = dO V^T,
+//     dS = P o (dP - D), dK = dS^T (q scale), dQ = scale dS K,
+//
+// with dK and dV summed over the g query heads of each KV head.  Three
+// launches: flash_bwd_dot_kernel (D), a dK/dV kernel parallel over 64-key
+// tiles that walks every query tile that sees them for each head of the
+// group, and a dQ kernel parallel over 64-row query tiles.  Each output is
+// written by exactly one block, and the sum over a group stays in that
+// block's f32 registers: no float atomics, so the backward is bitwise
+// repeatable like the forward.  bf16 at d = 64, 128 runs on mma.sync
+// m16n8k16 (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel: ldmatrix
+// from padded shared memory, f32 accumulators, P and dS rounded to bf16 in
+// registers as the next product's A fragments); f32 and the other widths
+// on plain f32 FMAs (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel).
+//
+// Bound at llama3.2-3b's training shape (b = 1, sq = sk = 4096, 24/8 heads
+// of 128, causal, bf16): 10 d flops per causal pair per head, 10 x 128 x
+// 8.39 M x 24 = 257.8 GFLOP, 0.261 ms at 989 TFLOP/s; its bytes (q, o, dO,
+// dQ at 25.2 MB, k, v, dK, dV at 8.4 MB, lse and D) ~135 MB, 0.040 ms at
+// 3.35 TB/s: the flops set it.  The recomputation of S and dP in the dQ
+// kernel makes 7 products per tile pair where the bound counts 5; the
+// design does the rest simply (no TMA, no pipelining across tiles).
 //
 // Plain C interface, loaded through ctypes; each launch goes on the caller's
 // stream and each entry point returns its cudaError_t.
@@ -201,8 +231,9 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst, int dst_stride,
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int sq, int sk,
-                 int h, int kvh, int causal, int q_offset, float scale) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int sq, int sk, int h, int kvh,
+                 int causal, int q_offset, float scale) {
   using L = Layout<T, D>;
   constexpr int KS = L::kstride;
   constexpr int DC = L::dcols;
@@ -338,13 +369,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* o = out + (static_cast<size_t>(bi) * sq + row) * q_stride + static_cast<size_t>(hh) * D;
 #pragma unroll
     for (int j = 0; j < DC; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] * inv_l);
+    // The row's log-sum-exp for the backward (every lane of the row holds m
+    // and l after the reductions).
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(bi) * h + hh) * sq + row] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int b, int sq, int sk, int h, int kvh, int causal,
-                   int q_offset, float scale, cudaStream_t stream) {
+                   float* lse, int b, int sq, int sk, int h, int kvh,
+                   int causal, int q_offset, float scale,
+                   cudaStream_t stream) {
   using L = Layout<T, D>;
   static bool smem_set = false;
   if (!smem_set) {
@@ -358,27 +394,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                   static_cast<unsigned>(h), static_cast<unsigned>(b));
   flash_fwd_kernel<T, D><<<grid, THREADS, L::smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, sk, h, kvh, causal,
-      q_offset, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, sk, h, kvh,
+      causal, q_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       void* out, int b, int sq, int sk, int h, int kvh,
-                       int causal, int q_offset, float scale,
+                       void* out, float* lse, int b, int sq, int sk, int h,
+                       int kvh, int causal, int q_offset, float scale,
                        cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch<T, 16>(q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+      return launch<T, 16>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+      return launch<T, 32>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+      return launch<T, 64>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+      return launch<T, 128>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+      return launch<T, 256>(q, k, v, out, lse, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -580,8 +616,9 @@ __global__ void __launch_bounds__(Layout<D>::threads, 2)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
-                       __nv_bfloat16* __restrict__ out, int sq, int sk, int h,
-                       int g, int causal, int q_offset, float scale) {
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                       int sq, int sk, int h, int g, int causal, int q_offset,
+                       float scale) {
   using L = Layout<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -797,6 +834,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + c2) =
           __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
+  // The rows' log-sum-exp for the backward: every lane of a quad holds its
+  // two rows' m and l after the shuffles; the first writes them.
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* dst = lse + (static_cast<size_t>(bi) * h + hh) * sq;
+    if (row0 < sq) dst[row0] = m0 + logf(l0);
+    if (row1 < sq) dst[row1] = m1 + logf(l1);
+  }
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -843,9 +887,10 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int b,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b,
-                   int sq, int sk, int h, int kvh, int causal, int q_offset,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   float* lse, int b, int sq, int sk, int h, int kvh,
+                   int causal, int q_offset, float scale,
+                   cudaStream_t stream) {
   using L = Layout<D>;
   static bool smem_set = false;
   if (!smem_set) {
@@ -866,21 +911,815 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   const dim3 grid(static_cast<unsigned>((sq + L::bm - 1) / L::bm),
                   static_cast<unsigned>(h), static_cast<unsigned>(b));
   flash_fwd_wgmma_kernel<D><<<grid, L::threads, L::smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), sq, sk, h, h / kvh,
-      causal, q_offset, scale);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, sq, sk, h,
+      h / kvh, causal, q_offset, scale);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
+// --------------------------------------------------------------------------
+// The backward on plain FMAs: flash_bwd_dot_kernel, flash_bwd_dkdv_kernel
+// and flash_bwd_dq_kernel, f32 from shared memory, for f32 and bf16 at d =
+// 16, 32, 64, 128.
+
+namespace bwd {
+
+constexpr int BR = 64;             // query rows or keys per tile
+constexpr int SSTRIDE = BR + 1;    // f32 score tiles, padded
+
+template <typename T, int D>
+struct Layout {
+  // Every operand tile is 64 rows padded to an odd number of 32-bit words,
+  // so 16 lanes reading one column of 16 rows hit 16 banks, and the two
+  // rows a warp's two lane groups broadcast hit two.
+  static constexpr int pad = D + (sizeof(T) == 2 ? 2 : 1);
+  static constexpr size_t tile =
+      ((static_cast<size_t>(BR) * pad * sizeof(T)) + 15) / 16 * 16;
+  static constexpr size_t stile = static_cast<size_t>(BR) * SSTRIDE * sizeof(float);
+  // dK/dV: K, V, Q, dO tiles, P^T and dS^T, the query tile's lse and D.
+  static constexpr size_t kv_smem = 4 * tile + 2 * stile + 2 * BR * sizeof(float);
+  // dQ: Q, dO, K, V tiles and dS.
+  static constexpr size_t q_smem = 4 * tile + stile;
+  static constexpr int dcols = D / 16;  // output columns per thread
+};
+
+// D[b, h, i] = sum_c dO[b, i, h, c] O[b, i, h, c] in f32: one warp per
+// (b, i, h) row, in memory order; D is laid out (b, h, sq) like lse.
+template <typename T>
+__global__ void flash_bwd_dot_kernel(const T* __restrict__ o,
+                                     const T* __restrict__ dout,
+                                     float* __restrict__ delta, int rows,
+                                     int d, int sq, int h) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* op = o + static_cast<size_t>(row) * d;
+  const T* gp = dout + static_cast<size_t>(row) * d;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) acc = fmaf(to_f32<T>(op[c]), to_f32<T>(gp[c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int hh = row % h;
+    const int rest = row / h;
+    const int i = rest % sq;
+    const int bi = rest / sq;
+    delta[(static_cast<size_t>(bi) * h + hh) * sq + i] = acc;
+  }
+}
+
+// 16 x 16 products of the tiles' rows a (a_row0 + 16 i) and b (b_row0 +
+// 16 j) over D columns, added to acc; both tiles with row stride P.
+template <typename T, int D, int P>
+__device__ __forceinline__ void tile_dots(float (&acc)[4][4], const T* __restrict__ a,
+                                          int a_row0, const T* __restrict__ b,
+                                          int b_row0) {
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll 4
+    for (int dd = 0; dd < D; dd += 2) {
+      float2 av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        av[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a + (a_row0 + 16 * i) * P + dd));
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bv[j] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + (b_row0 + 16 * j) * P + dd));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+        }
+    }
+  } else {
+#pragma unroll 4
+    for (int dd = 0; dd < D; ++dd) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = to_f32<T>(a[(a_row0 + 16 * i) * P + dd]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = to_f32<T>(b[(b_row0 + 16 * j) * P + dd]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
+// Grid (key tiles, KV heads, batch).  A block holds one 64-key K/V tile and
+// its dK and dV in registers (thread (tx, ty): keys ty + 16 i, columns tx +
+// 16 j), and walks every query tile that sees those keys, for each of the g
+// query heads of the KV head: S^T = K (Q * scale)^T and dP^T = V dO^T from
+// shared memory, P^T = exp(S^T - lse) and dS^T = P^T (dP^T - D) into
+// shared memory, then dV += P^T dO and dK += dS^T (Q * scale).  The sum
+// over the group stays in the block, in f32: no atomics.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int h,
+                      int kvh, int causal, int q_offset, float scale) {
+  using L = Layout<T, D>;
+  constexpr int P = L::pad;
+  constexpr int DC = L::dcols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);
+  T* v_s = reinterpret_cast<T*>(smem_raw + L::tile);
+  T* q_s = reinterpret_cast<T*>(smem_raw + 2 * L::tile);
+  T* g_s = reinterpret_cast<T*>(smem_raw + 3 * L::tile);
+  float* p_s = reinterpret_cast<float*>(smem_raw + 4 * L::tile);
+  float* ds_s = p_s + BR * SSTRIDE;
+  float* lse_s = ds_s + BR * SSTRIDE;
+  float* d_s = lse_s + BR;
+
+  const int k0 = blockIdx.x * BR;
+  const int hk = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int g = h / kvh;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const size_t q_stride = static_cast<size_t>(h) * D;
+  const size_t kv_stride = static_cast<size_t>(kvh) * D;
+  const size_t kv_base = static_cast<size_t>(bi) * sk * kv_stride + static_cast<size_t>(hk) * D;
+
+  load_tile<T, D, false>(k_s, P, k + kv_base, kv_stride, k0, sk, 0.f);
+  load_tile<T, D, false>(v_s, P, v + kv_base, kv_stride, k0, sk, 0.f);
+
+  float dk_acc[4][DC], dv_acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  const int nq = (sq + BR - 1) / BR;
+  // Query row i sees key k0 iff q_offset + i >= k0: earlier tiles see none
+  // of this block's keys.
+  const int q_first = causal ? max(0, k0 - q_offset) / BR : 0;
+  for (int hg = 0; hg < g; ++hg) {
+    const int hh = hk * g + hg;
+    const size_t q_base = static_cast<size_t>(bi) * sq * q_stride + static_cast<size_t>(hh) * D;
+    const float* lse_row = lse + (static_cast<size_t>(bi) * h + hh) * sq;
+    const float* d_row = delta + (static_cast<size_t>(bi) * h + hh) * sq;
+    for (int qb = q_first; qb < nq; ++qb) {
+      const int q0 = qb * BR;
+      __syncthreads();  // the previous query tile is consumed
+      load_tile<T, D, true>(q_s, P, q + q_base, q_stride, q0, sq, scale);
+      load_tile<T, D, false>(g_s, P, dout + q_base, q_stride, q0, sq, 0.f);
+      if (threadIdx.x < BR) {
+        const int r = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = r < sq ? lse_row[r] : 0.f;
+        d_s[threadIdx.x] = r < sq ? d_row[r] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      tile_dots<T, D, P>(s, k_s, ty, q_s, tx);
+      tile_dots<T, D, P>(dp, v_s, ty, g_s, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qi = q0 + tx + 16 * j;
+          const bool valid = key < sk && qi < sq && (!causal || q_offset + qi >= key);
+          const float p = valid ? expf(s[i][j] - lse_s[tx + 16 * j]) : 0.f;
+          p_s[(ty + 16 * i) * SSTRIDE + tx + 16 * j] = p;
+          ds_s[(ty + 16 * i) * SSTRIDE + tx + 16 * j] = p * (dp[i][j] - d_s[tx + 16 * j]);
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int c = 0; c < BR; ++c) {
+        float gv[DC], qv[DC];
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+          gv[j] = to_f32<T>(g_s[c * P + tx + 16 * j]);
+          qv[j] = to_f32<T>(q_s[c * P + tx + 16 * j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = p_s[(ty + 16 * i) * SSTRIDE + c];
+          const float ds = ds_s[(ty + 16 * i) * SSTRIDE + c];
+#pragma unroll
+          for (int j = 0; j < DC; ++j) {
+            dv_acc[i][j] = fmaf(p, gv[j], dv_acc[i][j]);
+            dk_acc[i][j] = fmaf(ds, qv[j], dk_acc[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= sk) continue;
+    const size_t off = kv_base + static_cast<size_t>(key) * kv_stride;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      dk[off + tx + 16 * j] = from_f32<T>(dk_acc[i][j]);
+      dv[off + tx + 16 * j] = from_f32<T>(dv_acc[i][j]);
+    }
+  }
+}
+
+// Grid (query tiles, query heads, batch).  A block holds one 64-row query
+// tile and its dQ in registers (thread (tx, ty): rows ty + 16 i, columns tx
+// + 16 j) and walks the key tiles its rows see: S and dP from shared
+// memory, dS = P (dP - D) into shared memory, dQ += dS K; dQ = scale dQ.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, int sq, int sk, int h, int kvh, int causal,
+                    int q_offset, float scale) {
+  using L = Layout<T, D>;
+  constexpr int P = L::pad;
+  constexpr int DC = L::dcols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* g_s = reinterpret_cast<T*>(smem_raw + L::tile);
+  T* k_s = reinterpret_cast<T*>(smem_raw + 2 * L::tile);
+  T* v_s = reinterpret_cast<T*>(smem_raw + 3 * L::tile);
+  float* ds_s = reinterpret_cast<float*>(smem_raw + 4 * L::tile);
+
+  const int q0 = blockIdx.x * BR;
+  const int hh = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int hk = hh / (h / kvh);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const size_t q_stride = static_cast<size_t>(h) * D;
+  const size_t kv_stride = static_cast<size_t>(kvh) * D;
+  const size_t q_base = static_cast<size_t>(bi) * sq * q_stride + static_cast<size_t>(hh) * D;
+  const size_t kv_base = static_cast<size_t>(bi) * sk * kv_stride + static_cast<size_t>(hk) * D;
+
+  load_tile<T, D, true>(q_s, P, q + q_base, q_stride, q0, sq, scale);
+  load_tile<T, D, false>(g_s, P, dout + q_base, q_stride, q0, sq, 0.f);
+  const float* lse_row = lse + (static_cast<size_t>(bi) * h + hh) * sq;
+  const float* d_row = delta + (static_cast<size_t>(bi) * h + hh) * sq;
+  float lse_r[4], d_r[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    lse_r[i] = r < sq ? lse_row[r] : 0.f;
+    d_r[i] = r < sq ? d_row[r] : 0.f;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+  }
+
+  const int nk = (sk + BR - 1) / BR;
+  const int n_blocks = causal ? min(nk, max(0, (q_offset + q0 + BR - 1) / BR + 1)) : nk;
+  for (int kb = 0; kb < n_blocks; ++kb) {
+    const int k0 = kb * BR;
+    __syncthreads();  // the previous key tile is consumed
+    load_tile<T, D, false>(k_s, P, k + kv_base, kv_stride, k0, sk, 0.f);
+    load_tile<T, D, false>(v_s, P, v + kv_base, kv_stride, k0, sk, 0.f);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    tile_dots<T, D, P>(s, q_s, ty, k_s, tx);
+    tile_dots<T, D, P>(dp, g_s, ty, v_s, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        const bool valid = key < sk && qi < sq && (!causal || q_offset + qi >= key);
+        const float p = valid ? expf(s[i][j] - lse_r[i]) : 0.f;
+        ds_s[(ty + 16 * i) * SSTRIDE + tx + 16 * j] = p * (dp[i][j] - d_r[i]);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < BR; ++c) {
+      float kv_[DC];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) kv_[j] = to_f32<T>(k_s[c * P + tx + 16 * j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ds = ds_s[(ty + 16 * i) * SSTRIDE + c];
+#pragma unroll
+        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(ds, kv_[j], acc[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= sq) continue;
+    T* o = dq + q_base + static_cast<size_t>(row) * q_stride;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) o[tx + 16 * j] = from_f32<T>(acc[i][j] * scale);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
+                   const float* lse, const void* dout, void* dq, void* dk,
+                   void* dv, float* delta, int b, int sq, int sk, int h,
+                   int kvh, int causal, int q_offset, float scale,
+                   cudaStream_t stream) {
+  using L = Layout<T, D>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kv_smem));
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L::q_smem));
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dout);
+  const int rows = b * sq * h;
+  flash_bwd_dot_kernel<T><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const T*>(o), gt, delta, rows, D, sq, h);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 kv_grid(static_cast<unsigned>((sk + BR - 1) / BR),
+                     static_cast<unsigned>(kvh), static_cast<unsigned>(b));
+  flash_bwd_dkdv_kernel<T, D><<<kv_grid, THREADS, L::kv_smem, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
+      h, kvh, causal, q_offset, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 q_grid(static_cast<unsigned>((sq + BR - 1) / BR),
+                    static_cast<unsigned>(h), static_cast<unsigned>(b));
+  flash_bwd_dq_kernel<T, D><<<q_grid, THREADS, L::q_smem, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), sq, sk, h, kvh, causal,
+      q_offset, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
+                       const void* o, const float* lse, const void* dout,
+                       void* dq, void* dk, void* dv, float* delta, int b, int sq,
+                       int sk, int h, int kvh, int causal, int q_offset,
+                       float scale, cudaStream_t stream) {
+  switch (d) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+    case 32:
+      return launch<T, 32>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
+
+// --------------------------------------------------------------------------
+// The backward on the tensor cores for bf16 at d = 64, 128:
+// flash_bwd_dkdv_mma_kernel and flash_bwd_dq_mma_kernel (after the same
+// flash_bwd_dot_kernel).  The same passes as the plain-FMA kernels above,
+// with every product on mma.sync m16n8k16 (bf16 operands, f32
+// accumulators), operands from padded shared memory through ldmatrix, and
+// P and dS rounded to bf16 in registers, where the accumulator's layout is
+// already the next product's A-fragment layout.
+
+namespace mma_bwd {
+
+using bf16 = __nv_bfloat16;
+constexpr int WARPS = 4;
+constexpr int NT = WARPS * 32;
+constexpr int BKEY = 64;  // keys per dK/dV block and per dQ key tile
+constexpr int BQR = 64;   // query rows per dQ block
+
+template <int D>
+struct Cfg {
+  static constexpr int SP = D + 8;  // row stride (bf16): 16 bytes of pad
+  // Query rows per dK/dV step: 32 at d = 128 keeps dK, dV, S^T and dP^T
+  // (160 f32 a thread) in registers.
+  static constexpr int BQ = D == 128 ? 32 : 64;
+  static constexpr size_t kv_smem =
+      (static_cast<size_t>(2 * BKEY + 2 * BQ) * SP) * sizeof(bf16) + 2 * BQ * sizeof(float);
+  static constexpr size_t q_smem = static_cast<size_t>(2 * BQR + 2 * BKEY) * SP * sizeof(bf16);
+};
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16).
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// Lane addresses for ldmatrix.x4 over a tile with row stride SP:
+// the A fragment of rows r0..r0+15, columns c0..c0+15 (row-major A);
+template <int SP>
+__device__ __forceinline__ uint32_t a_addr(uint32_t base, int r0, int c0) {
+  const int l = threadIdx.x & 31, j = l >> 3;
+  return base + ((r0 + (l & 7) + ((j & 1) << 3)) * SP + c0 + ((j >> 1) << 3)) * 2;
+}
+// B fragments of n-tiles n0 and n0 + 8 over k = c0..c0+15 where the tile
+// holds B transposed (row n, column k): regs b0, b1 of n0, then of n0 + 8;
+template <int SP>
+__device__ __forceinline__ uint32_t bt_addr(uint32_t base, int n0, int c0) {
+  const int l = threadIdx.x & 31, j = l >> 3;
+  return base + ((n0 + (l & 7) + ((j >> 1) << 3)) * SP + c0 + ((j & 1) << 3)) * 2;
+}
+// and the same where the tile holds B as it is (row k, column n), loaded
+// with .trans.
+template <int SP>
+__device__ __forceinline__ uint32_t bn_addr(uint32_t base, int k0, int n0) {
+  const int l = threadIdx.x & 31, j = l >> 3;
+  return base + ((k0 + (l & 7) + ((j & 1) << 3)) * SP + n0 + ((j >> 1) << 3)) * 2;
+}
+
+// Rows [r0, r0 + ROWS) of a (rows, heads, D) bf16 slab into shared memory
+// with row stride D + 8; rows >= n_rows are zero.  SCALE: times scale,
+// rounded back to bf16 (the query tile, as the forward rounds it).
+template <int D, int ROWS, bool SCALE>
+__device__ __forceinline__ void load_rows(bf16* __restrict__ dst,
+                                          const bf16* __restrict__ src, size_t stride,
+                                          int r0, int n_rows, float scale) {
+  constexpr int CPR = D / 8;
+  constexpr int SP = D + 8;
+  for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
+    const int r = c / CPR;
+    const int cc = c - r * CPR;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < n_rows) {
+      raw = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * stride + cc * 8));
+      if constexpr (SCALE) {
+        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(e[i]);
+          e[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * SP + cc * 8) = raw;
+  }
+}
+
+// Grid (key tiles of 64, KV heads, batch); warp w owns keys 16 w .. 16 w +
+// 15 of the tile and their dK, dV rows.  For each query head of the group
+// and each query tile of BQ rows that sees the keys: S^T = K (Q scale)^T
+// and dP^T = V dO^T (16 keys x BQ a warp), P^T = exp(S^T - lse) and dS^T =
+// P^T (dP^T - D) in registers, dV += P^T dO and dK += dS^T (Q scale).
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                          int h, int kvh, int causal, int q_offset, float scale) {
+  using C = Cfg<D>;
+  constexpr int SP = C::SP;
+  constexpr int BQ = C::BQ;
+  constexpr int NQ = BQ / 8;  // query n-tiles of S^T
+  constexpr int ND = D / 8;   // d n-tiles of dK, dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + BKEY * SP;
+  bf16* q_s = v_s + BKEY * SP;
+  bf16* g_s = q_s + BQ * SP;
+  float* lse_s = reinterpret_cast<float*>(g_s + BQ * SP);
+  float* d_s = lse_s + BQ;
+
+  const int k0 = blockIdx.x * BKEY;
+  const int hk = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int g = h / kvh;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int kr0 = warp * 16;
+  const int key0 = k0 + kr0 + gq;
+  const int key1 = key0 + 8;
+  const size_t q_stride = static_cast<size_t>(h) * D;
+  const size_t kv_stride = static_cast<size_t>(kvh) * D;
+  const size_t kv_base = static_cast<size_t>(bi) * sk * kv_stride + static_cast<size_t>(hk) * D;
+
+  load_rows<D, BKEY, false>(k_s, k + kv_base, kv_stride, k0, sk, 0.f);
+  load_rows<D, BKEY, false>(v_s, v + kv_base, kv_stride, k0, sk, 0.f);
+  const uint32_t ks = saddr(k_s), vs = saddr(v_s), qs = saddr(q_s), gs = saddr(g_s);
+
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  const int nq = (sq + BQ - 1) / BQ;
+  const int q_first = causal ? max(0, k0 - q_offset) / BQ : 0;
+  for (int hg = 0; hg < g; ++hg) {
+    const int hh = hk * g + hg;
+    const size_t q_base = static_cast<size_t>(bi) * sq * q_stride + static_cast<size_t>(hh) * D;
+    const float* lse_row = lse + (static_cast<size_t>(bi) * h + hh) * sq;
+    const float* d_row = delta + (static_cast<size_t>(bi) * h + hh) * sq;
+    for (int qb = q_first; qb < nq; ++qb) {
+      const int q0 = qb * BQ;
+      __syncthreads();  // the previous query tile is consumed
+      load_rows<D, BQ, true>(q_s, q + q_base, q_stride, q0, sq, scale);
+      load_rows<D, BQ, false>(g_s, dout + q_base, q_stride, q0, sq, 0.f);
+      if (threadIdx.x < BQ) {
+        const int r = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = r < sq ? lse_row[r] : 0.f;
+        d_s[threadIdx.x] = r < sq ? d_row[r] : 0.f;
+      }
+      __syncthreads();
+
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        ldsm_x4(ak, a_addr<SP>(ks, kr0, 16 * kk));
+        ldsm_x4(av, a_addr<SP>(vs, kr0, 16 * kk));
+#pragma unroll
+        for (int nj = 0; nj < NQ / 2; ++nj) {
+          uint32_t bq[4], bg[4];
+          ldsm_x4(bq, bt_addr<SP>(qs, 16 * nj, 16 * kk));
+          ldsm_x4(bg, bt_addr<SP>(gs, 16 * nj, 16 * kk));
+          mma16816(s[2 * nj], ak, bq[0], bq[1]);
+          mma16816(s[2 * nj + 1], ak, bq[2], bq[3]);
+          mma16816(dp[2 * nj], av, bg[0], bg[1]);
+          mma16816(dp[2 * nj + 1], av, bg[2], bg[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 8 * j + 2 * tq + (e & 1);
+          const int qi = q0 + ql;
+          const int key = (e & 2) ? key1 : key0;
+          const bool valid = key < sk && qi < sq && (!causal || q_offset + qi >= key);
+          const float p = valid ? expf(s[j][e] - lse_s[ql]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - d_s[ql]);
+        }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint32_t ap[4] = {pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
+                                pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const uint32_t ad[4] = {pack2(dp[2 * kk][0], dp[2 * kk][1]), pack2(dp[2 * kk][2], dp[2 * kk][3]),
+                                pack2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                                pack2(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+        for (int nd = 0; nd < ND / 2; ++nd) {
+          uint32_t bg[4], bq[4];
+          ldsm_x4_t(bg, bn_addr<SP>(gs, 16 * kk, 16 * nd));
+          ldsm_x4_t(bq, bn_addr<SP>(qs, 16 * kk, 16 * nd));
+          mma16816(dv_acc[2 * nd], ap, bg[0], bg[1]);
+          mma16816(dv_acc[2 * nd + 1], ap, bg[2], bg[3]);
+          mma16816(dk_acc[2 * nd], ad, bq[0], bq[1]);
+          mma16816(dk_acc[2 * nd + 1], ad, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key1 : key0;
+    if (key >= sk) continue;
+    const size_t off = kv_base + static_cast<size_t>(key) * kv_stride;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int c = 8 * j + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + c) =
+          __floats2bfloat162_rn(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + c) =
+          __floats2bfloat162_rn(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
+    }
+  }
+}
+
+// Grid (query tiles of 64, query heads, batch); warp w owns rows 16 w ..
+// 16 w + 15 of the tile and their dQ.  For each key tile the rows see: S
+// = (Q scale) K^T and dP = dO V^T, P and dS = P (dP - D) in registers, dQ
+// += dS K; dQ = scale dQ.
+template <int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int sq, int sk, int h, int kvh, int causal,
+                        int q_offset, float scale) {
+  using C = Cfg<D>;
+  constexpr int SP = C::SP;
+  constexpr int NK = BKEY / 8;  // key n-tiles of S
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* g_s = q_s + BQR * SP;
+  bf16* k_s = g_s + BQR * SP;
+  bf16* v_s = k_s + BKEY * SP;
+
+  const int q0 = blockIdx.x * BQR;
+  const int hh = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int hk = hh / (h / kvh);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int qr0 = warp * 16;
+  const int row0 = q0 + qr0 + gq;
+  const int row1 = row0 + 8;
+  const size_t q_stride = static_cast<size_t>(h) * D;
+  const size_t kv_stride = static_cast<size_t>(kvh) * D;
+  const size_t q_base = static_cast<size_t>(bi) * sq * q_stride + static_cast<size_t>(hh) * D;
+  const size_t kv_base = static_cast<size_t>(bi) * sk * kv_stride + static_cast<size_t>(hk) * D;
+
+  load_rows<D, BQR, true>(q_s, q + q_base, q_stride, q0, sq, scale);
+  load_rows<D, BQR, false>(g_s, dout + q_base, q_stride, q0, sq, 0.f);
+  const float* lse_row = lse + (static_cast<size_t>(bi) * h + hh) * sq;
+  const float* d_row = delta + (static_cast<size_t>(bi) * h + hh) * sq;
+  const float lse0 = row0 < sq ? lse_row[row0] : 0.f;
+  const float lse1 = row1 < sq ? lse_row[row1] : 0.f;
+  const float d0 = row0 < sq ? d_row[row0] : 0.f;
+  const float d1 = row1 < sq ? d_row[row1] : 0.f;
+  const uint32_t qs = saddr(q_s), gs = saddr(g_s), ks = saddr(k_s), vs = saddr(v_s);
+
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int nk = (sk + BKEY - 1) / BKEY;
+  const int n_blocks = causal ? min(nk, max(0, (q_offset + q0 + BQR - 1) / BKEY + 1)) : nk;
+  for (int kb = 0; kb < n_blocks; ++kb) {
+    const int k0 = kb * BKEY;
+    __syncthreads();  // the previous key tile is consumed
+    load_rows<D, BKEY, false>(k_s, k + kv_base, kv_stride, k0, sk, 0.f);
+    load_rows<D, BKEY, false>(v_s, v + kv_base, kv_stride, k0, sk, 0.f);
+    __syncthreads();
+
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ag[4];
+      ldsm_x4(aq, a_addr<SP>(qs, qr0, 16 * kk));
+      ldsm_x4(ag, a_addr<SP>(gs, qr0, 16 * kk));
+#pragma unroll
+      for (int nj = 0; nj < NK / 2; ++nj) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, bt_addr<SP>(ks, 16 * nj, 16 * kk));
+        ldsm_x4(bv, bt_addr<SP>(vs, 16 * nj, 16 * kk));
+        mma16816(s[2 * nj], aq, bk[0], bk[1]);
+        mma16816(s[2 * nj + 1], aq, bk[2], bk[3]);
+        mma16816(dp[2 * nj], ag, bv[0], bv[1]);
+        mma16816(dp[2 * nj + 1], ag, bv[2], bv[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * tq + (e & 1);
+        const int row = (e & 2) ? row1 : row0;
+        const bool valid = key < sk && row < sq && (!causal || q_offset + row >= key);
+        const float p = valid ? expf(s[j][e] - ((e & 2) ? lse1 : lse0)) : 0.f;
+        dp[j][e] = p * (dp[j][e] - ((e & 2) ? d1 : d0));
+      }
+#pragma unroll
+    for (int kk = 0; kk < BKEY / 16; ++kk) {
+      const uint32_t ad[4] = {pack2(dp[2 * kk][0], dp[2 * kk][1]), pack2(dp[2 * kk][2], dp[2 * kk][3]),
+                              pack2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              pack2(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int nd = 0; nd < ND / 2; ++nd) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, bn_addr<SP>(ks, 16 * kk, 16 * nd));
+        mma16816(acc[2 * nd], ad, bk[0], bk[1]);
+        mma16816(acc[2 * nd + 1], ad, bk[2], bk[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row1 : row0;
+    if (row >= sq) continue;
+    bf16* o = dq + q_base + static_cast<size_t>(row) * q_stride;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
+                   const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                   float* delta, int b, int sq, int sk, int h, int kvh, int causal,
+                   int q_offset, float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::kv_smem));
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C::q_smem));
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(dout);
+  const int rows = b * sq * h;
+  bwd::flash_bwd_dot_kernel<bf16><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const bf16*>(o), gt, delta, rows, D, sq, h);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 kv_grid(static_cast<unsigned>((sk + BKEY - 1) / BKEY),
+                     static_cast<unsigned>(kvh), static_cast<unsigned>(b));
+  flash_bwd_dkdv_mma_kernel<D><<<kv_grid, NT, C::kv_smem, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, h,
+      kvh, causal, q_offset, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 q_grid(static_cast<unsigned>((sq + BQR - 1) / BQR),
+                    static_cast<unsigned>(h), static_cast<unsigned>(b));
+  flash_bwd_dq_mma_kernel<D><<<q_grid, NT, C::q_smem, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), sq, sk, h, kvh, causal, q_offset,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace mma_bwd
+
 }  // namespace
+
 
 // q: (b, sq, h, d); k, v: (b, sk, kv, d); out: (b, sq, h, d); contiguous,
 // 16-byte aligned, h a multiple of kv.  dtype: 0 = float32, 1 = bfloat16.
+// lse: (b, h, sq) f32 or null; when given, each row's log-sum-exp of its
+// scaled scores is written there (the backward's input).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int dtype,
-                                      int b, int sq, int sk, int h, int kvh,
-                                      int d, int causal, int q_offset,
+                                      const void* v, void* out, void* lse,
+                                      int dtype, int b, int sq, int sk, int h,
+                                      int kvh, int d, int causal, int q_offset,
                                       float scale, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || h < kvh || h % kvh != 0 ||
@@ -889,9 +1728,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   }
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = dispatch_d<float>(d, q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+    err = dispatch_d<float>(d, q, k, v, out, static_cast<float*>(lse), b, sq, sk, h, kvh, causal, q_offset, scale, stream);
   } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(d, q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+    err = dispatch_d<__nv_bfloat16>(d, q, k, v, out, static_cast<float*>(lse), b, sq, sk, h, kvh, causal, q_offset, scale, stream);
   }
   return static_cast<int>(err);
 }
@@ -900,10 +1739,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // contiguous, 16-byte aligned, d 64 or 128, h a multiple of kv.  The
 // tensor-core kernel; flash_attention_launch takes everything else.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
-                                            const void* v, void* out, int b,
-                                            int sq, int sk, int h, int kvh,
-                                            int d, int causal, int q_offset,
-                                            float scale, void* stream_ptr) {
+                                            const void* v, void* out, void* lse,
+                                            int b, int sq, int sk, int h,
+                                            int kvh, int d, int causal,
+                                            int q_offset, float scale,
+                                            void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || h < kvh || h % kvh != 0 ||
       h > 65535 || b > 65535 || q_offset < 0) {
@@ -911,9 +1751,58 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
   }
   cudaError_t err = cudaErrorInvalidValue;
   if (d == 64) {
-    err = tc::launch<64>(q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+    err = tc::launch<64>(q, k, v, out, static_cast<float*>(lse), b, sq, sk, h, kvh, causal, q_offset, scale, stream);
   } else if (d == 128) {
-    err = tc::launch<128>(q, k, v, out, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+    err = tc::launch<128>(q, k, v, out, static_cast<float*>(lse), b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+  }
+  return static_cast<int>(err);
+}
+
+// The backward of the forward above: q, o, dout, dq: (b, sq, h, d); k, v,
+// dk, dv: (b, sk, kv, d); lse and delta (scratch, written here): (b, h, sq)
+// f32; contiguous, 16-byte aligned, h a multiple of kv, d in 16, 32, 64,
+// 128.  dtype: 0 = float32, 1 = bfloat16.  Three launches on the stream:
+// D = rowsum(dO o O), then dK/dV, then dQ.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* delta, int dtype, int b, int sq, int sk, int h, int kvh, int d,
+    int causal, int q_offset, float scale, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || h < kvh || h % kvh != 0 ||
+      h > 65535 || b > 65535 || q_offset < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = bwd::dispatch_d<float>(d, q, k, v, o, l, dout, dq, dk, dv, dl, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+  } else if (dtype == 1) {
+    err = bwd::dispatch_d<__nv_bfloat16>(d, q, k, v, o, l, dout, dq, dk, dv, dl, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+  }
+  return static_cast<int>(err);
+}
+
+// The backward's tensor-core kernels: bf16 only, d 64 or 128; otherwise as
+// flash_attention_bwd_launch (which takes everything, on plain FMAs).
+extern "C" int flash_attention_bwd_mma_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* delta, int b, int sq, int sk, int h, int kvh, int d, int causal,
+    int q_offset, float scale, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || h < kvh || h % kvh != 0 ||
+      h > 65535 || b > 65535 || q_offset < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (d == 64) {
+    err = mma_bwd::launch<64>(q, k, v, o, l, dout, dq, dk, dv, dl, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+  } else if (d == 128) {
+    err = mma_bwd::launch<128>(q, k, v, o, l, dout, dq, dk, dv, dl, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
   }
   return static_cast<int>(err);
 }

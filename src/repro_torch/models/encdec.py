@@ -17,8 +17,12 @@ Layers are Python lists of per-layer param dicts (:func:`params_from_numpy`
 unstacks the reference's scanned layers).  The cache follows the port's
 transformer: stacked ``(num_layers, b, max_len, kv, hd)`` K/V written in
 place at a host int ``pos``, plus stacked ``(num_layers, b, s_src, kv, hd)``
-cross K/V (``xk``/``xv``).  ``loss_fn`` waits for LM training (ROADMAP
-P12).
+cross K/V (``xk``/``xv``).  ``loss_fn`` is the teacher-forced
+cross-entropy; with ``remat`` every encoder and decoder layer is
+checkpointed (``torch.utils.checkpoint``, non-reentrant), as the reference
+wraps them in ``jax.checkpoint``.  Its attention is non-causal in the
+encoder and, with ``sq != sk``, in the cross-attention, so training runs
+the flash backward off the causal path too.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.device import resolve_device
@@ -38,6 +43,7 @@ from repro_torch.models.layers import (
     _project_qkv,
     attention_decode,
     attention_init,
+    cross_entropy,
     embed_apply,
     embed_init,
     mlp_apply,
@@ -80,20 +86,29 @@ def init(generator, cfg: ModelConfig, *, device="cuda") -> Params:
     }
 
 
-def encode(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig
-           ) -> torch.Tensor:
+def _enc_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    hn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(lp["attn"], hn, cfg)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = _attend(q, k, v, cfg, causal=False)  # bidirectional
+    x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
+    return x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
+
+
+def encode(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig, *,
+           remat: bool = False) -> torch.Tensor:
     """src_embeds: (b, s_src, d) precomputed frontend embeddings."""
     x = src_embeds.to(tfm.dtype_of(cfg))
-    b, s, _ = x.shape
     positions = _positions(x)
     for lp in params["encoder"]:
-        hn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = _project_qkv(lp["attn"], hn, cfg)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        o = _attend(q, k, v, cfg, causal=False)  # bidirectional
-        x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
-        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
+        if remat:
+            x = checkpoint(_enc_layer, lp, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _enc_layer(lp, x, cfg, positions)
     return rmsnorm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -125,15 +140,36 @@ def _dec_layer(lp: Params, x: torch.Tensor, memory: torch.Tensor,
     return x, k, v, mk, mv
 
 
+def _dec_layer_x(lp: Params, x: torch.Tensor, memory: torch.Tensor,
+                 cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    return _dec_layer(lp, x, memory, cfg, positions)[0]
+
+
 def decode_train(params: Params, tokens: torch.Tensor, memory: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, *, remat: bool = False) -> torch.Tensor:
     """Teacher-forced decoder forward: logits (b, s, padded_vocab) f32."""
     x = embed_apply(params["embed"], tokens)
     positions = _positions(x)
     for lp in params["decoder"]:
-        x = _dec_layer(lp, x, memory, cfg, positions)[0]
+        if remat:
+            x = checkpoint(_dec_layer_x, lp, x, memory, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _dec_layer_x(lp, x, memory, cfg, positions)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return unembed_apply(params["embed"], x)
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
+            remat: bool = True) -> tuple[torch.Tensor, dict]:
+    """Cross-entropy of the decoder's teacher-forced logits against
+    ``batch["targets"]`` under ``batch["mask"]``, the source frames
+    ``batch["src_embeds"]`` encoded first; returns ``(ce, {"ce"})``."""
+    memory = encode(params, batch["src_embeds"], cfg, remat=remat)
+    logits = decode_train(params, batch["tokens"], memory, cfg, remat=remat)
+    ce = cross_entropy(logits, batch["targets"], batch["mask"],
+                       cfg.vocab_size)
+    return ce, {"ce": ce}
 
 
 # --------------------------------------------------------------------------- #

@@ -10,7 +10,8 @@ Conventions, as in the reference package:
   code serves prefill and decode.
 
 Attention routes to the port's kernels: ``_attend`` to ``flash_attention``
-(the CUDA kernel on a card) and ``attention_decode`` to
+(the CUDA kernel on a card; :class:`FlashAttention`, with the backward
+kernel, when gradients flow) and ``attention_decode`` to
 ``decode_attention``.  ``cfg.attention_impl="einsum"`` (or ``"ref"``) asks
 for the plain versions of both, on any device.  There is no sharding on one
 card, so the reference's ``constrain`` calls have no counterpart.
@@ -24,7 +25,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    FlashAttention,
+    flash_attention,
+)
 from repro_torch.kernels.flash_attention.ref import (
     attention_chunked,
     attention_ref,
@@ -126,12 +130,19 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0):
     """Full-sequence attention.  On a card every impl but the plain ones
-    launches the flash kernel; on the CPU the reference's rule holds
-    (``"auto"``: the oracle for short sequences, chunked above 2048^2)."""
+    launches the flash kernel, through :class:`FlashAttention` (forward and
+    backward kernels) when a gradient flows; on the CPU the reference's
+    rule holds (``"auto"``: the oracle for short sequences, chunked above
+    2048^2), differentiated by autograd through the plain ops, as the
+    reference differentiates its lowerable paths."""
     impl = cfg.attention_impl
     if impl in _PLAIN:
         return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, q_offset,
+                                        q.shape[-1] ** -0.5)[0]
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, q_offset=q_offset, impl="cuda")
     if impl == "auto":

@@ -10,8 +10,10 @@ per-layer param dicts and the decode cache as a list of per-layer dicts
 ``{"conv_x", "conv_BC", "ssm"}`` (the reference stacks both for
 ``lax.scan`` when ``cfg.scan_layers``; :func:`params_from_numpy` unstacks
 its params).  There is no sharding on one card, so the reference's
-``constrain`` calls have no counterpart.  ``loss_fn`` waits for LM training
-(ROADMAP P12).
+``constrain`` calls have no counterpart.  ``loss_fn`` is not ported: it
+needs the ``ssd_scan`` backward (ROADMAP K4b), which comes with the next
+slice (``models/registry.py`` raises for the ``ssm`` and ``hybrid``
+families).
 """
 from __future__ import annotations
 

@@ -1,4 +1,9 @@
-"""Family -> (init, apply, serving functions) dispatch."""
+"""Family -> (init, loss_fn, apply, serving functions) dispatch.
+
+``loss_fn`` trains the dense, MoE, VLM and audio families.  The ``ssm``
+and ``hybrid`` families' ``loss_fn`` raises: their training needs the
+``ssd_scan`` backward (ROADMAP K4b), which comes with the next slice.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -11,17 +16,27 @@ from repro_torch.models import encdec, hybrid, mamba2, transformer
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     init: Callable
-    loss_fn: "Callable | None" = None  # LM training: ROADMAP P12
+    loss_fn: "Callable | None" = None
     apply: "Callable | None" = None
     init_cache: "Callable | None" = None
     prefill: "Callable | None" = None
     decode_step: "Callable | None" = None
 
 
+def _needs_ssd_backward(family: str) -> Callable:
+    def loss_fn(*args, **kwargs):
+        raise NotImplementedError(
+            f"family {family!r} cannot train yet: its loss_fn needs the "
+            "ssd_scan backward (ROADMAP K4b), which comes with the next "
+            "slice")
+    return loss_fn
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family in ("dense", "moe", "vlm"):
         return ModelApi(
             init=transformer.init,
+            loss_fn=transformer.loss_fn,
             apply=transformer.apply,
             init_cache=transformer.init_cache,
             prefill=transformer.prefill,
@@ -31,6 +46,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         mod = mamba2 if cfg.family == "ssm" else hybrid
         return ModelApi(
             init=mod.init,
+            loss_fn=_needs_ssd_backward(cfg.family),
             apply=mod.apply,
             init_cache=mod.init_cache,
             prefill=mod.prefill,
@@ -39,6 +55,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family == "audio":
         return ModelApi(
             init=encdec.init,
+            loss_fn=encdec.loss_fn,
             apply=None,
             init_cache=encdec.init_cache,
             prefill=encdec.prefill,

@@ -9,8 +9,13 @@ int ``pos``; decode writes into it in place.
 
 A layer of an MoE config carries ``p["moe"]`` (``models/moe.py``) in place
 of ``p["mlp"]``; ``apply`` returns the summed Switch auxiliary loss.
-``loss_fn`` is not ported yet: it waits for LM training and the flash
-kernel's backward (ROADMAP P12).
+``loss_fn`` is the training loss (token-mean cross-entropy plus the
+weighted auxiliary loss); with ``remat`` each layer is checkpointed
+(``torch.utils.checkpoint``, non-reentrant), as the reference wraps
+``layer_apply`` in ``jax.checkpoint``: the backward reruns each layer's
+forward, flash kernel included.  ``torch.utils.checkpoint`` does not run
+under ``torch.func`` transforms, so callers there pass ``remat=False``
+(the same numbers).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.device import resolve_device
@@ -28,6 +34,7 @@ from repro_torch.models.layers import (
     attention_apply,
     attention_decode,
     attention_init,
+    cross_entropy,
     embed_apply,
     embed_init,
     mlp_apply,
@@ -44,7 +51,9 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _generator(generator, device: torch.device) -> torch.Generator:
+def _generator(generator, device: torch.device) -> "torch.Generator | None":
+    if device.type == "meta":  # shapes only: nothing is drawn
+        return None
     if isinstance(generator, torch.Generator):
         if generator.device.type != device.type:
             raise ValueError(f"generator lives on {generator.device}, the "
@@ -119,7 +128,7 @@ def _embed(params, tokens, prefix_embeds):
 
 
 def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
-          prefix_embeds: "torch.Tensor | None" = None
+          prefix_embeds: "torch.Tensor | None" = None, remat: bool = False
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (b, s_total, padded_vocab) f32, aux_loss)."""
     x = _embed(params, tokens, prefix_embeds)
@@ -128,10 +137,31 @@ def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
                              device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x, a = layer_apply(lp, x, cfg, positions)
+        if remat:
+            x, a = checkpoint(layer_apply, lp, x, cfg, positions,
+                              use_reentrant=False)
+        else:
+            x, a = layer_apply(lp, x, cfg, positions)
         aux = aux + a
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return unembed_apply(params["embed"], x), aux
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
+            remat: bool = True, aux_weight: float = 0.01
+            ) -> tuple[torch.Tensor, dict]:
+    """Token-mean cross-entropy of ``batch["targets"]`` under
+    ``batch["mask"]`` plus ``aux_weight`` times the MoE auxiliary loss;
+    returns ``(loss, {"ce", "aux"})``.  A VLM batch's ``prefix_embeds``
+    lead the sequence and their positions carry no loss."""
+    prefix = batch.get("prefix_embeds")
+    logits, aux = apply(params, batch["tokens"], cfg, prefix_embeds=prefix,
+                        remat=remat)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]
+    ce = cross_entropy(logits, batch["targets"], batch["mask"],
+                       cfg.vocab_size)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------------------- #

@@ -29,38 +29,19 @@ and tuples of tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.optim.optimizers import tree_leaves, tree_map
+
 Params = Any
-
-
-def _leaves(tree: Any) -> list:
-    """The leaves of ``tree`` in JAX's order (dict keys sorted; ``None``
-    is an empty subtree)."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [] if tree is None else [tree]
-
-
-def _map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest`` (trees of the same structure)."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
-    return None if tree is None else fn(tree, *rest)
 
 
 def _unflatten_like(tree: Any, leaves: list) -> Any:
     """A tree of ``tree``'s structure holding ``leaves`` (in
-    :func:`_leaves` order)."""
+    :func:`tree_leaves` order)."""
     it = iter(leaves)
 
     def build(t):
@@ -79,7 +60,7 @@ class TopKState:
 
 
 def topk_init(params: Params) -> TopKState:
-    return TopKState(residual=_map(
+    return TopKState(residual=tree_map(
         lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
         params))
 
@@ -103,8 +84,8 @@ def topk_compress(
         kept = _keep_topk(uf.reshape(-1), k).reshape(uf.shape)
         return kept.to(u.dtype), uf - kept
 
-    pairs = [one(u, r) for u, r in zip(_leaves(update),
-                                        _leaves(state.residual))]
+    pairs = [one(u, r) for u, r in zip(tree_leaves(update),
+                                        tree_leaves(state.residual))]
     leaves = [kept for kept, _ in pairs]
     kept = _unflatten_like(update, leaves)
     resid = _unflatten_like(update, [r for _, r in pairs])
@@ -132,7 +113,7 @@ def topk_compress_rows(
     what a sparse encoding ships per row (value + index pairs), i.e. the
     per-row wire size is ``counts * 8``.
     """
-    leaves = _leaves(stacked)
+    leaves = tree_leaves(stacked)
     leaves2d = [l.reshape(l.shape[0], -1) for l in leaves]
     if residual is not None and not (
             len(residual) == len(leaves2d)
@@ -165,13 +146,13 @@ def int8_quantize(update: Params) -> tuple[Params, Params]:
         q = torch.clamp(torch.round(uf / scale), -127, 127).to(torch.int8)
         return q, scale
 
-    pairs = [one(u) for u in _leaves(update)]
+    pairs = [one(u) for u in tree_leaves(update)]
     return (_unflatten_like(update, [q for q, _ in pairs]),
             _unflatten_like(update, [s for _, s in pairs]))
 
 
 def int8_dequantize(q: Params, scales: Params, like: Params) -> Params:
-    return _map(lambda qq, ss, p: (qq.to(torch.float32) * ss).to(p.dtype),
+    return tree_map(lambda qq, ss, p: (qq.to(torch.float32) * ss).to(p.dtype),
                 q, scales, like)
 
 
@@ -183,7 +164,7 @@ def payload_bytes(tree: Params) -> int:
     counted at their numpy footprint instead of being dropped.
     """
     total = 0
-    for x in _leaves(tree):
+    for x in tree_leaves(tree):
         if isinstance(x, torch.Tensor):
             total += x.numel() * x.element_size()
         elif hasattr(x, "size") and hasattr(x, "dtype"):

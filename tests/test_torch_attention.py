@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels.decode_attention import ops as jdec  # noqa: E402
 from repro.kernels.flash_attention import ops as jflash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as jattn  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_chunked as jchunked  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as tdec  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as tflash  # noqa: E402
 
@@ -371,3 +372,159 @@ def test_plain_calls_record_no_launch_shape():
     finally:
         for f in wrappers:
             f.shapes = None
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the backward's tests: the suite runs several
+    workers on few cores, and gradcheck's many small ops slow down
+    many-fold when every worker's thread pool spins on all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# (b, sq, sk, h, kv, d, causal, q_offset) for the backward: g in {1, 2, 3,
+# 4}, causal and not, a query offset, sq != sk, ragged key tails.
+BWD_CASES = [
+    (2, 40, 40, 6, 2, 16, True, 0),
+    (1, 64, 200, 4, 4, 32, False, 0),
+    (2, 48, 100, 4, 2, 16, True, 52),
+    (1, 70, 70, 6, 2, 16, False, 0),
+    (1, 33, 65, 4, 1, 16, True, 32),
+]
+
+
+def _bwd_case(case, dt, seed):
+    b, sq, sk, h, kv, d, causal, off = case
+    rng = np.random.default_rng(seed)
+    arrays = (_rand(rng, (b, sq, h, d)), _rand(rng, (b, sk, kv, d)),
+              _rand(rng, (b, sk, kv, d)), _rand(rng, (b, sq, h, d)))
+    return [_pair(x, dt) for x in arrays]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_attention_bwd_ref_matches_jax_grad_of_chunked(case, dt):
+    """``attention_bwd_ref`` (P from the saved log-sum-exp, D = rowsum(dO *
+    O), dK and dV summed over each group) against ``jax.vjp`` of the
+    reference's ``attention_chunked`` on the same inputs."""
+    b, sq, sk, h, kv, d, causal, off = case
+    (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = _bwd_case(case, dt, sq + sk)
+    kw = dict(causal=causal, q_offset=off)
+    _, vjp = jax.vjp(lambda q, k, v: jchunked(q, k, v, kv_chunk=32, **kw),
+                     jq, jk, jv)
+    want = vjp(jdo)
+    o, lse = tflash.attention_fwd_lse(tq, tk, tv, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    got = tflash.attention_bwd_ref(tq, tk, tv, o, lse, tdo, **kw)
+    tol = DTYPES[dt][2]
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == tq.dtype and tuple(a.shape) == w.shape, name
+        np.testing.assert_allclose(_np(a), _np(w), atol=tol, rtol=tol,
+                                   err_msg=name)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("case", BWD_CASES[:3])
+def test_attention_fwd_lse_matches_reference(case):
+    b, sq, sk, h, kv, d, causal, off = case
+    (jq, tq), (jk, tk), (jv, tv), _ = _bwd_case(case, "f32", 3)
+    o, lse = tflash.attention_fwd_lse(tq, tk, tv, causal=causal, q_offset=off)
+    s = jnp.einsum("bqkgd,bskd->bkgqs",
+                   jq.reshape(b, sq, kv, h // kv, d) * d ** -0.5, jk)
+    if causal:
+        mask = (off + jnp.arange(sq))[:, None] >= jnp.arange(sk)[None, :]
+        s = jnp.where(mask, s, -jnp.inf)
+    want = jax.nn.logsumexp(s, axis=-1).reshape(b, h, sq)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), atol=3e-5,
+                               rtol=3e-5)
+    np.testing.assert_allclose(
+        o.numpy(), np.asarray(jattn(jq, jk, jv, causal=causal, q_offset=off)),
+        atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_plain_autograd_through_chunked_equals_the_written_backward():
+    """The CPU training path differentiates the chunked plain version by
+    autograd (as JAX does); it agrees with ``attention_bwd_ref`` (3e-5)."""
+    case = BWD_CASES[2]
+    b, sq, sk, h, kv, d, causal, off = case
+    _, (_, tk), (_, tv), (_, tdo) = _bwd_case(case, "f32", 9)
+    (_, tq), = [_pair(_rand(np.random.default_rng(8), (b, sq, h, d)), "f32")]
+    q, k, v = (t.clone().requires_grad_(True) for t in (tq, tk, tv))
+    out = tflash.attention_chunked(q, k, v, causal=causal, q_offset=off,
+                                   kv_chunk=32)
+    out.backward(tdo)
+    o, lse = tflash.attention_fwd_lse(tq, tk, tv, causal=causal, q_offset=off)
+    want = tflash.attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal=causal,
+                                    q_offset=off)
+    for a, w in zip((q.grad, k.grad, v.grad), want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("causal,off", [(True, 0), (True, 3), (False, 0)])
+def test_flash_attention_function_passes_gradcheck(causal, off):
+    """``FlashAttention`` on CPU tensors (the plain forward and
+    ``attention_bwd_ref``) in f64 at a tiny GQA shape (g = 2, sq != sk)."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 5, 4, 8, generator=gen, dtype=torch.float64)
+    k = torch.randn(2, 7, 2, 8, generator=gen, dtype=torch.float64)
+    v = torch.randn(2, 7, 2, 8, generator=gen, dtype=torch.float64)
+    inputs = tuple(t.requires_grad_(True) for t in (q, k, v))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: tflash.FlashAttention.apply(q, k, v, causal, off,
+                                                    8 ** -0.5)[0], inputs)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_flash_attention_function_vmap_grad_equals_a_loop():
+    from torch.func import grad, vmap
+
+    gen = torch.Generator().manual_seed(1)
+    q = torch.randn(3, 2, 6, 6, 16, generator=gen)
+    k = torch.randn(3, 2, 9, 2, 16, generator=gen)
+    v = torch.randn(3, 2, 9, 2, 16, generator=gen)
+
+    def loss(q, k, v):
+        o, _ = tflash.FlashAttention.apply(q, k, v, True, 3, 0.25)
+        return (o * o).sum()
+
+    g = grad(loss, argnums=(0, 1, 2))
+    batched = vmap(g)(q, k, v)
+    shared = vmap(g, in_dims=(0, None, None))(q, k[0], v[0])
+    for i in range(3):
+        for a, w in zip(batched, g(q[i], k[i], v[i])):
+            torch.testing.assert_close(a[i], w, atol=1e-6, rtol=1e-6)
+        for a, w in zip(shared, g(q[i], k[0], v[0])):
+            torch.testing.assert_close(a[i], w, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_bwd_route_by_dtype_and_width(dtype, d):
+    """bf16 at the published widths (64, 128) runs on mma.sync; f32 (TF32
+    would break its 3e-5) and the other widths on plain FMAs."""
+    want = "mma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    assert tflash.kernel_for_bwd(dtype, d) == want
+    assert tflash.kernel_for_bwd(dtype, d) == want  # a pure function
+
+
+@pytest.mark.parametrize("dtype,d,exc,match", [
+    (torch.float16, 64, TypeError, "float32 or bfloat16"),
+    (torch.float64, 16, TypeError, "float32 or bfloat16"),
+    (torch.bfloat16, 256, ValueError, "head_dim"),
+    (torch.float32, 48, ValueError, "head_dim")])
+def test_flash_bwd_route_refuses_what_it_does_not_take(dtype, d, exc, match):
+    with pytest.raises(exc, match=match):
+        tflash.kernel_for_bwd(dtype, d)
+
+
+def test_flash_bwd_kernel_refuses_cpu_tensors():
+    q = torch.zeros(1, 4, 2, 16)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash._flash_attention_bwd_cuda(q, q, q, q, lse, q, True, 0, 0.25)

@@ -956,3 +956,178 @@ def test_scheduled_rounds_on_card_match_the_cpu_timeline(cuda_device):
         for k in gpu_p[tid]:
             np.testing.assert_allclose(gpu_p[tid][k], cpu_p[tid][k],
                                        atol=1e-6, rtol=0)
+
+
+# (b, sq, sk, h, kv, d, causal, q_offset): the smoke width (g = 3 at d =
+# 16), granite's g = 3 at d = 64, llama's d = 128 with a ragged tail,
+# non-causal cross-attention (sq != sk) and a query offset.
+BWD_CASES = [
+    (2, 64, 64, 6, 2, 16, True, 0),
+    (2, 130, 130, 12, 4, 128, True, 0),
+    (2, 96, 96, 6, 2, 64, True, 0),
+    (1, 64, 256, 4, 4, 64, False, 0),
+    (2, 96, 200, 6, 2, 64, True, 104),
+    (1, 200, 200, 4, 1, 32, True, 0),
+]
+
+
+def _bwd_inputs(case, dtype, device):
+    b, sq, sk, h, kv, d, causal, off = case
+    gen = torch.Generator().manual_seed(sq * 7 + sk + h + d)
+    q = _randn(gen, (b, sq, h, d), dtype, device)
+    k = _randn(gen, (b, sk, kv, d), dtype, device)
+    v = _randn(gen, (b, sk, kv, d), dtype, device)
+    do = _randn(gen, (b, sq, h, d), dtype, device)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
+    """The backward kernels (K3b) against ``attention_bwd_ref`` on the card,
+    from the forward kernel's own o and lse; two calls give the same bits
+    and each counts one backward launch."""
+    from repro_torch.kernels.flash_attention import ops
+
+    b, sq, sk, h, kv, d, causal, off = case
+    q, k, v, do = _bwd_inputs(case, dtype, cuda_device)
+    scale = d ** -0.5
+    o, lse = ops._flash_attention_cuda(q, k, v, causal, off, scale,
+                                       with_lse=True)
+    o_ref, lse_ref = ops.attention_fwd_lse(q, k, v, causal=causal,
+                                           q_offset=off)
+    before = flash_attention.bwd_launches
+    mma_before = flash_attention.mma_bwd_launches
+    got = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
+                                        scale)
+    again = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
+                                          scale)
+    plain = ops.attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                  q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_launches == before + 2
+    # bf16 at d = 64, 128 on mma.sync; the rest on plain FMAs.
+    on_tensor_cores = dtype == torch.bfloat16 and d in (64, 128)
+    assert flash_attention.mma_bwd_launches == mma_before + (
+        2 if on_tensor_cores else 0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    for name, a, a2, p in zip(("dq", "dk", "dv"), got, again, plain):
+        assert a.dtype == dtype and a.shape == p.shape, name
+        assert torch.equal(a, a2), f"{name} is not bitwise repeatable"
+        torch.testing.assert_close(a.float(), p.float(), atol=tol, rtol=tol,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+def test_flash_attention_vmap_grad_on_card_equals_a_loop(cuda_device):
+    """``vmap(grad(...))`` through ``FlashAttention`` folds the vmapped
+    dimension into the kernels' batch: equal to per-sample grads."""
+    from torch.func import grad, vmap
+
+    from repro_torch.kernels.flash_attention.ops import FlashAttention
+
+    gen = torch.Generator().manual_seed(5)
+    n, b, s, h, kv, d = 3, 2, 80, 6, 2, 16
+    q = _randn(gen, (n, b, s, h, d), torch.float32, cuda_device)
+    k = _randn(gen, (n, b, s, kv, d), torch.float32, cuda_device)
+    v = _randn(gen, (n, b, s, kv, d), torch.float32, cuda_device)
+
+    def loss(q, k, v):
+        return (FlashAttention.apply(q, k, v, True, 0, d ** -0.5)[0]
+                ** 2).sum()
+
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    batched = vmap(grad(loss, argnums=(0, 1, 2)))(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    for i in range(n):
+        one = grad(loss, argnums=(0, 1, 2))(q[i], k[i], v[i])
+        for a, b_ in zip(batched, one):
+            torch.testing.assert_close(a[i], b_, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[5] in (64, 128)])
+def test_flash_bwd_mma_and_plain_fma_kernels_agree(cuda_device, case):
+    """bf16: the mma.sync backward against the plain-FMA backward on the
+    same inputs (2e-2)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    b, sq, sk, h, kv, d, causal, off = case
+    q, k, v, do = _bwd_inputs(case, torch.bfloat16, cuda_device)
+    o, lse = ops._flash_attention_cuda(q, k, v, causal, off, d ** -0.5,
+                                       with_lse=True)
+    tc = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
+                                       d ** -0.5)
+    fma = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
+                                        d ** -0.5, kernel="simt")
+    for a, b_ in zip(tc, fma):
+        torch.testing.assert_close(a.float(), b_.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+def test_flash_bwd_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.flash_attention import ops
+
+    q = torch.zeros(1, 8, 4, 256, device=cuda_device)
+    lse = torch.zeros(1, 4, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops._flash_attention_bwd_cuda(q, q, q, q, lse, q, True, 0, 1.0)
+    q = q[..., :64].contiguous()
+    with pytest.raises(ValueError, match="lse"):
+        ops._flash_attention_bwd_cuda(q, q, q, q, lse[..., :4], q, True, 0,
+                                      1.0)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_train_step_kernel_path_matches_plain_path_on_card(cuda_device, dtype,
+                                                           tol):
+    """Two ``build_train_step`` steps of a 2-layer model (GQA g = 3 at d =
+    16 and d = 64): the flash kernels' path against the plain attention
+    path (``attention_impl="einsum"``), both on the card.  Loss and grad
+    norm, every updated leaf and each leaf's first-step gradient (AdamW's
+    first moment after one step: the updated leaves move ~3 % in 2 steps,
+    and Adam's near-sign steps hide the gradients' magnitude) agree within
+    ``tol`` relative; the kernel path launches one backward per layer and
+    microbatch."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distribution.steps import (
+        build_train_step,
+        init_train_state,
+    )
+    from repro_torch.optim.optimizers import AdamWConfig, tree_leaves
+
+    shape = ShapeConfig("t", 128, 4, "train", microbatches=2)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, 512, (2, 2, 128)).astype(np.int32),
+                "targets": rng.integers(0, 512, (2, 2, 128)).astype(np.int32),
+                "mask": np.ones((2, 2, 128), np.float32)} for _ in range(2)]
+    for head_dim in (16, 64):
+        cfg = dataclasses.replace(get_config("llama3_2_3b", smoke=True),
+                                  dtype=dtype, head_dim=head_dim)
+        runs = {}
+        for path, c in (("kernel", cfg), ("plain", dataclasses.replace(
+                cfg, attention_impl="einsum"))):
+            state = init_train_state(c, seed=0, device=cuda_device)
+            step, _, _ = build_train_step(c, None, shape,
+                                          AdamWConfig(warmup_steps=1))
+            before = flash_attention.bwd_launches
+            metrics, grads = [], None
+            for b in batches:
+                state, m = step(state, {k: torch.from_numpy(v).to(cuda_device)
+                                        for k, v in b.items()})
+                metrics.append([float(m["loss"]), float(m["grad_norm"])])
+                if grads is None:
+                    grads = [t.clone() for t in tree_leaves(state["opt"]["m"])]
+            torch.cuda.synchronize()
+            runs[path] = (metrics, tree_leaves(state["params"]), grads,
+                          flash_attention.bwd_launches - before)
+        (mk, pk, gk, nk), (mp, pp, gp, np_) = runs["kernel"], runs["plain"]
+        assert nk == 2 * 2 * 2 and np_ == 0
+        np.testing.assert_allclose(mk, mp, rtol=tol)
+        for a, b in (*zip(pk, pp), *zip(gk, gp)):
+            err = float((a.float() - b.float()).norm() / b.float().norm())
+            assert err <= tol

@@ -47,7 +47,12 @@ def test_new_runtime_modules_import_no_jax_and_no_reference():
                      "repro_torch.runtime.fault_tolerance",
                      "repro_torch.runtime.workers",
                      "repro_torch.core.calibration",
-                     "repro_torch.launch.serve"):
+                     "repro_torch.launch.serve",
+                     "repro_torch.optim.optimizers",
+                     "repro_torch.distribution.steps",
+                     "repro_torch.launch.train",
+                     "repro_torch.examples.lm_pretrain",
+                     "repro_torch.examples.lm_federation"):
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -77,6 +82,8 @@ def _entry_points():
     from repro_torch.examples import federated_ctr, quickstart
     from repro_torch.models import ctr, encdec, hybrid, mamba2, transformer
     from repro_torch.runtime.workers import FleetWorkerPool, WorkerSpec
+    from repro_torch.distribution.steps import init_train_state
+    from repro_torch.launch import train
 
     fn = ctr.make_local_train_fn()
     lm = get_config("llama3_2_3b", smoke=True)
@@ -124,6 +131,11 @@ def _entry_points():
             lm, batch_size=2, prompt_len=4, decode_tokens=2, max_len=7),
         "stack_requests": lambda: stack_requests(np.ones((2, 4))),
         "FleetWorkerPool": lambda: FleetWorkerPool(WorkerSpec(print), 2),
+        "init_train_state": lambda: init_train_state(lm),
+        "train.main[cloud]": lambda: train.main(
+            ["--mode", "cloud", "--smoke", "--steps", "1"]),
+        "train.main[federated]": lambda: train.main(["--smoke"]),
+        "train.main[tasks]": lambda: train.main(["--smoke", "--tasks", "2"]),
     }
 
 
@@ -137,7 +149,8 @@ def _entry_points():
     "encdec.params_from_numpy", "quickstart.run", "federated_ctr.run",
     "init_arena",
     "ContinuousBatchingEngine", "BatchedServer", "stack_requests",
-    "FleetWorkerPool"]))
+    "FleetWorkerPool", "init_train_state", "train.main[cloud]",
+    "train.main[federated]", "train.main[tasks]"]))
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device works")

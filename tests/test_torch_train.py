@@ -1,0 +1,240 @@
+"""Parity of the port's LM training with the JAX package on the CPU:
+``loss_fn`` value and gradients (dense, MoE and encoder-decoder, f32)
+against ``jax.value_and_grad``, remat on and off, the padded vocabulary's
+zero gradient, two ``build_train_step`` steps against the reference's on a
+(1, 1) mesh (f32 and bf16) with the state carried across through numpy,
+``TrainingSupervisor`` resuming the cloud loop to the same losses bit for
+bit, and what the one-card slice refuses."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import base as jbase  # noqa: E402
+from repro.configs.registry import get_config as jget_config  # noqa: E402
+from repro.distribution import steps as jsteps  # noqa: E402
+from repro.distribution.sharding import derive_logical_mesh  # noqa: E402
+from repro.models import encdec as jencdec  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro.optim import optimizers as jopt  # noqa: E402
+from repro_torch.configs import base as tbase  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.distribution import steps as tsteps  # noqa: E402
+from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.models import encdec as tencdec  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.optim import optimizers as topt  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and these small ops slow down many-fold when every worker's thread
+    pool spins on all of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+# tests/test_distribution.py:43-55's TINY configs, in f32.
+TINY = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+            head_dim=16, vocab_size=512, dtype="float32")
+CONFIGS = {
+    "dense": dict(name="tiny", family="dense", d_ff=128, **TINY),
+    "moe": dict(name="tinymoe", family="moe", d_ff=64, num_experts=4,
+                experts_per_token=2, **TINY),
+}
+
+
+def _cfgs(kind, **kw):
+    if kind == "audio":
+        return (dataclasses.replace(jget_config("seamless_m4t_medium",
+                                                smoke=True), **kw),
+                dataclasses.replace(get_config("seamless_m4t_medium",
+                                               smoke=True), **kw))
+    return (jbase.ModelConfig(**{**CONFIGS[kind], **kw}),
+            tbase.ModelConfig(**{**CONFIGS[kind], **kw}))
+
+
+def _batch(cfg, b=2, s=24, seed=0):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+           "targets": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+           "mask": (rng.random((b, s)) < 0.8).astype(np.float32)}
+    if cfg.family == "audio":
+        out["src_embeds"] = rng.standard_normal(
+            (b, 20, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _jmod(cfg):
+    return jencdec if cfg.family == "audio" else jtf
+
+
+def _tmod(cfg):
+    return tencdec if cfg.family == "audio" else ttf
+
+
+def _rel(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _port_grads(tcfg, jparams_np, batch, remat):
+    params = _tmod(tcfg).params_from_numpy(jparams_np, tcfg, device="cpu")
+    leaves = topt.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, metrics = get_model(tcfg).loss_fn(params, tb, tcfg, remat=remat)
+    loss.backward()
+    return float(loss.detach()), metrics, params, [p.grad for p in leaves]
+
+
+@pytest.mark.parametrize("kind", ["dense", "moe", "audio"])
+def test_loss_fn_value_and_grads_match_jax(kind):
+    jcfg, tcfg = _cfgs(kind, dtype="float32")
+    jp = _jmod(jcfg).init(jax.random.PRNGKey(0), jcfg)
+    batch = _batch(tcfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, jmet), jg = jax.value_and_grad(
+        lambda p: _jmod(jcfg).loss_fn(p, jb, jcfg), has_aux=True)(jp)
+    jnp_tree = jax.tree.map(np.asarray, jp)
+    loss, metrics, params, grads = _port_grads(tcfg, jnp_tree, batch, True)
+    assert abs(loss - float(jloss)) <= 1e-5 * abs(float(jloss))
+    if kind == "moe":
+        assert abs(float(metrics["aux"].detach()) - float(jmet["aux"])) <= 1e-5
+    want = topt.tree_leaves(_tmod(tcfg).params_from_numpy(
+        jax.tree.map(np.asarray, jg), tcfg, device="cpu"))
+    assert len(want) == len(grads)
+    for g, w in zip(grads, want):
+        assert g is not None and g.shape == w.shape
+        assert _rel(g.numpy(), w.numpy()) <= 1e-4
+    # Remat changes no number.
+    _, _, _, plain = _port_grads(tcfg, jnp_tree, batch, False)
+    for g, p in zip(grads, plain):
+        torch.testing.assert_close(g, p, atol=1e-7, rtol=1e-6)
+
+
+def test_padded_vocab_tail_gets_exactly_zero_gradient():
+    jcfg, tcfg = _cfgs("dense", dtype="float32")
+    tree = jax.tree.map(np.asarray, jtf.init(jax.random.PRNGKey(1), jcfg))
+    _, _, params, _ = _port_grads(tcfg, tree, _batch(tcfg, seed=2), True)
+    head = params["embed"]["lm_head"].grad
+    emb = params["embed"]["embedding"].grad
+    v = tcfg.vocab_size
+    assert head.shape[1] > v and emb.shape[0] > v
+    assert torch.count_nonzero(head[:, v:]) == 0
+    assert torch.count_nonzero(emb[v:]) == 0
+    assert torch.count_nonzero(head[:, :v]) > 0
+
+
+@pytest.mark.parametrize("family,arch", [("ssm", "mamba2_1_3b"),
+                                         ("hybrid", "zamba2_1_2b")])
+def test_families_without_the_scan_backward_refuse_to_train(family, arch):
+    cfg = get_config(arch, smoke=True)
+    assert cfg.family == family
+    with pytest.raises(NotImplementedError, match="K4b"):
+        get_model(cfg).loss_fn({}, {}, cfg)
+
+
+SHAPE = dict(seq_len=32, global_batch=8, kind="train", microbatches=2)
+OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2e-2)])
+def test_train_step_matches_reference_on_a_one_device_mesh(dtype, tol):
+    jcfg, tcfg = _cfgs("dense", dtype=dtype)
+    jshape = jbase.ShapeConfig("t", **SHAPE)
+    tshape = tbase.ShapeConfig("t", **SHAPE)
+    mesh = jax.make_mesh((1, 1), ("data", "model"))
+    lmesh = derive_logical_mesh(mesh, jbase.choose_mesh_plan(jcfg,
+                                                             model_axis=1))
+    jfn, in_sh, out_sh, _ = jsteps.build_train_step(
+        jcfg, lmesh, jshape, jopt.AdamWConfig(**OPT))
+    tfn, state_shape, specs = tsteps.build_train_step(
+        tcfg, None, tshape, topt.AdamWConfig(**OPT))
+    rng = np.random.default_rng(0)
+    batches = [{k: (rng.integers(0, 512, shp) if dt == torch.int32
+                    else np.ones(shp)).astype(
+                        np.int32 if dt == torch.int32 else np.float32)
+                for k, (shp, dt) in specs.items()} for _ in range(2)]
+    with lmesh.mesh:
+        jstate = jsteps.init_train_state(jcfg, seed=0)
+        tstate = tsteps.train_state_from_numpy(
+            jax.tree.map(np.asarray, jstate), tcfg, device="cpu")
+        jitted = jax.jit(jfn, in_shardings=in_sh, out_shardings=out_sh)
+        for batch in batches:
+            jstate, jm = jitted(jstate, {k: jnp.asarray(v)
+                                         for k, v in batch.items()})
+            tstate, tm = tfn(tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
+            assert abs(float(tm["loss"]) - float(jm["loss"])) <= tol * abs(
+                float(jm["loss"]))
+            assert abs(float(tm["grad_norm"]) - float(jm["grad_norm"])) \
+                <= tol * float(jm["grad_norm"])
+    assert int(tstate["opt"]["step"]) == 2
+    for key, got, ref in (
+            ("params", tstate["params"], jstate["params"]),
+            ("master", tstate["opt"]["master"], jstate["opt"]["master"])):
+        ref_t = ttf.params_from_numpy(jax.tree.map(np.asarray, ref), tcfg,
+                                      device="cpu")
+        for a, b in zip(topt.tree_leaves(got), topt.tree_leaves(ref_t)):
+            assert _rel(a.float().numpy(), b.float().numpy()) <= tol, key
+    # The state's shapes on the meta device, nothing allocated.
+    for a, b in zip(topt.tree_leaves(state_shape["params"]),
+                    topt.tree_leaves(tstate["params"])):
+        assert a.device.type == "meta" and a.shape == b.shape
+        assert a.dtype == b.dtype
+
+
+def test_train_step_takes_one_card_only():
+    _, tcfg = _cfgs("dense")
+    with pytest.raises(NotImplementedError, match="distribution slice"):
+        tsteps.build_train_step(tcfg, object(), tbase.ShapeConfig("t",
+                                                                  **SHAPE))
+
+
+def _cloud_argv(tmp, steps):
+    return ["--mode", "cloud", "--smoke", "--steps", str(steps),
+            "--checkpoint-every", "2", "--checkpoint-dir", str(tmp),
+            "--log-every", "1", "--device", "cpu"]
+
+
+def test_supervisor_resume_gives_the_uninterrupted_losses_bitwise(tmp_path):
+    """A cloud run stopped after its step-4 checkpoint and run again to step
+    8 from that checkpoint (the pipeline's position restored with it)
+    gives the uninterrupted run's losses, bit for bit."""
+    whole = ttrain.run(_cloud_argv(tmp_path / "a", 8))["losses"]
+    first = ttrain.run(_cloud_argv(tmp_path / "b", 4))["losses"]
+    rest = ttrain.run(_cloud_argv(tmp_path / "b", 8))["losses"]
+    assert len(whole) == 8 and len(first) == 4 and len(rest) == 4
+    assert first + rest == whole
+
+
+def test_one_card_cli_refuses_mesh_flags_and_a_missing_card(tmp_path):
+    with pytest.raises(NotImplementedError, match="distribution slice"):
+        ttrain.run(["--smoke", "--fleet-shards", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="distribution slice"):
+        ttrain.run(_cloud_argv(tmp_path, 1) + ["--multi-pod"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ttrain.run(["--mode", "cloud", "--smoke", "--steps", "1",
+                        "--checkpoint-dir", str(tmp_path / "c")])
+
+
+def test_flat_params_round_trip():
+    _, tcfg = _cfgs("dense")
+    params = ttf.init(0, tcfg, device="cpu")
+    flat = ttrain.flat_params(params)
+    assert "layers/1/attn/wq" in flat and "embed/embedding" in flat
+    back = ttrain.nest_params(flat)
+    assert len(back["layers"]) == 2
+    for a, b in zip(topt.tree_leaves(back), topt.tree_leaves(params)):
+        assert a is b
