@@ -170,8 +170,8 @@ numbered order; any failure raises and the script exits non-zero:
     says so.
 
 15. **Backward kernel.**  The forward kernel with its log-sum-exp against
-    ``attention_fwd_lse``, then the flash backward (``flash_bwd_dot_kernel``,
-    then the dK/dV and dQ kernels: ``mma.sync`` for bf16 at d = 64, 128,
+    ``attention_fwd_lse``, then the flash backward (a prep pass, then the
+    dK/dV and dQ kernels: ``wgmma`` with TMA for bf16 at d = 64, 128,
     plain FMAs otherwise) on the card against ``attention_bwd_ref`` on the
     card, from the forward kernel's own o and log-sum-exp: llama3.2-3b's
     training shape (1 x 4096, 24/8 heads of 128, causal) in bf16, the same
@@ -182,9 +182,10 @@ numbered order; any failure raises and the script exits non-zero:
     log-sum-exp within 1e-3, two backward calls bitwise equal;
     ``torch.func.vmap(grad(...))`` through ``FlashAttention`` equal to a
     per-sample loop.  Times llama's training shape and the smoke width:
-    kernel (and the plain-FMA kernels on the same bf16 inputs), plain
-    version, SDPA's autograd backward, the forward with its log-sum-exp,
-    SDPA's forward, and the bounds (10 d flops per pair per head).
+    kernel (and the earlier ``mma.sync`` kernels and the plain-FMA kernels
+    on the same bf16 inputs), plain version, SDPA's autograd backward, the
+    forward with its log-sum-exp, SDPA's forward, and the bounds (10 d
+    flops per pair per head).
 16. **Cloud training.**  llama3.2-3b at full width and depth (28 layers,
     3.61 B params, seeded bf16 weights, f32 master, m and v) through
     ``launch/train.py``'s own step (``make_cloud_step``): sequences of 4096
@@ -218,7 +219,8 @@ main paths that ran it, each path's counter read just after it).
 
 ``--compare-with DIR`` times the decode and scan kernels of the checkout at
 DIR (e.g. the parent commit, unpacked by ``git archive``) against this
-checkout's at the serving shapes, in turns (DIR, this, this, DIR), each in
+checkout's at the serving shapes, and the flash backward's route at
+llama3.2-3b's training shape, in turns (DIR, this, this, DIR), each in
 its own process and build, and prints one ``{"kernel_ab": ...}`` line per
 run.  ``--profile`` runs the federated slice alone instead: per wire, round 1
 under ``torch.profiler`` (device busy time as the union of kernel
@@ -1270,13 +1272,16 @@ def device_kernels(fn) -> list:
 def profile_window(fn, steps: int, match=()) -> dict:
     """``fn()`` under :func:`profiled`: its host wall, the device's busy
     time and idle share, the kernels that took it, and how many kernels'
-    names contain each string of ``match``."""
+    names contain each string of ``match`` and their device ms."""
     kern, wall = profiled(fn)
     busy, n, by_name = kernel_time(kern)
     return {"steps": steps, "wall_ms": wall, "device_busy_ms": busy,
             "kernels": n, "device_idle_share": 1.0 - busy / wall,
             "top_kernels_ms": by_name[:8],
-            "matched": {m: sum(m in e.name for e in kern) for m in match}}
+            "matched": {m: sum(m in e.name for e in kern) for m in match},
+            "matched_ms": {m: sum((e.time_range.end - e.time_range.start)
+                                  / 1e3 for e in kern if m in e.name)
+                           for m in match}}
 
 
 def serving_profile(cfg, params, prompts, card: str) -> dict:
@@ -3006,7 +3011,10 @@ def bwd_case(dev, gen, case, dtype: str) -> tuple[dict, tuple]:
     """The forward kernel with its log-sum-exp at ``case`` against
     ``attention_fwd_lse``, then the backward kernels against
     ``attention_bwd_ref`` on the card, from the forward kernel's own o and
-    log-sum-exp; two backward calls must give the same bits."""
+    log-sum-exp; two backward calls must give the same bits.  Where the
+    route is ``wgmma`` the same holds for every tensor-core backward the
+    smoke times beside it (design (a), ``wgmma_a``, and the ``mma.sync``
+    kernels, ``mma``)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops
@@ -3017,10 +3025,12 @@ def bwd_case(dev, gen, case, dtype: str) -> tuple[dict, tuple]:
     scale = d ** -0.5
     o, lse = ops._flash_attention_cuda(q, k, v, causal, off, scale,
                                        with_lse=True)
-    got = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
-                                        scale)
-    again = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
-                                          scale)
+    route = ops.kernel_for_bwd(q.dtype, d)
+    kernels = (route, "wgmma_a", "mma") if route == "wgmma" else (route,)
+    runs = {kern: [ops._flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal, off, scale,
+        kernel=None if kern == route else kern) for _ in range(2)]
+        for kern in kernels}
     plain = ops.attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                   q_offset=off)
     plain_o, plain_lse = ops.attention_fwd_lse(q, k, v, causal=causal,
@@ -3029,25 +3039,30 @@ def bwd_case(dev, gen, case, dtype: str) -> tuple[dict, tuple]:
     fwd_err = _check_close(f"flash_attention{case} {dtype} o (with lse)", o,
                            plain_o, q.dtype)
     name = f"flash_attention_bwd{case} {dtype}"
-    errs = [_check_close(f"{name} {g}", a, p, q.dtype)
-            for g, a, p in zip(("dq", "dk", "dv"), got, plain)]
     lse_err = float((lse - plain_lse).abs().max())
     if lse_err > 1e-3:
         raise AssertionError(f"{name}: lse off by {lse_err:.3e}")
-    if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
-        raise AssertionError(f"{name} is not bitwise repeatable")
-    row = {"case": list(case), "dtype": dtype, "max_abs_err": max(errs),
+    errs = {}
+    for kern, (got, again) in runs.items():
+        errs[kern] = max(_check_close(f"{name} {kern} {g}", a, p, q.dtype)
+                         for g, a, p in zip(("dq", "dk", "dv"), got, plain))
+        if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+            raise AssertionError(f"{name} {kern} is not bitwise repeatable")
+    row = {"case": list(case), "dtype": dtype, "max_abs_err": errs[route],
            "fwd_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
-           "bitwise_repeatable": True,
-           "kernel": ops.kernel_for_bwd(q.dtype, d)}
+           "bitwise_repeatable": True, "kernel": route}
+    row.update({f"{kern}_max_abs_err": err for kern, err in errs.items()
+                if kern != route})
     return row, (q, k, v, o, lse, do)
 
 
 def bwd_timing(tensors, case) -> dict:
-    """Times at a timed shape: the backward kernels, the plain version,
-    the autograd backward of ``F.scaled_dot_product_attention`` (GQA) as
-    the library yardstick, the forward kernel with its log-sum-exp and
-    SDPA's forward, and the bounds."""
+    """Times at a timed shape: the backward kernels of the route, design
+    (a)'s wgmma kernels, the earlier ``mma.sync`` kernels and the
+    plain-FMA kernels on the same inputs, the plain version, the autograd backward of
+    ``F.scaled_dot_product_attention`` (GQA) as the library yardstick, the
+    forward kernel with its log-sum-exp and SDPA's forward, and the
+    bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -3060,6 +3075,12 @@ def bwd_timing(tensors, case) -> dict:
     row = {"kernel": ops.kernel_for_bwd(q.dtype, d)}
     row["ms"] = time_ms(lambda i: ops._flash_attention_bwd_cuda(
         q, k, v, o, lse, do, causal, off, scale), iters=10 if big else 40)
+    if row["kernel"] == "wgmma":  # design (a) and mma.sync, same inputs
+        for kern in ("wgmma_a", "mma"):
+            row[f"{kern}_ms"] = time_ms(
+                lambda i: ops._flash_attention_bwd_cuda(
+                    q, k, v, o, lse, do, causal, off, scale, kernel=kern),
+                iters=10 if big else 40)
     if row["kernel"] != "simt":  # the plain-FMA kernels on the same inputs
         row["simt_ms"] = time_ms(lambda i: ops._flash_attention_bwd_cuda(
             q, k, v, o, lse, do, causal, off, scale, kernel="simt"),
@@ -3203,6 +3224,7 @@ def _zero_flash_counters():
     flash_attention.launches = 0
     flash_attention.wgmma_launches = 0
     flash_attention.bwd_launches = 0
+    flash_attention.wgmma_bwd_launches = 0
     flash_attention.mma_bwd_launches = 0
 
 
@@ -3212,6 +3234,7 @@ def _flash_counters() -> dict:
     return {"flash_attention": flash_attention.launches,
             "flash_attention_wgmma": flash_attention.wgmma_launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
+            "flash_attention_bwd_wgmma": flash_attention.wgmma_bwd_launches,
             "flash_attention_bwd_mma": flash_attention.mma_bwd_launches}
 
 
@@ -3251,7 +3274,8 @@ def training_phase(dev, card: str) -> dict:
     L, n = cfg.num_layers, TRAIN_MICRO
     expected = {"flash_attention": 2 * L * n, "flash_attention_wgmma":
                 2 * L * n, "flash_attention_bwd": L * n,
-                "flash_attention_bwd_mma": L * n}
+                "flash_attention_bwd_wgmma": L * n,
+                "flash_attention_bwd_mma": 0}
     rows = []
     for i in range(1 + TRAIN_STEPS):
         _zero_flash_counters()
@@ -3277,8 +3301,8 @@ def training_phase(dev, card: str) -> dict:
             f"{row['tokens_per_s']:.0f} tok/s, 6N share of 989 TFLOP/s "
             f"{row['peak_share']:.3f}; flash launches {launches}")
     peak = torch.cuda.max_memory_allocated()
-    match = ("flash_fwd_wgmma_kernel", "flash_bwd_dot_kernel",
-             "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel")
+    match = ("flash_fwd_wgmma_kernel", "flash_bwd_prep_kernel",
+             "flash_bwd_fused_wgmma_kernel", "flash_bwd_dq_convert_kernel")
     _zero_flash_counters()
     prof = profile_window(lambda: step(state), 1, match=match)
     if _flash_counters() != expected:
@@ -3298,7 +3322,7 @@ def training_phase(dev, card: str) -> dict:
            "launches_per_step": expected,
            "profiled_step": {k: prof[k] for k in (
                "wall_ms", "device_busy_ms", "kernels", "device_idle_share",
-               "top_kernels_ms", "matched")},
+               "top_kernels_ms", "matched", "matched_ms")},
            "card": card}
     res["tokens_per_s"] = tokens / res["wall_s_per_step"]
     res["peak_share"] = 6 * n_params * tokens / res["wall_s_per_step"] \
@@ -3308,7 +3332,7 @@ def training_phase(dev, card: str) -> dict:
         f"{res['tokens_per_s']:.0f} tok/s, 6N share {res['peak_share']:.3f}, "
         f"peak {res['peak_memory_gib']:.2f} GiB; profiled step "
         f"{prof['device_idle_share']:.3f} idle, flash kernels "
-        f"{prof['matched']} = audit")
+        f"{prof['matched']} = audit, device ms {prof['matched_ms']}")
     total = {k: v * (2 + TRAIN_STEPS) for k, v in expected.items()}
     del state, step
     torch.cuda.empty_cache()
@@ -3578,16 +3602,17 @@ def training_examples_phase(dev) -> dict:
 
 # --------------------------------------------------------------------------
 
-# --compare-with DIR: the decode and scan kernels of this checkout and of
-# the checkout at DIR (e.g. the parent commit), timed in turns (DIR, this,
-# this, DIR) on one card, each in its own process with its own build.  The
-# code runs against either package: it uses only the wrappers' public
-# calls, with inputs drawn from fixed seeds.
+# --compare-with DIR: the decode, scan and flash backward kernels of this
+# checkout and of the checkout at DIR (e.g. the parent commit), timed in
+# turns (DIR, this, this, DIR) on one card, each in its own process with
+# its own build.  The code runs against either package: it uses only the
+# wrappers' public calls, with inputs drawn from fixed seeds.
 AB_CODE = r"""
 import json, math, sys
 sys.path.insert(0, sys.argv[1] + "/src")
 import torch
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
 def time_ms(fn, iters):
@@ -3644,6 +3669,20 @@ for name, n_state in (("mamba", 128), ("zamba", 64)):
     sets = [[t.clone() for t in args] for _ in range(n)]
     out["ssd"][name] = time_ms(lambda i: ssd_scan(*sets[i % n], chunk=128,
                                                  impl="cuda"), 20)
+# The flash backward at llama3.2-3b's training shape, on each checkout's
+# own route (the key names it: "mma" before the wgmma kernels, "wgmma" after).
+g = torch.Generator().manual_seed(23)
+b, s, h, kv, d = 1, 4096, 24, 8, 128
+q, do = (torch.randn((b, s, h, d), generator=g).bfloat16().to(dev)
+         for _ in range(2))
+k, v = (torch.randn((b, s, kv, d), generator=g).bfloat16().to(dev)
+        for _ in range(2))
+o, lse = flash_ops._flash_attention_cuda(q, k, v, True, 0, d ** -0.5,
+                                         with_lse=True)
+route = flash_ops.kernel_for_bwd(q.dtype, d)
+out["flash_bwd"] = {"llama_train " + route: time_ms(
+    lambda i: flash_ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, True,
+                                                  0, d ** -0.5), 10)}
 print(json.dumps(out))
 """
 
@@ -3675,6 +3714,12 @@ PTXAS_KERNELS = {
     "ssd_scan": {"n128 q128": "ssd_scan_tc_kernelILi128ELi128E",
                  "n64 q128": "ssd_scan_tc_kernelILi64ELi128E"},
     "flash_attention": {
+        "bwd fused wgmma d128": "flash_bwd_fused_wgmma_kernelILi128E",
+        "bwd fused wgmma d64": "flash_bwd_fused_wgmma_kernelILi64E",
+        "bwd dkdv wgmma d128": "flash_bwd_dkdv_wgmma_kernelILi128E",
+        "bwd dq wgmma d128": "flash_bwd_dq_wgmma_kernelILi128E",
+        "bwd dkdv wgmma d64": "flash_bwd_dkdv_wgmma_kernelILi64E",
+        "bwd dq wgmma d64": "flash_bwd_dq_wgmma_kernelILi64E",
         "bwd dkdv mma d128": "flash_bwd_dkdv_mma_kernelILi128E",
         "bwd dq mma d128": "flash_bwd_dq_mma_kernelILi128E",
         "bwd dkdv mma d64": "flash_bwd_dkdv_mma_kernelILi64E",
@@ -3707,20 +3752,39 @@ def ptxas_summary(name: str) -> dict:
 
 def tensor_core_sass(libs: dict) -> dict:
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in each built
-    library's SASS (``cuobjdump -sass``); raises unless flash_attention and
-    ssd_scan hold HGMMA and decode_attention HMMA."""
+    library's SASS (``cuobjdump -sass``), and per function for the flash
+    backward's tensor-core kernels; raises unless flash_attention and
+    ssd_scan hold HGMMA, decode_attention HMMA, and each wgmma backward
+    kernel HGMMA."""
     from repro_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    out = {}
+    bwd = {label: needle for label, needle in
+           PTXAS_KERNELS["flash_attention"].items() if "mma" in label}
+    out, per_kernel = {}, {}
     for name, path in libs.items():
         sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                               text=True, check=True).stdout.splitlines()
         out[name] = {op: sum(op + "." in line or op + " " in line
                              for line in sass) for op in ("HGMMA", "HMMA")}
+        if name == "flash_attention":
+            label = None
+            for line in sass:
+                if "Function :" in line:
+                    label = next((k for k, v in bwd.items() if v in line),
+                                 None)
+                    if label:
+                        per_kernel[label] = {"HGMMA": 0, "HMMA": 0}
+                elif label:
+                    for op in ("HGMMA", "HMMA"):
+                        per_kernel[label][op] += (op + "." in line
+                                                  or op + " " in line)
+    out["flash_attention_bwd"] = per_kernel
     want = {"flash_attention": "HGMMA", "ssd_scan": "HGMMA",
             "decode_attention": "HMMA"}
-    if any(out[name][op] == 0 for name, op in want.items()):
+    if any(out[name][op] == 0 for name, op in want.items()) or any(
+            per_kernel.get(k, {}).get("HGMMA", 0) == 0
+            for k in bwd if "wgmma" in k):
         raise AssertionError(f"tensor-core instructions missing: {out}")
     return out
 
@@ -3759,8 +3823,9 @@ def main(argv=None) -> int:
                    help="profile the federated slice's rounds 1 and 2 "
                         "instead")
     p.add_argument("--compare-with", metavar="DIR",
-                   help="time the decode and scan kernels of the checkout "
-                        "at DIR against this one's, in turns, instead")
+                   help="time the decode, scan and flash backward kernels "
+                        "of the checkout at DIR against this one's, in "
+                        "turns, instead")
     args = p.parse_args(argv)
 
     import torch

@@ -111,25 +111,76 @@
 //     P = exp(S - lse), D = rowsum(dO o O), dV = P^T dO, dP = dO V^T,
 //     dS = P o (dP - D), dK = dS^T (q scale), dQ = scale dS K,
 //
-// with dK and dV summed over the g query heads of each KV head.  Three
-// launches: flash_bwd_dot_kernel (D), a dK/dV kernel parallel over 64-key
-// tiles that walks every query tile that sees them for each head of the
-// group, and a dQ kernel parallel over 64-row query tiles.  Each output is
-// written by exactly one block, and the sum over a group stays in that
-// block's f32 registers: no float atomics, so the backward is bitwise
-// repeatable like the forward.  bf16 at d = 64, 128 runs on mma.sync
-// m16n8k16 (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel: ldmatrix
-// from padded shared memory, f32 accumulators, P and dS rounded to bf16 in
-// registers as the next product's A fragments); f32 and the other widths
-// on plain f32 FMAs (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel).
+// with dK and dV summed over the g query heads of each KV head.  No float
+// atomics in a run-dependent order: each output has one writer or is
+// summed in a fixed order, so the backward is bitwise repeatable like the
+// forward.
 //
 // Bound at llama3.2-3b's training shape (b = 1, sq = sk = 4096, 24/8 heads
 // of 128, causal, bf16): 10 d flops per causal pair per head, 10 x 128 x
 // 8.39 M x 24 = 257.8 GFLOP, 0.261 ms at 989 TFLOP/s; its bytes (q, o, dO,
 // dQ at 25.2 MB, k, v, dK, dV at 8.4 MB, lse and D) ~135 MB, 0.040 ms at
-// 3.35 TB/s: the flops set it.  The recomputation of S and dP in the dQ
-// kernel makes 7 products per tile pair where the bound counts 5; the
-// design does the rest simply (no TMA, no pipelining across tiles).
+// 3.35 TB/s: the flops set it, so the products must run on wgmma.
+//
+// bf16 at d = 64, 128, every training path's route (wg_bwd below), design
+// (b): dQ summed across key tiles, 5 products per tile pair as the bound
+// counts them.  Three launches:
+//   * flash_bwd_prep_kernel writes D = rowsum(dO o O), lse log2 e (both
+//     padded to 64-row tiles, so a tile's is one aligned 256-byte bulk
+//     copy), q * scale rounded to bf16 (the forward's rounding, so the
+//     product kernel loads it by TMA as it is) and zeroes a turn counter
+//     per (sequence, head, 64-row query tile).
+//   * flash_bwd_fused_wgmma_kernel: one block of 384 threads per (128-key
+//     tile, KV head, sequence), key tile 0 of every head first.  Two
+//     consumer warpgroups own 64 keys each, their K and V tiles loaded
+//     once, and dK and dV in f32 registers (128 a thread at d = 128;
+//     setmaxnreg raises them to 240 and drops the producer to 24).  One
+//     producer thread streams (q * scale, dO, lse, D) of every query tile
+//     that sees the keys, the last tile first and the group's heads inner,
+//     through a 2-stage ring with a full mbarrier (expect_tx) and an empty
+//     one (one arrival per consumer warp) per stage.  Per tile: S^T = K (q
+//     scale)^T and dP^T = V dO^T on SS wgmma m64n64k16 (both K-major from
+//     the 128B-swizzled TMA tiles), the exponentials of P^T while dP^T's
+//     group still runs, dS^T = P^T (dP^T - D), both rounded to bf16 in
+//     registers, then dV += P^T dO and dK += dS^T (q scale) on RS wgmma
+//     (tiles read MN-major) and dQ's partial dS K on SS wgmma from dS^T
+//     written to shared memory in the swizzled layout (both operands
+//     MN-major: the two transpose bits; at d = 128 each warpgroup takes 64
+//     columns over all 128 keys, at d = 64 all columns over its own keys).
+//     The partial goes to shared memory in accumulator-fragment order and
+//     a reducer thread of the producer warpgroup adds it into an f32 sum
+//     in global memory with one bulk copy (cp.reduce.async.bulk .add.f32),
+//     in key-tile order: it waits until the query tile's turn counter
+//     equals its key tile, then raises it once the add has completed.
+//     Key tile 0, every query tile's first contributor, stores instead.
+//     Every block walks the query tiles in the same order, so key tile kt
+//     reaches a tile when kt - 1 does: the turns cost one add's latency
+//     per tile, not a chain of blocks.
+//     Every product runs also where a warpgroup's keys are past sk or
+//     across the diagonal: a branch around a wgmma makes ptxas serialise
+//     them, and those tiles cross an edge, so their entries are 0.
+//   * flash_bwd_dq_convert_kernel: dQ = bf16(scale sum), its rows written
+//     whole through shared memory.
+//   * Masked entries (causal, keys past sk, rows past sq, where TMA's
+//     zero fill gives S = 0 and the padded lse 0, so exp would be 1) are
+//     selected to 0, only in tiles that cross an edge.
+//   * The smem request is over half an SM's, so one block holds an SM: two
+//     blocks' consumers could not both raise their registers.
+//   * The turns need every block of key tile kt - 1 dispatched before key
+//     tile kt's: the grid's linear order (KV head fastest, then key tile)
+//     gives that.
+// Design (a), callable by name for timing, on no path: the prep pass, then
+// flash_bwd_dkdv_wgmma_kernel (the fused kernel without dQ; a 3-stage
+// ring, query tiles first to last per head, a warpgroup whose keys no row
+// sees skips its products) and flash_bwd_dq_wgmma_kernel (a block per
+// 128-row query tile, the heaviest first, that recomputes S and dP: 7
+// products per tile pair where the bound counts 5).  The first design, also
+// callable by name: flash_bwd_dot_kernel, then flash_bwd_dkdv_mma_kernel
+// and flash_bwd_dq_mma_kernel on mma.sync m16n8k16 (ldmatrix from padded
+// shared memory, loads synchronous, 4 warps a block).  f32 and the other
+// widths run on plain f32 FMAs (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel:
+// a dK/dV kernel over key tiles and a dQ kernel over query tiles, after a
+// pass that computes D).
 //
 // Plain C interface, loaded through ctypes; each launch goes on the caller's
 // stream and each entry point returns its cudaError_t.
@@ -1709,6 +1760,1023 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace mma_bwd
 
+// --------------------------------------------------------------------------
+// The backward on Hopper's tensor cores for bf16 at d = 64, 128 (the
+// route on every training path): flash_bwd_prep_kernel, then
+// flash_bwd_fused_wgmma_kernel and flash_bwd_dq_convert_kernel (design
+// (a): flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel instead).
+// The product kernels are warp-specialised: two consumer warpgroups of 64 rows each
+// (wgmma, f32 accumulators in registers, setmaxnreg 240) and a producer
+// warpgroup of which one thread keeps TMA loads in flight through a ring
+// of STAGES stages, each with a full and an empty mbarrier of its own.
+
+namespace wg_bwd {
+
+using bf16 = __nv_bfloat16;
+using tc::BOX_BYTES;
+using tc::BOX_COLS;
+using tc::LOG2E;
+using tc::SW_ROWS8;
+constexpr int ROWS = 64;       // rows of a tile: one wgmma M, one TMA box
+constexpr int CONSUMERS = 2;   // consumer warpgroups
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int STAGES = 3;
+constexpr int FSTAGES = 2;     // the fused kernel's ring (its dS and dQ buffers take the rest)
+constexpr uint32_t RELEASE = CONSUMERS * 4;  // one arrival per consumer warp
+
+constexpr size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
+
+template <int D>
+struct Layout {
+  static constexpr int boxes = D / BOX_COLS;
+  static constexpr uint32_t tile = boxes * BOX_BYTES;  // 64 rows x D bf16
+  // dK/dV: K and V of the block's 128 keys, then the ring of (q * scale,
+  // dO) tiles, then the ring of (lse log2 e, D) vectors of 64 rows each.
+  static constexpr uint32_t kv_k = 0;
+  static constexpr uint32_t kv_v = kv_k + CONSUMERS * tile;
+  static constexpr uint32_t kv_ring = kv_v + CONSUMERS * tile;
+  static constexpr uint32_t kv_vec = kv_ring + STAGES * 2 * tile;
+  static constexpr uint32_t kv_bar = kv_vec + STAGES * 2 * ROWS * 4;
+  // dQ: q * scale and dO of the block's 128 rows, then the ring of (K, V)
+  // tiles of 64 keys.
+  static constexpr uint32_t q_q = 0;
+  static constexpr uint32_t q_do = q_q + CONSUMERS * tile;
+  static constexpr uint32_t q_ring = q_do + CONSUMERS * tile;
+  static constexpr uint32_t q_bar = q_ring + STAGES * 2 * tile;
+  // Barriers: one for the block's fixed tiles, full[STAGES], empty[STAGES].
+  static constexpr uint32_t bars = 8 * (1 + 2 * STAGES);
+  // Fused (design (b)): K and V as for dK/dV, a ring of FSTAGES, then two
+  // dS^T buffers (128 keys x 64 queries bf16, 128B-swizzled, used in turn)
+  // and the consumers' dQ partials (a 64 x 64 f32 block each, in
+  // accumulator-fragment order).
+  static constexpr uint32_t ds_bytes = CONSUMERS * ROWS * ROWS * 2;
+  static constexpr uint32_t dq_bytes = CONSUMERS * ROWS * ROWS * 4;
+  static constexpr uint32_t f_ring = kv_ring;
+  static constexpr uint32_t f_vec = f_ring + FSTAGES * 2 * tile;
+  static constexpr uint32_t f_ds = (f_vec + FSTAGES * 2 * ROWS * 4 + 1023) / 1024 * 1024;
+  static constexpr uint32_t f_dq = f_ds + 2 * ds_bytes;
+  static constexpr uint32_t f_bar = f_dq + dq_bytes;
+  // K/V, full[FSTAGES], empty[FSTAGES], dQ full, dQ empty.
+  static constexpr uint32_t f_bars = 8 * (3 + 2 * FSTAGES);
+  // Over half the SM's 227 KB, so that one block holds an SM: two blocks'
+  // consumers could not both raise their registers to 240 (setmaxnreg
+  // would wait forever).
+  static constexpr size_t one_per_sm = 116 * 1024;
+  static constexpr size_t kv_smem = max_sz(kv_bar + bars + 1024, one_per_sm);  // + alignment slack
+  static constexpr size_t q_smem = max_sz(q_bar + bars + 1024, one_per_sm);
+  static constexpr size_t f_smem = max_sz(f_bar + f_bars + 1024, one_per_sm);
+};
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// A contiguous run of global memory (16-byte aligned, a multiple of 16
+// bytes) into shared memory, counted in bytes on the mbarrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+// Keeps a register A operand live, unmoved, until its wgmma has completed.
+__device__ __forceinline__ void pin_u(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// D (64 x 64, f32) += A (64 x 16) . B (16 x 64), both bf16 from 128B-swizzled
+// shared memory and both MN-major (the two transpose bits).
+__device__ __forceinline__ void wgmma_ss_m64n64_tt(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, 1, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db));
+}
+
+// The fused kernel's ordered sum of dQ partials: a bulk copy (the first
+// key tile) or a bulk f32 add (every later one) of a contiguous run of
+// shared memory into global memory, in a bulk group of the calling thread.
+__device__ __forceinline__ void bulk_store(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_add(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t load_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void add_release(uint32_t* p, uint32_t v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// d / 16 K-steps of a 64 x 64 (x D) product of two K-major 128B-swizzled
+// tiles (64 rows x D each): four 32-byte steps per 64-column box.
+template <int D>
+__device__ __forceinline__ void scores(float (&acc)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * BOX_BYTES + (kk & 3) * 32;
+    tc::wgmma_ss_m64n64(acc, tc::sw128_desc(a + off, 16, SW_ROWS8),
+                        tc::sw128_desc(b + off, 16, SW_ROWS8), 1);
+  }
+}
+
+// acc (64 x D) += A (64 x 64, bf16 registers: four K-steps of 16) . B (a
+// 64 x D tile read MN-major: the transpose bit).
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    tc::wgmma_pv<D>(acc, a[kk], tc::sw128_desc(b + kk * 2 * SW_ROWS8, BOX_BYTES, SW_ROWS8));
+}
+
+// A 64 x 64 f32 accumulator fragment rounded to bf16 as four K-steps of
+// wgmma's register A operand (K-step kk: accumulator elements 8 kk .. 8 kk + 7).
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = tc::pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+}
+
+// For one (64-key, 64-query) tile pair: S^T = K (q scale)^T and dP^T =
+// V dO^T (SS, both K-major), then P^T = exp(S^T - lse) into s (masked
+// entries selected to 0) and dS^T = P^T (dP^T - D) into dp, both f32 in
+// wgmma's accumulator layout.  lv holds the tile's lse log2 e, then its D.
+template <int D>
+__device__ __forceinline__ void tile_grads(float (&s)[32], float (&dp)[32], uint32_t ks,
+                                           uint32_t vs, uint32_t qst, uint32_t dost,
+                                           const float* lv, int q0, int kw0, int key0,
+                                           int key1, int c2, int sq, int sk, int causal,
+                                           int q_offset) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    tc::pin(s[i]);
+    tc::pin(dp[i]);
+  }
+  tc::wg_fence();
+  scores<D>(s, ks, qst);
+  tc::wg_commit();
+  scores<D>(dp, vs, dost);
+  tc::wg_commit();
+  wg_wait_one();  // S^T is in; dP^T may still run
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tc::pin(s[i]);
+
+  // P^T = exp(S^T - lse), masked entries selected to 0: only tiles that
+  // cross the causal diagonal, sq or sk test each entry.
+  const bool edge = q0 + ROWS > sq || kw0 + ROWS > sk ||
+                    (causal && q_offset + q0 < kw0 + ROWS - 1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lv + 8 * j + c2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      float p = tc::exp2_sfu(fmaf(s[i], LOG2E, -((e & 1) ? l2.y : l2.x)));
+      if (edge) {
+        const int qi = q0 + 8 * j + c2 + (e & 1);
+        const int key = (e & 2) ? key1 : key0;
+        const bool valid = key < sk && qi < sq && (!causal || q_offset + qi >= key);
+        p = valid ? p : 0.f;
+      }
+      s[i] = p;
+    }
+  }
+  tc::wg_wait_all();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tc::pin(dp[i]);
+  // dS^T = P^T (dP^T - D).
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 dd = *reinterpret_cast<const float2*>(lv + ROWS + 8 * j + c2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      dp[i] = s[i] * (dp[i] - ((e & 1) ? dd.y : dd.x));
+    }
+  }
+}
+
+// Rows (b, i, h) of q, o and dO, one warp each, over i < sq_pad (the query
+// length rounded up to 64): qs = bf16(q scale) (the forward's rounding),
+// delta = rowsum(dO o O) in f32 and lse2 = lse log2 e, the last two laid
+// out (b, h, sq_pad) with zeros past sq, so that a 64-row tile of either
+// is one aligned 256-byte run.  For the fused kernel it also zeroes the
+// turn counter of each (b, h, 64-row tile).
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ o,
+                      const bf16* __restrict__ dout, const float* __restrict__ lse,
+                      bf16* __restrict__ qs, float* __restrict__ lse2,
+                      float* __restrict__ delta, uint32_t* __restrict__ turns, int rows,
+                      int sq, int sq_pad, int h, float scale) {
+  constexpr int E = D / 32;  // elements per lane
+  const int w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= rows) return;
+  const int hh = w % h;
+  const int rest = w / h;
+  const int i = rest % sq_pad;
+  const int bi = rest / sq_pad;
+  float acc = 0.f;
+  if (i < sq) {
+    const size_t off = ((static_cast<size_t>(bi) * sq + i) * h + hh) * D + lane * E;
+    __nv_bfloat162 ov[E / 2], gv[E / 2], qv[E / 2];
+    if constexpr (E == 4) {
+      *reinterpret_cast<uint2*>(ov) = *reinterpret_cast<const uint2*>(o + off);
+      *reinterpret_cast<uint2*>(gv) = *reinterpret_cast<const uint2*>(dout + off);
+      *reinterpret_cast<uint2*>(qv) = *reinterpret_cast<const uint2*>(q + off);
+    } else {
+      ov[0] = *reinterpret_cast<const __nv_bfloat162*>(o + off);
+      gv[0] = *reinterpret_cast<const __nv_bfloat162*>(dout + off);
+      qv[0] = *reinterpret_cast<const __nv_bfloat162*>(q + off);
+    }
+#pragma unroll
+    for (int e = 0; e < E / 2; ++e) {
+      const float2 of = __bfloat1622float2(ov[e]);
+      const float2 gf = __bfloat1622float2(gv[e]);
+      const float2 qf = __bfloat1622float2(qv[e]);
+      acc = fmaf(of.x, gf.x, acc);
+      acc = fmaf(of.y, gf.y, acc);
+      qv[e] = __floats2bfloat162_rn(qf.x * scale, qf.y * scale);
+    }
+    if constexpr (E == 4) {
+      *reinterpret_cast<uint2*>(qs + off) = *reinterpret_cast<uint2*>(qv);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(qs + off) = qv[0];
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (lane == 0) {
+    const size_t r = (static_cast<size_t>(bi) * h + hh) * sq_pad + i;
+    delta[r] = acc;
+    lse2[r] = i < sq ? lse[(static_cast<size_t>(bi) * h + hh) * sq + i] * LOG2E : 0.f;
+    if (turns != nullptr && i % ROWS == 0) turns[r / ROWS] = 0;
+  }
+}
+
+// Grid (b kv, key tiles of 128): every KV head of key tile 0 first, the
+// heaviest under a causal mask.  Consumer warpgroup w owns keys k0 + 64 w
+// .. + 63 and their dK and dV (64 x D f32 each, in registers).  For each
+// query head of the group and each 64-row query tile that sees the block's
+// keys, in that order (so the sum over the group is taken in one fixed
+// order): S^T = K (q scale)^T and dP^T = V dO^T (SS, both K-major),
+// P^T = exp(S^T - lse) and dS^T = P^T (dP^T - D) in registers, then dV +=
+// P^T dO and dK += dS^T (q scale) (RS: the bf16 accumulators as A, the
+// tiles read MN-major as B).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qs_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const float* __restrict__ lse2, const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                            int h, int kvh, int causal, int q_offset) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const float* vec = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kv_vec);
+  const uint32_t bar = base + L::kv_bar;  // K/V; full s at 8 (1 + s); empty s at 8 (1 + STAGES + s)
+
+  const int hk = blockIdx.x % kvh;
+  const int bi = blockIdx.x / kvh;
+  const int k0 = blockIdx.y * CONSUMERS * ROWS;
+  const int g = h / kvh;
+  const int nq = (sq + ROWS - 1) / ROWS;
+  const int sq_pad = nq * ROWS;
+  // Query tile qb sees key k0 iff q_offset + 64 qb + 63 >= k0.
+  const int q_first = causal ? min(nq, max(0, k0 - q_offset) / ROWS) : 0;
+  const int per_head = nq - q_first;
+  const int n_it = g * per_head;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(bar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      tc::mbar_init(bar + 8u * (1 + s), 1);
+      tc::mbar_init(bar + 8u * (1 + STAGES + s), RELEASE);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * 128) {  // the producer warpgroup
+    regs_dealloc<24>();
+    if (threadIdx.x == CONSUMERS * 128 && n_it > 0) {
+      tc::mbar_expect_tx(bar, 2 * CONSUMERS * L::tile);
+#pragma unroll
+      for (int w = 0; w < CONSUMERS; ++w)
+#pragma unroll
+        for (int x = 0; x < L::boxes; ++x) {
+          const uint32_t off = w * L::tile + x * BOX_BYTES;
+          tc::tma_load_4d(base + L::kv_k + off, &k_map, bar, x * BOX_COLS, hk, k0 + w * ROWS, bi);
+          tc::tma_load_4d(base + L::kv_v + off, &v_map, bar, x * BOX_COLS, hk, k0 + w * ROWS, bi);
+        }
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_it; ++it) {
+        if (it >= STAGES) tc::mbar_wait(bar + 8u * (1 + STAGES + stage), phase ^ 1);
+        const int hh = hk * g + it / per_head;
+        const int q0 = (q_first + it % per_head) * ROWS;
+        const uint32_t full = bar + 8u * (1 + stage);
+        const uint32_t ring = base + L::kv_ring + stage * 2 * L::tile;
+        tc::mbar_expect_tx(full, 2 * L::tile + 2 * ROWS * 4);
+#pragma unroll
+        for (int x = 0; x < L::boxes; ++x) {
+          tc::tma_load_4d(ring + x * BOX_BYTES, &qs_map, full, x * BOX_COLS, hh, q0, bi);
+          tc::tma_load_4d(ring + L::tile + x * BOX_BYTES, &do_map, full, x * BOX_COLS, hh, q0, bi);
+        }
+        const size_t r = (static_cast<size_t>(bi) * h + hh) * sq_pad + q0;
+        const uint32_t v_s = base + L::kv_vec + stage * 2 * ROWS * 4;
+        bulk_load(v_s, lse2 + r, ROWS * 4, full);
+        bulk_load(v_s + ROWS * 4, delta + r, ROWS * 4, full);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  regs_alloc<240>();
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  // Accumulator fragment of wgmma m64nN: this thread holds rows r0 and r0
+  // + 8 of its warpgroup's 64; element i sits in row r0 + 8 ((i >> 1) & 1)
+  // and column 8 (i >> 2) + c2 + (i & 1).
+  const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int c2 = (lane & 3) * 2;
+  const int kw0 = k0 + wg * ROWS;
+  const int key0 = kw0 + r0;
+  const int key1 = key0 + 8;
+  const uint32_t ks = base + L::kv_k + wg * L::tile;
+  const uint32_t vs = base + L::kv_v + wg * L::tile;
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  if (n_it > 0) tc::mbar_wait(bar, 0);
+  int stage = 0, phase = 0;
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = (q_first + it % per_head) * ROWS;
+    tc::mbar_wait(bar + 8u * (1 + stage), phase);
+    // Skipped (uniformly across the warpgroup) when no row of the tile sees
+    // any of its keys: every product would be masked to zero.
+    const int last_row = min(q0 + ROWS, sq) - 1;
+    if (kw0 < sk && (!causal || q_offset + last_row >= kw0)) {
+      const uint32_t qst = base + L::kv_ring + stage * 2 * L::tile;
+      const uint32_t dost = qst + L::tile;
+      const float* lv = vec + stage * 2 * ROWS;  // lse log2 e, then D
+
+      float s[32], dp[32];
+      tile_grads<D>(s, dp, ks, vs, qst, dost, lv, q0, kw0, key0, key1, c2, sq, sk, causal,
+                    q_offset);
+      uint32_t pa[4][4], da[4][4];
+      pack_a(pa, s);
+      pack_a(da, dp);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        tc::pin(dva[i]);
+        tc::pin(dka[i]);
+      }
+      tc::wg_fence();
+      accumulate<D>(dva, pa, dost);
+      accumulate<D>(dka, da, qst);
+      tc::wg_commit();
+      tc::wg_wait_all();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        tc::pin(dva[i]);
+        tc::pin(dka[i]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pin_u(pa[kk][e]);
+          pin_u(da[kk][e]);
+        }
+    }
+    // This warp is done with the stage (its wgmmas have completed).
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar + 8u * (1 + STAGES + stage));
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  const size_t row_stride = static_cast<size_t>(kvh) * D;
+  const size_t head = static_cast<size_t>(bi) * sk * row_stride + static_cast<size_t>(hk) * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key1 : key0;
+    if (key >= sk) continue;
+    bf16* kd = dk + head + static_cast<size_t>(key) * row_stride;
+    bf16* vd = dv + head + static_cast<size_t>(key) * row_stride;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(kd + 8 * j + c2) =
+          __floats2bfloat162_rn(dka[4 * j + 2 * half], dka[4 * j + 2 * half + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(vd + 8 * j + c2) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * half], dva[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// Design (b): dK, dV and dQ in one kernel.  Grid, warpgroups and ring as
+// flash_bwd_dkdv_wgmma_kernel, but the items run query tile outer (the
+// last first) and group head inner, and each also takes the block's dQ
+// partial of the tile: both consumer warpgroups put dS^T (bf16) into
+// shared memory, then compute dQ_part = dS K (SS, both operands MN-major;
+// at d = 128 warpgroup w takes columns 64 w .. + 63, at d = 64 all
+// columns over its own keys) and store it in accumulator-fragment order.
+// A reducer thread of the producer warpgroup
+// adds each partial into dq_acc (b, h, query tiles, 64 x D f32 in that
+// order) by bulk copy, in key-tile order: it waits until the tile's turn
+// counter equals its key tile, and raises it once its add has completed.
+// Key tile 0, the first contributor of every query tile, stores rather
+// than adds, so dq_acc needs no zeroing.  Every block walks the query
+// tiles in the same order, so key tile kt reaches a tile when kt - 1 does
+// and the turns cost one add's latency, not a chain of whole blocks.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap qs_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const float* __restrict__ lse2, const float* __restrict__ delta,
+                             float* __restrict__ dq_acc, uint32_t* __restrict__ turns,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                             int h, int kvh, int causal, int q_offset) {
+  using L = Layout<D>;
+  constexpr uint32_t DQ_BYTES = D / 64 * ROWS * ROWS * 4;  // a tile's dQ (64 x D f32)
+  constexpr uint32_t DQ_FLOATS = DQ_BYTES / 4;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const float* vec = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::f_vec);
+  float* dq_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::f_dq);
+  // K/V at 0; full s at 8 (1 + s); empty s at 8 (1 + FSTAGES + s); dQ full,
+  // dQ empty after them.
+  const uint32_t bar = base + L::f_bar;
+  const uint32_t dq_full = bar + 8u * (1 + 2 * FSTAGES);
+  const uint32_t dq_empty = dq_full + 8u;
+
+  const int hk = blockIdx.x % kvh;
+  const int bi = blockIdx.x / kvh;
+  const int kt = blockIdx.y;
+  const int k0 = kt * CONSUMERS * ROWS;
+  const int g = h / kvh;
+  const int nq = (sq + ROWS - 1) / ROWS;
+  const int sq_pad = nq * ROWS;
+  const int q_first = causal ? min(nq, max(0, k0 - q_offset) / ROWS) : 0;
+  const int n_it = g * (nq - q_first);
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(bar, 1);
+#pragma unroll
+    for (int s = 0; s < FSTAGES; ++s) {
+      tc::mbar_init(bar + 8u * (1 + s), 1);
+      tc::mbar_init(bar + 8u * (1 + FSTAGES + s), RELEASE);
+    }
+    tc::mbar_init(dq_full, CONSUMERS * 4);
+    tc::mbar_init(dq_empty, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * 128) {  // the producer warpgroup
+    regs_dealloc<24>();
+    if (n_it == 0) return;
+    if (threadIdx.x == CONSUMERS * 128) {  // TMA loads
+      tc::mbar_expect_tx(bar, 2 * CONSUMERS * L::tile);
+#pragma unroll
+      for (int w = 0; w < CONSUMERS; ++w)
+#pragma unroll
+        for (int x = 0; x < L::boxes; ++x) {
+          const uint32_t off = w * L::tile + x * BOX_BYTES;
+          tc::tma_load_4d(base + L::kv_k + off, &k_map, bar, x * BOX_COLS, hk, k0 + w * ROWS, bi);
+          tc::tma_load_4d(base + L::kv_v + off, &v_map, bar, x * BOX_COLS, hk, k0 + w * ROWS, bi);
+        }
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_it; ++it) {
+        if (it >= FSTAGES) tc::mbar_wait(bar + 8u * (1 + FSTAGES + stage), phase ^ 1);
+        const int hh = hk * g + it % g;
+        const int q0 = (nq - 1 - it / g) * ROWS;
+        const uint32_t full = bar + 8u * (1 + stage);
+        const uint32_t ring = base + L::f_ring + stage * 2 * L::tile;
+        tc::mbar_expect_tx(full, 2 * L::tile + 2 * ROWS * 4);
+#pragma unroll
+        for (int x = 0; x < L::boxes; ++x) {
+          tc::tma_load_4d(ring + x * BOX_BYTES, &qs_map, full, x * BOX_COLS, hh, q0, bi);
+          tc::tma_load_4d(ring + L::tile + x * BOX_BYTES, &do_map, full, x * BOX_COLS, hh, q0, bi);
+        }
+        const size_t r = (static_cast<size_t>(bi) * h + hh) * sq_pad + q0;
+        const uint32_t v_s = base + L::f_vec + stage * 2 * ROWS * 4;
+        bulk_load(v_s, lse2 + r, ROWS * 4, full);
+        bulk_load(v_s + ROWS * 4, delta + r, ROWS * 4, full);
+        if (++stage == FSTAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    } else if (threadIdx.x == CONSUMERS * 128 + 32) {  // the ordered dQ adds
+      for (int it = 0; it < n_it; ++it) {
+        tc::mbar_wait(dq_full, it & 1);
+        const size_t t = (static_cast<size_t>(bi) * h + hk * g + it % g) * nq + (nq - 1 - it / g);
+        float* dst = dq_acc + t * DQ_FLOATS;
+        if (kt == 0) {
+          bulk_store(dst, base + L::f_dq, DQ_BYTES);
+        } else {
+          while (load_acquire(turns + t) != static_cast<uint32_t>(kt)) __nanosleep(64);
+          fence_async_global();
+          bulk_add(dst, base + L::f_dq, DQ_BYTES);
+        }
+        if constexpr (D == 64) {  // the second warpgroup's keys' partial
+          bulk_commit();
+          bulk_wait();
+          bulk_add(dst, base + L::f_dq + DQ_BYTES, DQ_BYTES);
+        }
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(dq_empty);  // the buffer may be refilled
+        bulk_wait();
+        fence_async_global();
+        add_release(turns + t, 1);
+      }
+    }
+    return;
+  }
+
+  regs_alloc<240>();
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  const int c2 = (lane & 3) * 2;
+  const int kw0 = k0 + wg * ROWS;
+  const int key0 = kw0 + r0;
+  const int key1 = key0 + 8;
+  const uint32_t ks = base + L::kv_k + wg * L::tile;
+  const uint32_t vs = base + L::kv_v + wg * L::tile;
+  // This warpgroup's dQ product: at d = 128 columns 64 wg .. + 63 over
+  // all 128 keys (8 K-steps, B = box wg of the K tiles); at d = 64 all 64
+  // columns over its own 64 keys (4 K-steps), the two partials added in
+  // turn.  The same instructions on every warpgroup: a branch around a
+  // wgmma would make ptxas serialise them.
+  constexpr int DQ_STEPS = D == 128 ? 8 : 4;
+  const int dq_k0 = D == 128 ? 0 : 4 * wg;
+  const uint32_t dq_b = base + L::kv_k + (D == 128 ? wg * BOX_BYTES : 0);
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  if (n_it > 0) tc::mbar_wait(bar, 0);
+  int stage = 0, phase = 0;
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = (nq - 1 - it / g) * ROWS;
+    tc::mbar_wait(bar + 8u * (1 + stage), phase);
+    // Every item runs every product, also where no row of the tile sees a
+    // warpgroup's keys (past sk, or on the diagonal's far side): those
+    // tiles cross an edge, so every entry is selected to 0.
+    const uint32_t qst = base + L::f_ring + stage * 2 * L::tile;
+    const uint32_t dost = qst + L::tile;
+    const uint32_t ds = base + L::f_ds + (it & 1) * L::ds_bytes;
+    const float* lv = vec + stage * 2 * ROWS;
+    float s[32], dp[32];
+    tile_grads<D>(s, dp, ks, vs, qst, dost, lv, q0, kw0, key0, key1, c2, sq, sk, causal,
+                  q_offset);
+    uint32_t pa[4][4], da[4][4];
+    pack_a(pa, s);
+    pack_a(da, dp);
+    // dS^T into rows 64 wg + r0 (+ 8) of the swizzled buffer: the word of
+    // columns 8 c + c2, c2 + 1 goes to 16-byte chunk c ^ (row & 7).
+    const uint32_t row = ds + (wg * ROWS + r0) * 128 + (lane & 3) * 4;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t chunk = (2 * kk + (e >> 1)) ^ (lane >> 2);
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(row + (e & 1) * 8 * 128 + chunk * 16),
+                     "r"(da[kk][e])
+                     : "memory");
+      }
+    fence_async_shared();
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both halves of dS^T are in
+
+    float dqa[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tc::pin(dqa[i]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      tc::pin(dva[i]);
+      tc::pin(dka[i]);
+    }
+    tc::wg_fence();
+    accumulate<D>(dva, pa, dost);
+    accumulate<D>(dka, da, qst);
+#pragma unroll
+    for (int kk = 0; kk < DQ_STEPS; ++kk) {
+      const int k = dq_k0 + kk;  // K-step of 16 keys: A is dS^T's buffer
+      wgmma_ss_m64n64_tt(dqa, tc::sw128_desc(ds + k * 2 * SW_ROWS8, BOX_BYTES, SW_ROWS8),
+                         tc::sw128_desc(dq_b + (k >> 2) * L::tile + (k & 3) * 2 * SW_ROWS8,
+                                        BOX_BYTES, SW_ROWS8));
+    }
+    tc::wg_commit();
+    tc::wg_wait_all();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tc::pin(dqa[i]);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      tc::pin(dva[i]);
+      tc::pin(dka[i]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pin_u(pa[kk][e]);
+        pin_u(da[kk][e]);
+      }
+    if (it > 0) tc::mbar_wait(dq_empty, (it - 1) & 1);
+    float4* dst = reinterpret_cast<float4*>(dq_s) + wg * 8 * 128 + tid;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      dst[j * 128] = make_float4(dqa[4 * j], dqa[4 * j + 1], dqa[4 * j + 2], dqa[4 * j + 3]);
+    fence_async_shared();
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(dq_full);
+      mbar_arrive(bar + 8u * (1 + FSTAGES + stage));
+    }
+    if (++stage == FSTAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  const size_t row_stride = static_cast<size_t>(kvh) * D;
+  const size_t head = static_cast<size_t>(bi) * sk * row_stride + static_cast<size_t>(hk) * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key1 : key0;
+    if (key >= sk) continue;
+    bf16* kd = dk + head + static_cast<size_t>(key) * row_stride;
+    bf16* vd = dv + head + static_cast<size_t>(key) * row_stride;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(kd + 8 * j + c2) =
+          __floats2bfloat162_rn(dka[4 * j + 2 * half], dka[4 * j + 2 * half + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(vd + 8 * j + c2) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * half], dva[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// dq = bf16(scale dq_acc): a block of 128 threads per (b, h, 64-row tile).
+// Thread t reads the fragment words thread t of each warpgroup stored
+// (coalesced float4 runs) and puts them in shared memory by row; then
+// each row of dq (D bf16, contiguous) is written in 16-byte pieces.
+template <int D>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_convert_kernel(const float* __restrict__ dq_acc, bf16* __restrict__ dq, int sq,
+                            int h, int nq, float scale) {
+  constexpr int PITCH = D + 4;  // f32 per row in shared memory, padded
+  __shared__ float tile[ROWS * PITCH];
+  const int t = blockIdx.x;
+  const int qt = t % nq;
+  const int hh = (t / nq) % h;
+  const int bi = t / nq / h;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  const int c2 = (lane & 3) * 2;
+  const float4* src = reinterpret_cast<const float4*>(dq_acc) +
+                      static_cast<size_t>(t) * (D / 64) * 8 * 128 + tid;
+#pragma unroll
+  for (int w = 0; w < D / 64; ++w)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 x = src[(w * 8 + j) * 128];
+      const int col = 64 * w + 8 * j + c2;
+      *reinterpret_cast<float2*>(tile + r0 * PITCH + col) = make_float2(x.x, x.y);
+      *reinterpret_cast<float2*>(tile + (r0 + 8) * PITCH + col) = make_float2(x.z, x.w);
+    }
+  __syncthreads();
+  constexpr int PIECES = D / 8;  // 16-byte pieces per row
+  const size_t row_stride = static_cast<size_t>(h) * D;
+  bf16* out = dq + (static_cast<size_t>(bi) * sq + qt * ROWS) * row_stride +
+              static_cast<size_t>(hh) * D;
+  for (int i = tid; i < ROWS * PIECES; i += 128) {
+    const int r = i / PIECES;
+    const int c = (i % PIECES) * 8;
+    if (qt * ROWS + r >= sq) break;  // rows go up with i
+    const float* x = tile + r * PITCH + c;
+    uint4 v;
+    v.x = tc::pack_bf16(x[0] * scale, x[1] * scale);
+    v.y = tc::pack_bf16(x[2] * scale, x[3] * scale);
+    v.z = tc::pack_bf16(x[4] * scale, x[5] * scale);
+    v.w = tc::pack_bf16(x[6] * scale, x[7] * scale);
+    *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * row_stride + c) = v;
+  }
+}
+
+// Grid (b h, query tiles of 128), the heaviest causal tiles first.
+// Consumer warpgroup w owns rows q0 + 64 w .. + 63 and their dQ (64 x D
+// f32 in registers), and walks the 64-key tiles they see: S = (q scale)
+// K^T and dP = dO V^T (SS), P = exp(S - lse) and dS = P (dP - D) in
+// registers, dQ += dS K (RS, K read MN-major); dQ = scale dQ.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qs_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const float* __restrict__ lse2, const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int sq, int sk, int h, int g, int causal,
+                          int q_offset, float scale) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bar = base + L::q_bar;  // Q/dO; full s at 8 (1 + s); empty s at 8 (1 + STAGES + s)
+
+  const int hh = blockIdx.x % h;
+  const int bi = blockIdx.x / h;
+  const int hk = hh / g;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qb * CONSUMERS * ROWS;
+  const int nk = (sk + ROWS - 1) / ROWS;
+  // Key tiles above the causal diagonal of the block's last row below sq
+  // are never loaded.
+  const int last_row = min(q0 + CONSUMERS * ROWS, sq) - 1;
+  const int n_tiles = causal ? min(nk, (q_offset + last_row) / ROWS + 1) : nk;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(bar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      tc::mbar_init(bar + 8u * (1 + s), 1);
+      tc::mbar_init(bar + 8u * (1 + STAGES + s), RELEASE);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * 128) {  // the producer warpgroup
+    regs_dealloc<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      tc::mbar_expect_tx(bar, 2 * CONSUMERS * L::tile);
+#pragma unroll
+      for (int w = 0; w < CONSUMERS; ++w)
+#pragma unroll
+        for (int x = 0; x < L::boxes; ++x) {
+          const uint32_t off = w * L::tile + x * BOX_BYTES;
+          tc::tma_load_4d(base + L::q_q + off, &qs_map, bar, x * BOX_COLS, hh, q0 + w * ROWS, bi);
+          tc::tma_load_4d(base + L::q_do + off, &do_map, bar, x * BOX_COLS, hh, q0 + w * ROWS, bi);
+        }
+      int stage = 0, phase = 0;
+      for (int kb = 0; kb < n_tiles; ++kb) {
+        if (kb >= STAGES) tc::mbar_wait(bar + 8u * (1 + STAGES + stage), phase ^ 1);
+        const uint32_t full = bar + 8u * (1 + stage);
+        const uint32_t ring = base + L::q_ring + stage * 2 * L::tile;
+        tc::mbar_expect_tx(full, 2 * L::tile);
+#pragma unroll
+        for (int x = 0; x < L::boxes; ++x) {
+          tc::tma_load_4d(ring + x * BOX_BYTES, &k_map, full, x * BOX_COLS, hk, kb * ROWS, bi);
+          tc::tma_load_4d(ring + L::tile + x * BOX_BYTES, &v_map, full, x * BOX_COLS, hk,
+                          kb * ROWS, bi);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  regs_alloc<240>();
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int c2 = (lane & 3) * 2;
+  const int wq0 = q0 + wg * ROWS;
+  const int row0 = wq0 + r0;
+  const int row1 = row0 + 8;
+  const int wg_last = min(wq0 + ROWS, sq) - 1;
+  const int wg_tiles = wq0 >= sq ? 0 : causal ? min(nk, (q_offset + wg_last) / ROWS + 1) : nk;
+  const uint32_t qw = base + L::q_q + wg * L::tile;
+  const uint32_t dow = base + L::q_do + wg * L::tile;
+  const size_t vrow = (static_cast<size_t>(bi) * h + hh) * (((sq + ROWS - 1) / ROWS) * ROWS);
+  const float l0 = row0 < sq ? lse2[vrow + row0] : 0.f;
+  const float l1 = row1 < sq ? lse2[vrow + row1] : 0.f;
+  const float d0 = row0 < sq ? delta[vrow + row0] : 0.f;
+  const float d1 = row1 < sq ? delta[vrow + row1] : 0.f;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  tc::mbar_wait(bar, 0);
+  int stage = 0, phase = 0;
+  for (int kb = 0; kb < n_tiles; ++kb) {
+    tc::mbar_wait(bar + 8u * (1 + stage), phase);
+    if (kb < wg_tiles) {  // uniform across the warpgroup
+      const uint32_t kst = base + L::q_ring + stage * 2 * L::tile;
+      const uint32_t vst = kst + L::tile;
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        tc::pin(s[i]);
+        tc::pin(dp[i]);
+      }
+      tc::wg_fence();
+      scores<D>(s, qw, kst);
+      tc::wg_commit();
+      scores<D>(dp, dow, vst);
+      tc::wg_commit();
+      wg_wait_one();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tc::pin(s[i]);
+
+      const int kt0 = kb * ROWS;
+      const bool edge = kt0 + ROWS > sk || wq0 + ROWS > sq ||
+                        (causal && kt0 + ROWS - 1 > q_offset + wq0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float p = tc::exp2_sfu(fmaf(s[i], LOG2E, -((i & 2) ? l1 : l0)));
+        if (edge) {
+          const int key = kt0 + (i >> 2) * 8 + c2 + (i & 1);
+          const int row = (i & 2) ? row1 : row0;
+          const bool valid = key < sk && row < sq && (!causal || q_offset + row >= key);
+          p = valid ? p : 0.f;
+        }
+        s[i] = p;
+      }
+      tc::wg_wait_all();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tc::pin(dp[i]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - ((i & 2) ? d1 : d0));
+      uint32_t da[4][4];
+      pack_a(da, dp);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) tc::pin(acc[i]);
+      tc::wg_fence();
+      accumulate<D>(acc, da, kst);
+      tc::wg_commit();
+      tc::wg_wait_all();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) tc::pin(acc[i]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pin_u(da[kk][e]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar + 8u * (1 + STAGES + stage));
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  const size_t row_stride = static_cast<size_t>(h) * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row1 : row0;
+    if (row >= sq) continue;
+    bf16* dst = dq + (static_cast<size_t>(bi) * sq + row) * row_stride + static_cast<size_t>(hh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + c2) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
+  }
+}
+
+// dq_acc and turns null: design (a), the dQ kernel; given: design (b), the
+// fused kernel and the conversion.
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
+                   const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                   void* qs, float* lse2, float* delta, float* dq_acc, uint32_t* turns, int b,
+                   int sq, int sk, int h, int kvh, int causal, int q_offset, float scale,
+                   cudaStream_t stream) {
+  using L = Layout<D>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L::kv_smem));
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L::q_smem));
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(flash_bwd_fused_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L::f_smem));
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const tc::EncodeTiled encode = tc::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const bool fused = dq_acc != nullptr;
+  const int nq = (sq + ROWS - 1) / ROWS;
+  const int sq_pad = nq * ROWS;
+  const int rows = b * sq_pad * h;
+  flash_bwd_prep_kernel<D><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+      lse, static_cast<bf16*>(qs), lse2, delta, fused ? turns : nullptr, rows, sq, sq_pad, h,
+      scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  CUtensorMap qs_map, do_map, k_map, v_map;
+  if (!tc::make_map(encode, &qs_map, qs, b, sq, h, D, ROWS) ||
+      !tc::make_map(encode, &do_map, dout, b, sq, h, D, ROWS) ||
+      !tc::make_map(encode, &k_map, k, b, sk, kvh, D, ROWS) ||
+      !tc::make_map(encode, &v_map, v, b, sk, kvh, D, ROWS)) {
+    return cudaErrorInvalidValue;
+  }
+  const int span = CONSUMERS * ROWS;
+  const dim3 kv_grid(static_cast<unsigned>(b * kvh), static_cast<unsigned>((sk + span - 1) / span));
+  if (fused) {
+    flash_bwd_fused_wgmma_kernel<D><<<kv_grid, THREADS, L::f_smem, stream>>>(
+        qs_map, do_map, k_map, v_map, lse2, delta, dq_acc, turns, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), sq, sk, h, kvh, causal, q_offset);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    flash_bwd_dq_convert_kernel<D><<<b * h * nq, 128, 0, stream>>>(
+        dq_acc, static_cast<bf16*>(dq), sq, h, nq, scale);
+    return cudaGetLastError();
+  }
+  flash_bwd_dkdv_wgmma_kernel<D><<<kv_grid, THREADS, L::kv_smem, stream>>>(
+      qs_map, do_map, k_map, v_map, lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      sq, sk, h, kvh, causal, q_offset);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 q_grid(static_cast<unsigned>(b * h), static_cast<unsigned>((sq + span - 1) / span));
+  flash_bwd_dq_wgmma_kernel<D><<<q_grid, THREADS, L::q_smem, stream>>>(
+      qs_map, do_map, k_map, v_map, lse2, delta, static_cast<bf16*>(dq), sq, sk, h, h / kvh,
+      causal, q_offset, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace wg_bwd
+
 }  // namespace
 
 
@@ -1803,6 +2871,41 @@ extern "C" int flash_attention_bwd_mma_launch(
     err = mma_bwd::launch<64>(q, k, v, o, l, dout, dq, dk, dv, dl, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
   } else if (d == 128) {
     err = mma_bwd::launch<128>(q, k, v, o, l, dout, dq, dk, dv, dl, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+  }
+  return static_cast<int>(err);
+}
+
+// The backward's Hopper kernels: bf16 only, d 64 or 128.  As
+// flash_attention_bwd_launch, plus the scratch the kernels write and read:
+// qs (b, sq, h, d) bf16 (q * scale), and lse2 and delta, each (b, h,
+// sq_pad) f32, where sq_pad is sq rounded up to the kernels' 64-row tile
+// (the call is refused if it is not).  dq_acc and turns null: design (a),
+// three launches (prep, dK/dV, dQ).  Given: design (b), dq_acc (b, h,
+// sq_pad, d) f32 and turns (b, h, sq_pad / 64) u32, three launches (prep,
+// the fused kernel, the dQ conversion).
+extern "C" int flash_attention_bwd_wgmma_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* qs, void* lse2, void* delta, void* dq_acc, void* turns, int sq_pad,
+    int b, int sq, int sk, int h, int kvh, int d, int causal, int q_offset,
+    float scale, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || h < kvh || h % kvh != 0 ||
+      h > 65535 || b > 65535 || q_offset < 0 ||
+      sq_pad != (sq + wg_bwd::ROWS - 1) / wg_bwd::ROWS * wg_bwd::ROWS ||
+      (dq_acc == nullptr) != (turns == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* l = static_cast<const float*>(lse);
+  float* l2 = static_cast<float*>(lse2);
+  float* dl = static_cast<float*>(delta);
+  float* acc = static_cast<float*>(dq_acc);
+  uint32_t* t = static_cast<uint32_t*>(turns);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (d == 64) {
+    err = wg_bwd::launch<64>(q, k, v, o, l, dout, dq, dk, dv, qs, l2, dl, acc, t, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
+  } else if (d == 128) {
+    err = wg_bwd::launch<128>(q, k, v, o, l, dout, dq, dk, dv, qs, l2, dl, acc, t, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
   }
   return static_cast<int>(err);
 }

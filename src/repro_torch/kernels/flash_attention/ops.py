@@ -26,17 +26,24 @@ Training goes through :class:`FlashAttention`, a ``torch.autograd.Function``
 (``setup_context`` style, with a ``vmap`` rule, so ``torch.func``'s
 ``vmap(grad(...))`` of a model runs it).  Its forward is the kernel above
 asked also for each row's log-sum-exp; its backward is the hand-written
-backward (``csrc/flash_attention.cu``: ``flash_bwd_dot_kernel``, then a
-dK/dV kernel and a dQ kernel, on ``mma.sync`` for bf16 at d = 64, 128 and
-plain FMAs otherwise) for CUDA tensors, chosen by :func:`kernel_for_bwd`,
-and ``attention_bwd_ref`` for CPU tensors.  There is no fallback between them.
+backward (``csrc/flash_attention.cu``) for CUDA tensors, chosen by
+:func:`kernel_for_bwd`, and ``attention_bwd_ref`` for CPU tensors.  There
+is no fallback between them.  bf16 at d = 64, 128 runs on ``wgmma`` with
+TMA: a prep pass, one kernel for dK, dV and dQ (dQ's partials summed
+across key tiles in a fixed order) and a pass that casts dQ; everything
+else runs a dK/dV kernel and a dQ kernel on plain FMAs.  Two earlier
+tensor-core backwards stay callable by name for timing beside it, on no
+path: ``kernel="wgmma_a"`` (a dK/dV kernel and a dQ kernel that
+recomputes S and dP) and ``kernel="mma"`` (``mma.sync``).
 
 ``flash_attention.launches`` counts kernel launches of either forward
 kernel (one per call that reaches a kernel),
 ``flash_attention.wgmma_launches`` those of the tensor-core kernel alone,
 and ``flash_attention.bwd_launches`` the backward's calls (one per
-backward, its three kernels together) and ``flash_attention.mma_bwd_launches``
-those on the tensor cores; nothing else touches them.  When a
+backward, its three kernels together), ``flash_attention.wgmma_bwd_launches``
+those on ``wgmma`` (the route or ``wgmma_a``) and
+``flash_attention.mma_bwd_launches`` those on ``mma.sync``; nothing else
+touches them.  When a
 caller sets ``flash_attention.shapes`` (``bwd_shapes``) to a set, each
 forward (backward) launch also adds its ``(b, sq, sk, h, kv, d, causal,
 q_offset, dtype name)`` to it.
@@ -64,6 +71,10 @@ HEAD_DIMS = (16, 32, 64, 128, 256)  # head widths the kernels are built for
 WGMMA_HEAD_DIMS = (64, 128)  # bf16 widths the tensor-core kernel takes
 BWD_HEAD_DIMS = (16, 32, 64, 128)  # head widths the backward is built for
 TILE = (64, 64)  # the kernels' (query rows, keys) per warpgroup step
+# The Hopper backward's row tile (wg_bwd::ROWS in csrc/flash_attention.cu):
+# its lse, D and turn-counter scratch is padded to it, and the launch
+# refuses a padding that does not match its own.
+BWD_ROWS = 64
 
 _lib = None
 
@@ -90,6 +101,10 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.flash_attention_bwd_wgmma_launch
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -112,10 +127,10 @@ def kernel_for(dtype: torch.dtype, d: int) -> str:
 
 def kernel_for_bwd(dtype: torch.dtype, d: int) -> str:
     """The backward kernels a CUDA call with this dtype and head width
-    launches: ``"mma"`` (bf16 at d in ``WGMMA_HEAD_DIMS``: ``mma.sync`` on
-    the tensor cores) or ``"simt"`` (f32 at any of ``BWD_HEAD_DIMS``, bf16
-    at the others: plain FMAs; f32 on tensor cores would be TF32).  Raises
-    for what neither takes; a pure function of its arguments."""
+    launches: ``"wgmma"`` (bf16 at d in ``WGMMA_HEAD_DIMS``: ``wgmma`` and
+    TMA on the tensor cores) or ``"simt"`` (f32 at any of ``BWD_HEAD_DIMS``,
+    bf16 at the others: plain FMAs; f32 on tensor cores would be TF32).
+    Raises for what neither takes; a pure function of its arguments."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention backward takes float32 or "
                         f"bfloat16, got {dtype}")
@@ -123,7 +138,7 @@ def kernel_for_bwd(dtype: torch.dtype, d: int) -> str:
         raise ValueError(f"flash_attention backward takes head_dim in "
                          f"{BWD_HEAD_DIMS}, got {d}")
     if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
-        return "mma"
+        return "wgmma"
     return "simt"
 
 
@@ -193,15 +208,17 @@ def _flash_attention_cuda(q, k, v, causal, q_offset, scale, kernel=None, *,
 def _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, q_offset, scale,
                               kernel=None):
     """The backward kernels on CUDA tensors: ``(dq, dk, dv)``; ``kernel``
-    (by default ``kernel_for_bwd(q.dtype, d)``; the smoke names ``"simt"``
-    to time the plain-FMA kernels on bf16)."""
+    (by default ``kernel_for_bwd(q.dtype, d)``; the smoke names
+    ``"wgmma_a"``, ``"mma"`` and ``"simt"`` to time the earlier wgmma
+    design, the ``mma.sync`` kernels and the plain-FMA kernels on bf16)."""
     if q.device.type != "cuda":
         raise ValueError(f"the backward kernel needs CUDA tensors, q is on "
                          f"{q.device}")
     b, sq, h, d = q.shape
     route = kernel_for_bwd(q.dtype, d)
     kernel = route if kernel is None else kernel
-    if kernel not in (route, "simt"):
+    if kernel not in ((route, "wgmma_a", "mma", "simt") if route == "wgmma"
+                      else (route, "simt")):
         raise ValueError(f"the {kernel!r} backward does not take {q.dtype} "
                          f"at head_dim {d}")
     _check_operands(q, (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)))
@@ -216,24 +233,45 @@ def _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, q_offset, scale,
         raise ValueError("q_offset must be >= 0")
     sk, kvh = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # Scratch: D = rowsum(dO * O) per row; the wgmma kernels also take
+    # q * scale in bf16 and lse * log2(e), with D and lse padded to
+    # BWD_ROWS-row tiles; the fused kernel also takes dQ's f32 sum and a
+    # turn counter per tile.
+    wgmma = kernel in ("wgmma", "wgmma_a")
+    rows = -(-sq // BWD_ROWS) * BWD_ROWS if wgmma else sq
+    delta = torch.empty((b, h, rows), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), delta.data_ptr())
+                dv.data_ptr())
         shape = (b, sq, sk, h, kvh, d, int(bool(causal)), int(q_offset),
                  float(scale), stream)
-        if kernel == "mma":
-            err = _library().flash_attention_bwd_mma_launch(*ptrs, *shape)
+        if wgmma:
+            qs, lse2 = torch.empty_like(q), torch.empty_like(delta)
+            acc = turns = None
+            if kernel == "wgmma":  # design (b): dQ summed across key tiles
+                acc = torch.empty((b, h, rows, d), dtype=torch.float32,
+                                  device=q.device)
+                turns = torch.empty((b, h, rows // BWD_ROWS),
+                                    dtype=torch.int32, device=q.device)
+            err = _library().flash_attention_bwd_wgmma_launch(
+                *ptrs, qs.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in (acc, turns)),
+                rows, *shape)
+        elif kernel == "mma":
+            err = _library().flash_attention_bwd_mma_launch(
+                *ptrs, delta.data_ptr(), *shape)
         else:
             err = _library().flash_attention_bwd_launch(
-                *ptrs, _DTYPE_CODES[q.dtype], *shape)
+                *ptrs, delta.data_ptr(), _DTYPE_CODES[q.dtype], *shape)
     if err != 0:
         raise RuntimeError(f"flash_attention {kernel} backward launch "
                            f"failed: cudaError {err}")
     flash_attention.bwd_launches += 1
-    if kernel == "mma":
+    if wgmma:
+        flash_attention.wgmma_bwd_launches += 1
+    elif kernel == "mma":
         flash_attention.mma_bwd_launches += 1
     if flash_attention.bwd_shapes is not None:
         flash_attention.bwd_shapes.add(_shape_key(q, k, causal, q_offset))
@@ -364,6 +402,7 @@ def flash_attention(
 flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
 flash_attention.bwd_launches = 0
+flash_attention.wgmma_bwd_launches = 0
 flash_attention.mma_bwd_launches = 0
 flash_attention.shapes = None
 flash_attention.bwd_shapes = None

@@ -506,9 +506,9 @@ def test_flash_attention_function_vmap_grad_equals_a_loop():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_bwd_route_by_dtype_and_width(dtype, d):
-    """bf16 at the published widths (64, 128) runs on mma.sync; f32 (TF32
+    """bf16 at the published widths (64, 128) runs on wgmma; f32 (TF32
     would break its 3e-5) and the other widths on plain FMAs."""
-    want = "mma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
     assert tflash.kernel_for_bwd(dtype, d) == want
     assert tflash.kernel_for_bwd(dtype, d) == want  # a pure function
 

@@ -960,7 +960,8 @@ def test_scheduled_rounds_on_card_match_the_cpu_timeline(cuda_device):
 
 # (b, sq, sk, h, kv, d, causal, q_offset): the smoke width (g = 3 at d =
 # 16), granite's g = 3 at d = 64, llama's d = 128 with a ragged tail,
-# non-causal cross-attention (sq != sk) and a query offset.
+# non-causal cross-attention (sq != sk), a query offset, and causal keys
+# that no query sees (their dK and dV are exact zeros).
 BWD_CASES = [
     (2, 64, 64, 6, 2, 16, True, 0),
     (2, 130, 130, 12, 4, 128, True, 0),
@@ -968,6 +969,7 @@ BWD_CASES = [
     (1, 64, 256, 4, 4, 64, False, 0),
     (2, 96, 200, 6, 2, 64, True, 104),
     (1, 200, 200, 4, 1, 32, True, 0),
+    (1, 64, 320, 6, 2, 128, True, 0),
 ]
 
 
@@ -997,6 +999,7 @@ def test_flash_bwd_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
     o_ref, lse_ref = ops.attention_fwd_lse(q, k, v, causal=causal,
                                            q_offset=off)
     before = flash_attention.bwd_launches
+    wgmma_before = flash_attention.wgmma_bwd_launches
     mma_before = flash_attention.mma_bwd_launches
     got = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
                                         scale)
@@ -1006,10 +1009,12 @@ def test_flash_bwd_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
                                   q_offset=off)
     torch.cuda.synchronize()
     assert flash_attention.bwd_launches == before + 2
-    # bf16 at d = 64, 128 on mma.sync; the rest on plain FMAs.
+    # bf16 at d = 64, 128 on wgmma; the rest on plain FMAs; no path takes
+    # the mma.sync kernels.
     on_tensor_cores = dtype == torch.bfloat16 and d in (64, 128)
-    assert flash_attention.mma_bwd_launches == mma_before + (
+    assert flash_attention.wgmma_bwd_launches == wgmma_before + (
         2 if on_tensor_cores else 0)
+    assert flash_attention.mma_bwd_launches == mma_before
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
@@ -1059,12 +1064,42 @@ def test_flash_bwd_mma_and_plain_fma_kernels_agree(cuda_device, case):
     o, lse = ops._flash_attention_cuda(q, k, v, causal, off, d ** -0.5,
                                        with_lse=True)
     tc = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
-                                       d ** -0.5)
+                                       d ** -0.5, kernel="mma")
     fma = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
                                         d ** -0.5, kernel="simt")
     for a, b_ in zip(tc, fma):
         torch.testing.assert_close(a.float(), b_.float(), atol=2e-2,
                                    rtol=2e-2)
+
+
+@pytest.mark.parametrize("other", ["wgmma_a", "mma", "simt"])
+@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[5] in (64, 128)])
+def test_flash_bwd_wgmma_kernels_agree_with_mma_and_plain_fma(cuda_device,
+                                                              case, other):
+    """bf16: the wgmma backward (the route, dQ summed across key tiles in
+    the fused kernel) against design (a)'s wgmma kernels (a dQ kernel of
+    its own), the mma.sync and the plain-FMA backward on the same inputs
+    (2e-2); each call counts on its own kernel's counter."""
+    from repro_torch.kernels.flash_attention import ops
+
+    b, sq, sk, h, kv, d, causal, off = case
+    q, k, v, do = _bwd_inputs(case, torch.bfloat16, cuda_device)
+    o, lse = ops._flash_attention_cuda(q, k, v, causal, off, d ** -0.5,
+                                       with_lse=True)
+    before = (flash_attention.wgmma_bwd_launches,
+              flash_attention.mma_bwd_launches)
+    wg = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
+                                       d ** -0.5)
+    ref = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
+                                        d ** -0.5, kernel=other)
+    torch.cuda.synchronize()
+    assert (flash_attention.wgmma_bwd_launches,
+            flash_attention.mma_bwd_launches) == (
+        before[0] + 1 + (other == "wgmma_a"), before[1] + (other == "mma"))
+    for name, a, b_ in zip(("dq", "dk", "dv"), wg, ref):
+        torch.testing.assert_close(a.float(), b_.float(), atol=2e-2,
+                                   rtol=2e-2,
+                                   msg=lambda m, n=name: f"{n}: {m}")
 
 
 def test_flash_bwd_rejects_what_it_does_not_take(cuda_device):
