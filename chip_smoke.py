@@ -6,15 +6,15 @@
     python3 chip_smoke.py --serving-only  # skip the federated-round phases
     python3 chip_smoke.py --scheduling-only  # phases 1, 2, 13 and 14 only
     python3 chip_smoke.py --ssm-only      # the SSD kernel and SSM serving only
-    python3 chip_smoke.py --training-only # phases 1, 4 and 15-17 only
+    python3 chip_smoke.py --training-only # phases 1, 4 and 15-19 only
 
 All four kernels (``fed_reduce``, ``decode_attention``, ``flash_attention``
-with its backward, and ``ssd_scan``, the last three with tensor-core and
-plain-FMA paths) are
+with its backward, and ``ssd_scan`` with its backward, the last three with
+tensor-core and plain-FMA paths) are
 built first from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``, one
 compiler per source, all at once; ptxas's registers and spills of the new
 kernels and the tensor-core instructions in each library's SASS
-(``cuobjdump``: HGMMA, HMMA) are printed.  Seventeen phases, run in their
+(``cuobjdump``: HGMMA, HMMA) are printed.  Nineteen phases, run in their
 numbered order; any failure raises and the script exits non-zero:
 
 1. **Kernel.**  Runs ``fed_reduce`` on the card against its plain
@@ -105,17 +105,18 @@ numbered order; any failure raises and the script exits non-zero:
    rest on the plain-FMA one.  Times the serving shapes (inputs cycled past
    the L2): kernel, the plain-FMA kernel on the same bf16 inputs, plain
    version and the bound; no PyTorch op computes the scan.
-8. **SSM serving.**  mamba2-1.3b and then zamba2-1.2b at full width in
+8. **SSM serving.**  mamba2-1.3b and then zamba2-1.2b at full width and 8
+   layers (of 48 and 38, to fit the smoke's time limit) in
    bf16, params from each model's ``init`` with a seeded CUDA generator,
    the same trace through ``BatchedServer(batch_size=16)`` (the continuous
    engine's arena holds attention K/V only).  Per model: the report (equal
    to the CPU run's with the smoke-size model), wall ms per prefill and
    decode iteration, decode tokens/s, peak memory; launch counters zeroed
-   before and read after: one ``ssd_scan`` per layer per prefill (48 x 4,
-   38 x 4), every one on the tensor-core kernel, and for zamba2 one
+   before and read after: one ``ssd_scan`` per layer per prefill (8 x 4
+   each), every one on the tensor-core kernel, and for zamba2 one
    tensor-core ``flash_attention`` per shared-block application per
-   prefill (7 x 4) and one ``decode_attention`` per application per
-   decode step (7 x 256), at shapes phases 4 and 7 checked; a profiled
+   prefill (2 x 4) and one ``decode_attention`` per application per
+   decode step (2 x 256), at shapes phases 4 and 7 checked; a profiled
    window (1 prefill + 20 decode steps) gives the idle share and shows
    each counted scan and decode call as one kernel.
 9. **SSM cross-check.**  Each model at full width and 2 layers (zamba2 with
@@ -125,10 +126,11 @@ numbered order; any failure raises and the script exits non-zero:
    16 teacher-forced decode steps: logits within 2e-2 relative in bf16
    (agreement printed), within 1e-4 with identical greedy tokens in f32.
 
-10. **MoE serving.**  granite-moe-3b at full width and depth (32 layers,
-    d_model 1536, 24/8 heads of 64, 40 experts top-8; 3.38 B params) on
+10. **MoE serving.**  granite-moe-3b at full width (d_model 1536, 24/8
+    heads of 64, 40 experts top-8) and 8 of its 32 layers (its host-bound
+    decode grows with depth, and the smoke must fit its time limit) on
     phase 5's trace, continuous then fixed, with phase 5's checks: reports
-    equal to the CPU run's, 32 launches per prefill and per decode
+    equal to the CPU run's, 8 launches per prefill and per decode
     iteration (tensor-core flash), shapes checked in phase 4; then phase
     6's cross-check at 2 layers with each path's own routing (f32 gated
     at 1e-4 with equal tokens; bf16 reported, with the pairs whose choice
@@ -182,8 +184,8 @@ numbered order; any failure raises and the script exits non-zero:
     log-sum-exp within 1e-3, two backward calls bitwise equal;
     ``torch.func.vmap(grad(...))`` through ``FlashAttention`` equal to a
     per-sample loop.  Times llama's training shape and the smoke width:
-    kernel (and the earlier ``mma.sync`` kernels and the plain-FMA kernels
-    on the same bf16 inputs), plain version, SDPA's autograd backward, the
+    kernel (and the plain-FMA kernels on the same bf16 inputs), plain
+    version, SDPA's autograd backward, the
     forward with its log-sum-exp, SDPA's forward, and the bounds (10 d
     flops per pair per head).
 16. **Cloud training.**  llama3.2-3b at full width and depth (28 layers,
@@ -206,16 +208,46 @@ numbered order; any failure raises and the script exits non-zero:
     --preemptive`` on the card against the same command on the CPU from the
     same params: every virtual-time line, the aggregations and the wire
     bytes equal, client losses within 2e-2; their ``fed_reduce`` and flash
-    launches (forward and backward, under vmap) printed and nonzero.  Then
-    every forward and backward shape that phases 16 and 17 launched and
-    phase 15 did not check is checked as phase 15 checks its cases.
+    launches (forward and backward, under vmap) printed and nonzero.
+18. **Scan backward kernel.**  The forward kernel against ``ssd_chunked``
+    and the scan's backward (five launches: C B^T per group, the states
+    and their cotangents per chunk, the chunks' gradients, the sums over
+    each group's heads and over dA's parts; plain f32 FMAs) on the card
+    against ``ssd_bwd_ref`` on the card: the reference's forward cases (g
+    < h among them), a ragged 500, A = -64, mamba2-1.3b's training shape
+    (1 x 4096, 64 heads of 64, state 128, chunk 128) in bf16 and f32 and
+    zamba2-1.2b's (state 64), all but the training shapes with a nonzero
+    cotangent of the final state: dx, ddt, dA, dB, dC finite, two calls
+    bitwise equal, within 2e-2 (bf16) of the plain version's largest entry,
+    and in f32 within 3e-4 of the plain version run in f64 (or twice the
+    f32 plain version's own error where that is larger: dA at A = -64);
+    ``torch.func.vmap(grad(...))`` through ``SsdScan`` equal to a
+    per-sample loop.  Times mamba2's training shape with CUDA events,
+    inputs cycled past the L2: kernel, plain version, autograd through the
+    chunked plain forward (no PyTorch call computes the scan's backward),
+    the forward kernel, and the bound.
+19. **SSM training.**  mamba2-1.3b at full width and depth (48 layers,
+    d_model 2048, 64 heads of 64, state 128, 1.45 B params, seeded bf16
+    weights, f32 master, m and v) through ``make_cloud_step`` on phase
+    16's shape (8 microbatches of one 4096-token sequence), one warm-up,
+    three timed steps and one profiled step: loss, lr and grad norm
+    finite, wall s, tokens/s, the 6 N share of 989 TFLOP/s, peak memory,
+    and ``ssd_scan`` launches equal to the audit (768 forward, all on the
+    tensor-core kernel, and 384 backward per step under remat), the
+    profiled step's kernels too.  Then phase 16's cross-check for mamba2
+    and for zamba2-1.2b (2 layers at full width, its shared block at layer
+    0).  Then every forward and backward shape that phases 16, 17 and 19
+    launched and phases 15 and 18 did not check is checked as they check
+    their cases.
 
-``--training-only`` runs phases 1, 4 and 15-17.
+``--training-only`` runs phases 1, 4 and 15-19.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
-card's name and power limit from ``nvidia-smi``, and before that one JSON
+card's name and power limit from ``nvidia-smi``, before that one JSON
 line with the kernels' numbers (each kernel's launches summed over the
-main paths that ran it, each path's counter read just after it).
+main paths that ran it, each path's counter read just after it), and
+before that a ``{"phase_s": ...}`` line with the build's and each phase's
+seconds.
 
 ``--compare-with DIR`` times the decode and scan kernels of the checkout at
 DIR (e.g. the parent commit, unpacked by ``git archive``) against this
@@ -259,6 +291,16 @@ PROFILE_DIR = os.path.join(ROOT, "chiprun_out")
 
 def log(*a):
     print(*a, flush=True)
+
+
+PHASE_S: dict = {}  # each phase's seconds, printed before the kernels line
+
+
+def passed(name: str, t0: float) -> None:
+    """Logs that phase ``name``, started at ``t0``, passed, and keeps its
+    seconds in ``PHASE_S``."""
+    PHASE_S[name] = seconds = time.perf_counter() - t0
+    log(f"{name} passed in {seconds:.1f}s")
 
 
 # --------------------------------------------------------------------------
@@ -813,6 +855,10 @@ DECODE_ZAMBA = (SERVE_SLOTS, SERVE_MAX_LEN, 32, 32, 64)
 FLASH_ZAMBA = (SERVE_SLOTS, SERVE_PROMPT, SERVE_PROMPT, 32, 32, 64, True, 0)
 # granite-moe-3b (24 query / 8 KV heads of 64, g = 3) on the llama trace.
 MOE_ARCH = "granite_moe_3b_a800m"
+# Phase 10 serves granite-moe-3b at its published width and 8 of its 32
+# layers: its host-bound decode grows with depth (~255 s of the smoke at
+# 32 layers), and the smoke's phases must fit its time limit.
+MOE_LAYERS = 8
 DECODE_GRANITE = (SERVE_SLOTS, SERVE_MAX_LEN, 24, 8, 64)
 FLASH_GRANITE = (SERVE_SLOTS, SERVE_PROMPT, SERVE_PROMPT, 24, 8, 64, True, 0)
 # seamless-m4t-medium (16/16 heads of 64): 16 sequences of 256 stub source
@@ -1311,9 +1357,11 @@ def serving_profile(cfg, params, prompts, card: str) -> dict:
 
 
 def serving_phase(dev, checked: set, card: str,
-                  arch: str = SERVE_ARCH) -> dict:
+                  arch: str = SERVE_ARCH, layers: "int | None" = None
+                  ) -> dict:
     """Phase 5 (llama3.2-3b) and phase 10 (granite-moe-3b): ``arch`` at
-    full width on the trace, continuous then fixed."""
+    full width on the trace, continuous then fixed, at ``layers`` of its
+    layers (all by default)."""
     import dataclasses
 
     import numpy as np
@@ -1329,13 +1377,16 @@ def serving_phase(dev, checked: set, card: str,
     from repro_torch.models import transformer
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     t0 = time.perf_counter()
     params = transformer.init(
         torch.Generator(device=dev).manual_seed(SERVE_SEED), cfg, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"{cfg.name}: {n_params} params ({n_params * 2 / 1e9:.2f} GB bf16) "
-        f"initialized on the card in {time.perf_counter() - t0:.1f}s")
+        f"at {cfg.num_layers} layers, initialized on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
     L = cfg.num_layers
 
     def flash_shape(b):  # what a prefill of b prompts gives the kernel
@@ -2545,6 +2596,11 @@ def encdec_cross_check(params, cfg) -> dict:
 # phase 7: the SSD scan kernel against its plain versions
 
 SSM_ARCHS = ("mamba2_1_3b", "zamba2_1_2b")
+# Phase 8 serves both at their published widths and 8 layers (of 48 and
+# 38; zamba2 keeps two shared-block applications, at layers 0 and 6):
+# their host-bound decode grows with depth, and the smoke's phases must
+# fit its time limit on the slower hosts too.
+SSM_SERVE_LAYERS = 8
 # (b, l, h, p, g, n, chunk): tests/test_kernels.py's SSD_CASES (l.186), both
 # serving shapes (16 prompts of 512 at mamba2-1.3b's and zamba2-1.2b's
 # widths), a length that pads to the chunk, and decays that overflow above
@@ -2747,8 +2803,9 @@ def ssm_profile(api, cfg, params, prompts, card: str) -> dict:
 
 
 def ssm_serving_phase(dev, arch: str, checked: set, card: str) -> dict:
-    """``arch`` at full width in bf16 through ``BatchedServer(16)`` on the
-    serving trace: the report equals the CPU run's, the launch counters
+    """``arch`` at full width and ``SSM_SERVE_LAYERS`` layers in bf16
+    through ``BatchedServer(16)`` on the serving trace: the report equals
+    the CPU run's, the launch counters
     read one ``ssd_scan`` per layer per prefill (and, for the hybrid, one
     ``flash_attention`` per shared-block application per prefill and one
     ``decode_attention`` per application per decode step) at shapes phases
@@ -2766,7 +2823,7 @@ def ssm_serving_phase(dev, arch: str, checked: set, card: str) -> dict:
     from repro_torch.models import hybrid
     from repro_torch.models.registry import get_model
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), num_layers=SSM_SERVE_LAYERS)
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init(torch.Generator(device=dev).manual_seed(SERVE_SEED),
@@ -2774,7 +2831,8 @@ def ssm_serving_phase(dev, arch: str, checked: set, card: str) -> dict:
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"{cfg.name}: {n_params} params ({n_params * 2 / 1e9:.2f} GB bf16) "
-        f"initialized on the card in {time.perf_counter() - t0:.1f}s")
+        f"at {cfg.num_layers} layers, initialized on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
     apps = len(hybrid._attn_positions(cfg)) if cfg.family == "hybrid" else 0
     cpu = fixed_cpu_report(arch).summary(30.0)
     timer = WallTimer()
@@ -2934,12 +2992,10 @@ def ssm_phases(dev, checked: set, card: str) -> dict:
     for arch in SSM_ARCHS:
         t0 = time.perf_counter()
         srv = ssm_serving_phase(dev, arch, checked, card)
-        log(f"ssm serving phase [{arch}] passed in "
-            f"{time.perf_counter() - t0:.1f}s")
+        passed(f"ssm serving phase [{arch}]", t0)
         t0 = time.perf_counter()
         ssm_cross_check(srv["params"], srv["cfg"], srv["prompts"])
-        log(f"ssm cross-check [{arch}] passed in "
-            f"{time.perf_counter() - t0:.1f}s")
+        passed(f"ssm cross-check [{arch}]", t0)
         out[arch] = srv["launches"]
         del srv
         torch.cuda.empty_cache()
@@ -2953,20 +3009,20 @@ def family_phases(dev, checked: set, card: str) -> dict:
     import torch
 
     t0 = time.perf_counter()
-    srv = serving_phase(dev, checked, card, arch=MOE_ARCH)
-    log(f"moe serving phase passed in {time.perf_counter() - t0:.1f}s")
+    srv = serving_phase(dev, checked, card, arch=MOE_ARCH, layers=MOE_LAYERS)
+    passed("moe serving phase", t0)
     t0 = time.perf_counter()
     serving_cross_check(srv["params"], srv["cfg"], srv["prompts"])
-    log(f"moe cross-check passed in {time.perf_counter() - t0:.1f}s")
+    passed("moe cross-check", t0)
     out = {MOE_ARCH: srv["launches"]}
     del srv
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ed = encdec_phase(dev, checked, card)
-    log(f"encdec phase passed in {time.perf_counter() - t0:.1f}s")
+    passed("encdec phase", t0)
     t0 = time.perf_counter()
     encdec_cross_check(ed["params"], ed["cfg"])
-    log(f"encdec cross-check passed in {time.perf_counter() - t0:.1f}s")
+    passed("encdec cross-check", t0)
     out[ENCDEC_ARCH] = ed["launches"]
     del ed
     torch.cuda.empty_cache()
@@ -2977,6 +3033,7 @@ def family_phases(dev, checked: set, card: str) -> dict:
 # phase 15: the flash backward against its plain version
 
 TRAIN_ARCH = "llama3_2_3b"
+SSM_TRAIN_ARCH = "mamba2_1_3b"  # phase 19
 TRAIN_SEQ = 4096  # the reference's train_4k sequence
 TRAIN_MICRO = 8  # one sequence per microbatch, 32 768 tokens a step
 TRAIN_STEPS = 3  # timed, after one warm-up step
@@ -3011,10 +3068,7 @@ def bwd_case(dev, gen, case, dtype: str) -> tuple[dict, tuple]:
     """The forward kernel with its log-sum-exp at ``case`` against
     ``attention_fwd_lse``, then the backward kernels against
     ``attention_bwd_ref`` on the card, from the forward kernel's own o and
-    log-sum-exp; two backward calls must give the same bits.  Where the
-    route is ``wgmma`` the same holds for every tensor-core backward the
-    smoke times beside it (design (a), ``wgmma_a``, and the ``mma.sync``
-    kernels, ``mma``)."""
+    log-sum-exp; two backward calls must give the same bits."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops
@@ -3026,11 +3080,8 @@ def bwd_case(dev, gen, case, dtype: str) -> tuple[dict, tuple]:
     o, lse = ops._flash_attention_cuda(q, k, v, causal, off, scale,
                                        with_lse=True)
     route = ops.kernel_for_bwd(q.dtype, d)
-    kernels = (route, "wgmma_a", "mma") if route == "wgmma" else (route,)
-    runs = {kern: [ops._flash_attention_bwd_cuda(
-        q, k, v, o, lse, do, causal, off, scale,
-        kernel=None if kern == route else kern) for _ in range(2)]
-        for kern in kernels}
+    runs = {route: [ops._flash_attention_bwd_cuda(
+        q, k, v, o, lse, do, causal, off, scale) for _ in range(2)]}
     plain = ops.attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                   q_offset=off)
     plain_o, plain_lse = ops.attention_fwd_lse(q, k, v, causal=causal,
@@ -3051,14 +3102,11 @@ def bwd_case(dev, gen, case, dtype: str) -> tuple[dict, tuple]:
     row = {"case": list(case), "dtype": dtype, "max_abs_err": errs[route],
            "fwd_max_abs_err": fwd_err, "lse_max_abs_err": lse_err,
            "bitwise_repeatable": True, "kernel": route}
-    row.update({f"{kern}_max_abs_err": err for kern, err in errs.items()
-                if kern != route})
     return row, (q, k, v, o, lse, do)
 
 
 def bwd_timing(tensors, case) -> dict:
-    """Times at a timed shape: the backward kernels of the route, design
-    (a)'s wgmma kernels, the earlier ``mma.sync`` kernels and the
+    """Times at a timed shape: the backward kernels of the route and the
     plain-FMA kernels on the same inputs, the plain version, the autograd backward of
     ``F.scaled_dot_product_attention`` (GQA) as the library yardstick, the
     forward kernel with its log-sum-exp and SDPA's forward, and the
@@ -3075,12 +3123,6 @@ def bwd_timing(tensors, case) -> dict:
     row = {"kernel": ops.kernel_for_bwd(q.dtype, d)}
     row["ms"] = time_ms(lambda i: ops._flash_attention_bwd_cuda(
         q, k, v, o, lse, do, causal, off, scale), iters=10 if big else 40)
-    if row["kernel"] == "wgmma":  # design (a) and mma.sync, same inputs
-        for kern in ("wgmma_a", "mma"):
-            row[f"{kern}_ms"] = time_ms(
-                lambda i: ops._flash_attention_bwd_cuda(
-                    q, k, v, o, lse, do, causal, off, scale, kernel=kern),
-                iters=10 if big else 40)
     if row["kernel"] != "simt":  # the plain-FMA kernels on the same inputs
         row["simt_ms"] = time_ms(lambda i: ops._flash_attention_bwd_cuda(
             q, k, v, o, lse, do, causal, off, scale, kernel="simt"),
@@ -3210,13 +3252,14 @@ def check_training_shapes(dev, checked: set) -> tuple[float, float]:
                         "launched_by": "path"}))
         fwd_err = max(fwd_err, row["fwd_max_abs_err"])
         bwd_err = max(bwd_err, row["max_abs_err"])
-    log(f"forward and backward shapes launched by phases 16-17: "
+    log(f"forward and backward shapes launched by phases 16, 17 and 19: "
         f"{len(launched)}, {len(new)} checked here")
     return fwd_err, bwd_err
 
 
 # --------------------------------------------------------------------------
-# phase 16: cloud training at llama3.2-3b's published width and depth
+# phases 16 and 19: cloud training at llama3.2-3b's and mamba2-1.3b's
+# published widths and depths
 
 def _zero_flash_counters():
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -3225,7 +3268,6 @@ def _zero_flash_counters():
     flash_attention.wgmma_launches = 0
     flash_attention.bwd_launches = 0
     flash_attention.wgmma_bwd_launches = 0
-    flash_attention.mma_bwd_launches = 0
 
 
 def _flash_counters() -> dict:
@@ -3234,17 +3276,62 @@ def _flash_counters() -> dict:
     return {"flash_attention": flash_attention.launches,
             "flash_attention_wgmma": flash_attention.wgmma_launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
-            "flash_attention_bwd_wgmma": flash_attention.wgmma_bwd_launches,
-            "flash_attention_bwd_mma": flash_attention.mma_bwd_launches}
+            "flash_attention_bwd_wgmma": flash_attention.wgmma_bwd_launches}
 
 
-def training_phase(dev, card: str) -> dict:
-    """Phase 16: ``cloud_training``'s own step function
-    (``make_cloud_step``) on llama3.2-3b at full width and depth, seeded
-    random bf16 weights, one warm-up step then ``TRAIN_STEPS`` timed ones,
-    then one profiled step; the launch counts per step must equal the
-    audit's (2 forward launches per layer and microbatch under remat, one
-    backward)."""
+def _zero_ssd_counters():
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    ssd_scan.launches = ssd_scan.tc_launches = ssd_scan.bwd_launches = 0
+
+
+def _ssd_counters() -> dict:
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    return {"ssd_scan": ssd_scan.launches,
+            "ssd_scan_tc": ssd_scan.tc_launches,
+            "ssd_scan_bwd": ssd_scan.bwd_launches}
+
+
+def _zero_counters():
+    _zero_flash_counters()
+    _zero_ssd_counters()
+
+
+def _counters() -> dict:
+    return {**_flash_counters(), **_ssd_counters()}
+
+
+def _audit(cfg) -> tuple[dict, tuple, dict]:
+    """What one training step of ``cfg`` (8 microbatches, remat) must
+    launch: the counters' expected values, the kernels a profiled step
+    must show and their expected counts.  Each layer launches its forward
+    kernel twice (the forward and the recompute) and its backward once:
+    flash attention for llama, the scan (on the tensor cores) for mamba2."""
+    L, n = cfg.num_layers, TRAIN_MICRO
+    if cfg.family == "ssm":
+        expected = {"ssd_scan": 2 * L * n, "ssd_scan_tc": 2 * L * n,
+                    "ssd_scan_bwd": L * n}
+        match = ("ssd_scan_tc_kernel", *SSD_BWD_KERNELS)
+    else:
+        expected = {"flash_attention": 2 * L * n,
+                    "flash_attention_wgmma": 2 * L * n,
+                    "flash_attention_bwd": L * n,
+                    "flash_attention_bwd_wgmma": L * n,
+                    "ssd_scan": 0, "ssd_scan_tc": 0, "ssd_scan_bwd": 0}
+        match = ("flash_fwd_wgmma_kernel", "flash_bwd_prep_kernel",
+                 "flash_bwd_fused_wgmma_kernel",
+                 "flash_bwd_dq_convert_kernel")
+    want = {m: 2 * L * n if i == 0 else L * n for i, m in enumerate(match)}
+    return expected, match, want
+
+
+def training_phase(dev, card: str, arch: str = TRAIN_ARCH) -> dict:
+    """Phase 16 (llama3.2-3b) and phase 19 (mamba2-1.3b):
+    ``cloud_training``'s own step function (``make_cloud_step``) on
+    ``arch`` at full width and depth, seeded random bf16 weights, one
+    warm-up step then ``TRAIN_STEPS`` timed ones, then one profiled step;
+    the launch counts per step must equal the audit's (:func:`_audit`)."""
     import math
 
     import torch
@@ -3256,10 +3343,10 @@ def training_phase(dev, card: str) -> dict:
     from repro_torch.launch.train import make_cloud_step
     from repro_torch.optim.optimizers import tree_leaves
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_MICRO, "train",
                         microbatches=TRAIN_MICRO)
-    torch.cuda.empty_cache()
+    free_cycles()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(cfg, seed=0, device=dev)
@@ -3271,26 +3358,22 @@ def training_phase(dev, card: str) -> dict:
     pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_MICRO, seed=0)
     step = make_cloud_step(cfg, shape, pipe, device=dev)
     tokens = TRAIN_SEQ * TRAIN_MICRO
-    L, n = cfg.num_layers, TRAIN_MICRO
-    expected = {"flash_attention": 2 * L * n, "flash_attention_wgmma":
-                2 * L * n, "flash_attention_bwd": L * n,
-                "flash_attention_bwd_wgmma": L * n,
-                "flash_attention_bwd_mma": 0}
+    expected, match, want = _audit(cfg)
     rows = []
     for i in range(1 + TRAIN_STEPS):
-        _zero_flash_counters()
+        _zero_counters()
         torch.cuda.synchronize()
         w0 = time.perf_counter()
         state, m = step(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - w0
-        launches = _flash_counters()
+        launches = {k: v for k, v in _counters().items() if k in expected}
         loss, lr, gn = (float(m[k]) for k in ("loss", "lr", "grad_norm"))
         if not all(math.isfinite(x) for x in (loss, lr, gn)):
-            raise AssertionError(f"training step {i}: loss {loss}, lr {lr}, "
-                                 f"grad_norm {gn}")
+            raise AssertionError(f"{arch} training step {i}: loss {loss}, "
+                                 f"lr {lr}, grad_norm {gn}")
         if launches != expected:
-            raise AssertionError(f"training step {i}: flash launches "
+            raise AssertionError(f"{arch} training step {i}: launches "
                                  f"{launches}, expected {expected}")
         row = {"step": i, "warm_up": i == 0, "loss": loss, "lr": lr,
                "grad_norm": gn, "wall_s": wall, "tokens_per_s": tokens / wall,
@@ -3299,20 +3382,23 @@ def training_phase(dev, card: str) -> dict:
         log(f"train step {i}{' (warm-up)' if i == 0 else ''}: loss "
             f"{loss:.4f} lr {lr:.3e} grad_norm {gn:.4f} | {wall:.3f} s, "
             f"{row['tokens_per_s']:.0f} tok/s, 6N share of 989 TFLOP/s "
-            f"{row['peak_share']:.3f}; flash launches {launches}")
+            f"{row['peak_share']:.3f}; launches {launches}")
     peak = torch.cuda.max_memory_allocated()
-    match = ("flash_fwd_wgmma_kernel", "flash_bwd_prep_kernel",
-             "flash_bwd_fused_wgmma_kernel", "flash_bwd_dq_convert_kernel")
-    _zero_flash_counters()
-    prof = profile_window(lambda: step(state), 1, match=match)
-    if _flash_counters() != expected:
-        raise AssertionError(f"profiled training step: flash launches "
-                             f"{_flash_counters()}, expected {expected}")
-    want = {match[0]: 2 * L * n, match[1]: L * n, match[2]: L * n,
-            match[3]: L * n}
+    def profiled_step():
+        # A window that lost records runs again (``profiled``): each try
+        # counts its own launches.
+        _zero_counters()
+        step(state)
+
+    prof = profile_window(profiled_step, 1, match=match)
+    launches = {k: v for k, v in _counters().items() if k in expected}
+    if launches != expected:
+        raise AssertionError(f"profiled {arch} training step: launches "
+                             f"{launches}, expected {expected}")
     if prof["matched"] != want:
-        raise AssertionError(f"profiled training step ran {prof['matched']} "
-                             f"flash kernels, the audit expects {want}")
+        raise AssertionError(f"profiled {arch} training step ran "
+                             f"{prof['matched']} kernels, the audit "
+                             f"expects {want}")
     timed = rows[1:]
     res = {"arch": cfg.name, "params": n_params, "seq_len": TRAIN_SEQ,
            "microbatches": TRAIN_MICRO, "tokens_per_step": tokens,
@@ -3328,15 +3414,39 @@ def training_phase(dev, card: str) -> dict:
     res["peak_share"] = 6 * n_params * tokens / res["wall_s_per_step"] \
         / BF16_FLOPS
     log(json.dumps({"training": res}))
-    log(f"llama3.2-3b training: {res['wall_s_per_step']:.3f} s/step, "
+    log(f"{cfg.name} training: {res['wall_s_per_step']:.3f} s/step, "
         f"{res['tokens_per_s']:.0f} tok/s, 6N share {res['peak_share']:.3f}, "
         f"peak {res['peak_memory_gib']:.2f} GiB; profiled step "
-        f"{prof['device_idle_share']:.3f} idle, flash kernels "
-        f"{prof['matched']} = audit, device ms {prof['matched_ms']}")
+        f"{prof['device_idle_share']:.3f} idle, kernels {prof['matched']} "
+        f"= audit, device ms {prof['matched_ms']}")
     total = {k: v * (2 + TRAIN_STEPS) for k, v in expected.items()}
     del state, step
-    torch.cuda.empty_cache()
+    free_cycles()
     return {"launches": total, "summary": res}
+
+
+def free_cycles() -> None:
+    """Frees what only reference cycles keep alive, then the allocator's
+    cache: a train step function holds its f32 accumulator (a whole
+    model's gradients) in a cycle through its own closure, which
+    reference counting alone never frees."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """Each leaf's path in ``tree_leaves``'s order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in _leaf_names(t, f"{prefix}{i}/")]
+    return [] if tree is None else [prefix.rstrip("/")]
 
 
 def _leaf_rel_errs(got: list, want: list) -> list:
@@ -3345,11 +3455,13 @@ def _leaf_rel_errs(got: list, want: list) -> list:
             for a, b in zip(got, want)]
 
 
-def training_cross_check(dev) -> dict:
-    """Phase 16's cross-check: full width at 2 layers, 2 steps of 2
+def training_cross_check(dev, arch: str = TRAIN_ARCH) -> dict:
+    """Phase 16's cross-check (and phase 19's, for mamba2-1.3b and
+    zamba2-1.2b): ``arch`` at full width and 2 layers, 2 steps of 2
     microbatches of 4096 tokens, the kernel path against the plain path
-    (``attention_impl="einsum"``, autograd through the plain ops), both on
-    the card, within 2e-2 relative in bf16 and 1e-4 in f32 (TF32 off):
+    (``attention_impl="einsum"``: the plain attention and, in the SSM
+    blocks, the plain scan and its written-out backward), both on the card,
+    within 2e-2 relative in bf16 and 1e-4 in f32 (TF32 off):
     each step's loss and grad norm, each updated leaf, and each leaf's
     first-step gradient, read as AdamW's first moment after one step
     (``(1 - b1)`` times the clipped mean of the microbatches' f32
@@ -3358,8 +3470,10 @@ def training_cross_check(dev) -> dict:
     near-sign steps hide their magnitude too, so the gradients are held
     directly.  Each leaf's change in its f32 master over the 2 steps is
     logged, not held: Adam's first steps turn bf16 rounding in gradients
-    near 0 into sign flips.  Every reading is logged before any limit is
-    applied."""
+    near 0 into sign flips.  A leaf that starts at 0 (the SSM blocks' conv
+    biases) is its change after 2 steps, so its updated value is logged
+    with the changes and not held either; its gradient is held as every
+    leaf's is.  Every reading is logged before any limit is applied."""
     import dataclasses
 
     import torch
@@ -3373,16 +3487,25 @@ def training_cross_check(dev) -> dict:
 
     shape = ShapeConfig("train_4k_x", TRAIN_SEQ, 2, "train", microbatches=2)
     opt = AdamWConfig(warmup_steps=1)  # the peak lr from the first step
+    # The kernel path's backward launches over 2 steps of 2 microbatches:
+    # one per layer (attention or scan) and, for zamba2, one per
+    # application of the shared block (at layer 0 of 2).
+    family = get_config(arch).family
+    want = {"flash_attention_bwd": 0 if family == "ssm" else (
+        2 * 2 * (1 if family == "hybrid" else 2)),
+        "ssd_scan_bwd": 2 * 2 * 2 if family in ("ssm", "hybrid") else 0}
     out = {}
     for dtype, tol in (("bfloat16", 2e-2), ("float32", 1e-4)):
-        cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2,
+        cfg = dataclasses.replace(get_config(arch), num_layers=2,
                                   dtype=dtype)
         runs = {}
         for path, c in (("kernel", cfg), ("plain", dataclasses.replace(
                 cfg, attention_impl="einsum"))):
-            _zero_flash_counters()
+            _zero_counters()
             state = init_train_state(c, seed=0, device=dev)
             start = [t.clone() for t in tree_leaves(state["opt"]["master"])]
+            names = _leaf_names(state["opt"]["master"])
+            zero = [bool(t.eq(0).all()) for t in start]
             step = make_cloud_step(
                 c, shape, TokenPipeline(c.vocab_size, TRAIN_SEQ, 2, seed=0),
                 opt_cfg=opt, device=dev)
@@ -3395,17 +3518,23 @@ def training_cross_check(dev) -> dict:
             moved = [(t - s0).cpu() for t, s0 in zip(
                 tree_leaves(state["opt"]["master"]), start)]
             params = [t.float().cpu() for t in tree_leaves(state["params"])]
-            runs[path] = (metrics, params, grads, moved, _flash_counters())
+            runs[path] = (metrics, params, grads, moved, _counters(), zero)
             del state, step, start
-            torch.cuda.empty_cache()
-        (mk, pk, gk, dk, lk), (mp, pp, gp, dp, lp) = (runs["kernel"],
-                                                      runs["plain"])
+            free_cycles()
+        (mk, pk, gk, dk, lk, zero), (mp, pp, gp, dp, lp, _) = (
+            runs["kernel"], runs["plain"])
         metric_err = max(abs(a - b) / abs(b) for x, y in zip(mk, mp)
                          for a, b in zip(x, y))
         grad_errs, delta_errs = _leaf_rel_errs(gk, gp), _leaf_rel_errs(dk, dp)
-        res = {"dtype": dtype, "limit": tol, "metrics_kernel": mk,
+        leaf_errs = _leaf_rel_errs(pk, pp)
+        held = [e for e, z in zip(leaf_errs, zero) if not z]
+        res = {"arch": cfg.name, "dtype": dtype, "limit": tol,
+               "metrics_kernel": mk,
                "metrics_plain": mp, "max_metric_rel_err": metric_err,
-               "max_leaf_rel_err": max(_leaf_rel_errs(pk, pp)),
+               "max_leaf_rel_err": max(held),
+               "zero_init_leaves": {n: e for n, e, z in zip(
+                   names, leaf_errs, zero) if z},
+               "worst_grad_leaf": names[grad_errs.index(max(grad_errs))],
                "max_grad_rel_err": max(grad_errs),
                "max_change_rel_err": max(delta_errs),
                "median_change_rel_err": sorted(delta_errs)[
@@ -3413,26 +3542,30 @@ def training_cross_check(dev) -> dict:
                "leaves": len(gk), "launches_kernel": lk,
                "launches_plain": lp}
         log(json.dumps({"training_cross_check": res}))
-        log(f"training cross-check [{dtype}]: loss/grad_norm per step "
-            f"kernel {mk} vs plain {mp}, worst relative {metric_err:.3e}; "
+        log(f"training cross-check [{cfg.name} {dtype}]: loss/grad_norm per "
+            f"step kernel {mk} vs plain {mp}, worst relative "
+            f"{metric_err:.3e}; "
             f"{len(gk)} leaves: updated worst relative "
             f"{res['max_leaf_rel_err']:.3e}, first-step gradient worst "
             f"relative {max(grad_errs):.3e} (limit {tol}); change over 2 "
-            f"steps worst relative {max(delta_errs):.3e} (not held)")
+            f"steps worst relative {max(delta_errs):.3e} (not held"
+            + (f"; with it {sum(zero)} leaves that start at 0, updated "
+               f"worst relative {max(res['zero_init_leaves'].values()):.3e}"
+               if any(zero) else "") + ")")
         out[dtype] = res
         del runs, pk, pp, gk, gp, dk, dp
     for dtype, res in out.items():
         tol = res["limit"]
         lk, lp = res["launches_kernel"], res["launches_plain"]
-        if lk["flash_attention_bwd"] != 2 * 2 * 2 or lp[
-                "flash_attention_bwd"] != 0:
-            raise AssertionError(f"[{dtype}] the kernel path launched {lk}, "
-                                 f"the plain path {lp}")
+        if any(lk[k] != v or lp[k] != 0 for k, v in want.items()):
+            raise AssertionError(f"[{arch} {dtype}] the kernel path launched "
+                                 f"{lk}, the plain path {lp}; expected "
+                                 f"{want} and none")
         if not (res["max_metric_rel_err"] <= tol
                 and res["max_leaf_rel_err"] <= tol
                 and res["max_grad_rel_err"] <= tol):
-            raise AssertionError(f"training cross-check [{dtype}] over its "
-                                 f"limits: {res}")
+            raise AssertionError(f"training cross-check [{arch} {dtype}] "
+                                 f"over its limits: {res}")
     return out
 
 
@@ -3601,6 +3734,264 @@ def training_examples_phase(dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 18: the SSD scan's backward (K4b) against its plain version
+
+# (b, l, h, p, g, n, chunk): the reference's forward cases (g < h among
+# them), a length that pads to the chunk, decays that overflow above the
+# diagonal (A = -64, dt = 0.1), and mamba2-1.3b's and zamba2-1.2b's
+# training shapes (one sequence of 4096 per microbatch, chunk 128).  All
+# but the training shapes carry a nonzero cotangent of the final state
+# (the models drop the state, so theirs is zero).
+SSD_TRAIN_MAMBA = (1, TRAIN_SEQ, 64, 64, 1, 128, 128)
+SSD_TRAIN_ZAMBA = (1, TRAIN_SEQ, 64, 64, 1, 64, 128)
+SSD_BWD_CASES = [
+    *((c, ("float32", "bfloat16"), False, True) for c in SSD_CASES),
+    (SSD_RAGGED, ("float32", "bfloat16"), False, True),
+    (SSD_OVERFLOW, ("float32", "bfloat16"), True, True),
+    (SSD_TRAIN_MAMBA, ("bfloat16", "float32"), False, False),
+    (SSD_TRAIN_ZAMBA, ("bfloat16",), False, False),
+]
+SSD_BWD_REPLACES = "src/repro/kernels/ssd_scan/ref.py:60"
+SSD_BWD_KERNELS = ("ssd_bwd_cb_kernel", "ssd_bwd_state_kernel",
+                   "ssd_bwd_chunk_kernel", "ssd_bwd_group_kernel",
+                   "ssd_bwd_da_kernel")
+GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def _ssd_tol(dtype) -> float:
+    import torch
+
+    return 3e-4 if dtype == torch.float32 else 2e-2
+
+
+def _rel_to_max(got, want) -> float:
+    """max |got - want| / max |want|: the error relative to the tensor's
+    largest entry."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def ssd_bwd_bound(case, itemsize: int, dstate: bool, flops_per_s: float
+                  ) -> dict:
+    """Bytes the backward must move (x, dy, B, C, dt, A and the state's
+    cotangent read once; dx, dB, dC, ddt and dA written once) and the
+    operations it must do given only those inputs, over the causal
+    triangles, in multiply-adds: per (batch, group, chunk) C B^T (q(q+1)/2
+    n); per (batch, head, chunk) the state entering the chunk and the
+    cotangent leaving it, dS_out B, S_in^T dy and dS_out^T x (q p n each),
+    dy x^T and M^T dy (q(q+1)/2 p each) and the two q(q+1)/2 n products of
+    dB and dC; two flops per multiply-add."""
+    b, l, h, p, g, n, q = case
+    nc = -(-l // q)
+    tri = q * (q + 1) // 2
+    moved = (3 * b * l * h * p * itemsize + 4 * b * l * g * n * itemsize
+             + 8 * b * l * h + 8 * h + (4 * b * h * p * n if dstate else 0))
+    fma = (b * g * nc * tri * n
+           + b * h * nc * (2 * tri * p + 2 * tri * n + 5 * q * p * n))
+    ops = 2 * fma
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / flops_per_s * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": moved, "flops": ops}
+
+
+def ssd_bwd_case(dev, gen, case, dtype: str, *, overflow=False,
+                 dstate=True) -> tuple[dict, tuple]:
+    """The forward kernel at ``case`` against ``ssd_chunked`` on the card
+    (phase 7's limits), then the backward kernels against ``ssd_bwd_ref``
+    on the card: each of dx, ddt, dA, dB, dC finite, two calls bitwise
+    equal, and within 3e-4 (f32) or 2e-2 (bf16) of the plain version's
+    largest entry."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops
+
+    dt_ = getattr(torch, dtype)
+    args = ssd_inputs(gen, case, dt_, dev, overflow=overflow)
+    b, l, h, p, g, n, q = case
+    dy = torch.randn((b, l, h, p), generator=gen).to(dt_).to(dev)
+    ds = torch.randn((b, h, p, n), generator=gen).to(dev) if dstate else None
+    name = (f"ssd_scan_bwd{case}{' overflow' if overflow else ''} {dtype}"
+            f"{' with dstate' if dstate else ''}")
+    y, s = ops._ssd_scan(*args, q, "cuda")
+    py, ps = ops._ssd_scan(*args, q, "chunked")
+    got = ops._ssd_scan_bwd_cuda(*args, dy, ds, q)
+    again = ops._ssd_scan_bwd_cuda(*args, dy, ds, q)
+    plain = ops.ssd_bwd_ref(*args, dy, ds, chunk=q)
+    torch.cuda.synchronize()
+    ey = (y.float() - py.float()).abs()
+    es = float((s - ps).abs().max())
+    fwd_ok = (float(ey.max()) <= 3e-4 if dt_ == torch.float32 else bool(
+        (ey <= 2e-2 * (1 + py.float().abs())).all())) and es <= 3e-4
+    if not fwd_ok:
+        raise AssertionError(f"{name}: the forward kernel disagrees with "
+                             f"its plain version: y {float(ey.max()):.3e}, "
+                             f"state {es:.3e}")
+    tol = _ssd_tol(dt_)
+    row = {"case": list(case), "dtype": dtype, "overflow": overflow,
+           "dstate": dstate, "kernel": ops.kernel_for_bwd(dt_, p, n, q),
+           "fwd_max_abs_err_y": float(ey.max()),
+           "fwd_max_abs_err_state": es}
+    for gname, a, a2, want in zip(GRAD_NAMES, got, again, plain):
+        if not bool(torch.isfinite(a.float()).all()):
+            raise AssertionError(f"{name}: {gname} is not finite")
+        if not torch.equal(a, a2):
+            raise AssertionError(f"{name}: {gname} is not bitwise "
+                                 f"repeatable")
+        if a.shape != want.shape or a.dtype != want.dtype:
+            raise AssertionError(f"{name}: {gname} is {a.dtype} "
+                                 f"{tuple(a.shape)}, the plain version "
+                                 f"{want.dtype} {tuple(want.shape)}")
+        row[f"{gname}_rel_err"] = _rel_to_max(a, want)
+        row[f"{gname}_max_abs_err"] = float((a.float() - want.float()).abs()
+                                            .max())
+    row["max_rel_err"] = max(row[f"{g}_rel_err"] for g in GRAD_NAMES)
+    row["max_abs_err"] = max(row[f"{g}_max_abs_err"] for g in GRAD_NAMES)
+    row["limit"] = tol
+    row["bitwise_repeatable"] = row["finite"] = True
+    if row["max_rel_err"] > tol:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{row}")
+    return row, (args, dy, ds)
+
+
+def ssd_bwd_timing(tensors, case) -> dict:
+    """Times at the timed shape, inputs cycled past the L2: the backward
+    kernels, the plain version, autograd through the chunked plain forward
+    (a reference point: no PyTorch call computes the scan or its
+    backward), the forward kernel, and the bound."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops
+
+    args, dy, ds = tensors
+    q = case[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, dy))
+    n = _copies(nbytes)
+    sets = [([t.clone() for t in args], dy.clone()) for _ in range(n)]
+    row = {"ms": time_ms(lambda i: ops._ssd_scan_bwd_cuda(
+        *sets[i % n][0], sets[i % n][1], ds, q), iters=10)}
+    row["plain_ms"] = time_ms(lambda i: ops.ssd_bwd_ref(
+        *sets[i % n][0], sets[i % n][1], ds, chunk=q), iters=3)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    y, _ = ops.ssd_chunked(*leaves, chunk=q)
+    row["autograd_ms"] = time_ms(lambda i: torch.autograd.grad(
+        y, leaves, dy, retain_graph=True), iters=3)
+    del y, leaves
+    row["library_ms"] = None  # no PyTorch call computes the scan backward
+    row["fwd_ms"] = time_ms(lambda i: ops._ssd_scan(
+        *sets[i % n][0], q, "cuda"), iters=20)
+    row.update(ssd_bwd_bound(case, args[0].element_size(), ds is not None,
+                             BF16_FLOPS if args[0].dtype == torch.bfloat16
+                             else F32_FLOPS))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["gflops_per_s"] = row["flops"] / (row["ms"] * 1e6)
+    del sets
+    return row
+
+
+def ssd_vmap_grad_check(dev) -> float:
+    """``SsdScan`` under ``torch.func.vmap(grad(...))`` on the card with A
+    shared (the federated clients' path: params unbatched, data batched)
+    equals a loop of per-sample grads."""
+    import torch
+    from torch.func import grad, vmap
+
+    from repro_torch.kernels.ssd_scan.ops import SsdScan
+
+    gen = torch.Generator().manual_seed(18)
+    n, case = 4, (2, 100, 4, 16, 2, 16, 32)
+    b, l, h, p, g, ns, q = case
+    x, dt, A, B, C = ssd_inputs(gen, case, torch.float32, dev)
+    xs, dts, Bs, Cs = (torch.stack([t * (1 + 0.1 * i) for i in range(n)])
+                       for t in (x, dt, B, C))
+
+    def loss(A, x, dt, B, C):
+        y, s = SsdScan.apply(x, dt, A, B, C, q, "auto")
+        return (y ** 2).sum() + s.sum()
+
+    argnums = (0, 1, 2, 3, 4)
+    batched = vmap(grad(loss, argnums=argnums),
+                   in_dims=(None, 0, 0, 0, 0))(A, xs, dts, Bs, Cs)
+    err = 0.0
+    for i in range(n):
+        for a, w in zip(batched, grad(loss, argnums=argnums)(
+                A, xs[i], dts[i], Bs[i], Cs[i])):
+            err = max(err, _rel_to_max(a[i], w))
+    torch.cuda.synchronize()
+    if err > 1e-6:
+        raise AssertionError(f"vmap(grad) through SsdScan differs from the "
+                             f"per-sample loop by {err:.3e}")
+    return err
+
+
+def ssd_bwd_phase(dev) -> tuple[dict, set]:
+    """Phase 18: every case of ``SSD_BWD_CASES``, the timed shape
+    (mamba2's training shape in bf16), the ``vmap(grad)`` check; returns
+    the kernel's JSON entry and the checked (case, dtype) pairs."""
+    import torch
+
+    gen = torch.Generator().manual_seed(18)
+    checked, errs, rel_errs, main_row = set(), [], [], None
+    for case, dtypes, overflow, dstate in SSD_BWD_CASES:
+        for dtype in dtypes:
+            row, tensors = ssd_bwd_case(dev, gen, case, dtype,
+                                        overflow=overflow, dstate=dstate)
+            if case == SSD_TRAIN_MAMBA and dtype == "bfloat16":
+                row.update(ssd_bwd_timing(tensors, case))
+                main_row = row
+            del tensors
+            errs.append(row["max_abs_err"])
+            rel_errs.append(row["max_rel_err"])
+            checked.add((case, dtype))
+            log(json.dumps({"ssd_scan_bwd_case": row}))
+    err = ssd_vmap_grad_check(dev)
+    log(f"vmap(grad) through SsdScan on the card equals the per-sample loop "
+        f"(max relative difference {err:.3e})")
+    entry = _timed_entry("ssd_scan_bwd", SSD_SOURCE, SSD_BWD_REPLACES, errs,
+                         main_row)
+    entry["max_rel_err"] = max(rel_errs)  # to each gradient's largest entry
+    entry["kernel"] = "+".join(SSD_BWD_KERNELS)
+    torch.cuda.empty_cache()
+    return entry, checked
+
+
+def start_ssd_audit() -> None:
+    """Starts the scan wrapper's records of the shapes the training paths
+    launch the forward and the backward at."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    ssd_scan.shapes = set()
+    ssd_scan.bwd_shapes = set()
+
+
+def check_ssd_shapes(dev, checked: set) -> tuple[float, float]:
+    """Stops the records of :func:`start_ssd_audit` and runs
+    :func:`ssd_bwd_case` at every forward or backward shape launched since
+    that phase 18 did not check; returns the largest absolute and relative
+    errors over those cases (0.0 where none was new)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    launched = ssd_scan.shapes | ssd_scan.bwd_shapes
+    ssd_scan.shapes = ssd_scan.bwd_shapes = None
+    gen = torch.Generator().manual_seed(19)
+    new = sorted(s for s in launched if (s[:7], s[7]) not in checked)
+    err = rel = 0.0
+    for s in new:
+        row, _ = ssd_bwd_case(dev, gen, s[:7], s[7], dstate=False)
+        checked.add((s[:7], s[7]))
+        log(json.dumps({"ssd_scan_bwd_case": row, "launched_by": "path"}))
+        err = max(err, row["max_abs_err"])
+        rel = max(rel, row["max_rel_err"])
+    log(f"scan forward and backward shapes launched by phase 19: "
+        f"{len(launched)}, {len(new)} checked here")
+    return err, rel
+
+
+# --------------------------------------------------------------------------
 
 # --compare-with DIR: the decode, scan and flash backward kernels of this
 # checkout and of the checkout at DIR (e.g. the parent commit), timed in
@@ -3712,18 +4103,13 @@ PTXAS_KERNELS = {
         "d128 g<=4": "decode_kernelI13__nv_bfloat16Li128ELi4ELb1E",
         "d64 g<=4": "decode_kernelI13__nv_bfloat16Li64ELi4ELb1E"},
     "ssd_scan": {"n128 q128": "ssd_scan_tc_kernelILi128ELi128E",
-                 "n64 q128": "ssd_scan_tc_kernelILi64ELi128E"},
+                 "n64 q128": "ssd_scan_tc_kernelILi64ELi128E",
+                 "bwd chunk bf16": "ssd_bwd_chunk_kernelI13__nv_bfloat16E",
+                 "bwd state bf16": "ssd_bwd_state_kernelI13__nv_bfloat16E",
+                 "bwd cb bf16": "ssd_bwd_cb_kernelI13__nv_bfloat16E"},
     "flash_attention": {
         "bwd fused wgmma d128": "flash_bwd_fused_wgmma_kernelILi128E",
         "bwd fused wgmma d64": "flash_bwd_fused_wgmma_kernelILi64E",
-        "bwd dkdv wgmma d128": "flash_bwd_dkdv_wgmma_kernelILi128E",
-        "bwd dq wgmma d128": "flash_bwd_dq_wgmma_kernelILi128E",
-        "bwd dkdv wgmma d64": "flash_bwd_dkdv_wgmma_kernelILi64E",
-        "bwd dq wgmma d64": "flash_bwd_dq_wgmma_kernelILi64E",
-        "bwd dkdv mma d128": "flash_bwd_dkdv_mma_kernelILi128E",
-        "bwd dq mma d128": "flash_bwd_dq_mma_kernelILi128E",
-        "bwd dkdv mma d64": "flash_bwd_dkdv_mma_kernelILi64E",
-        "bwd dq mma d64": "flash_bwd_dq_mma_kernelILi64E",
         "bwd dkdv f32 d16": "flash_bwd_dkdv_kernelIfLi16E",
         "bwd dq f32 d16": "flash_bwd_dq_kernelIfLi16E"}}
 
@@ -3815,7 +4201,7 @@ def main(argv=None) -> int:
                         "scheduled (13) and pooled (14) phases only")
     p.add_argument("--training-only", action="store_true",
                    help="build, then run the kernel (1), attention kernel "
-                        "(4) and training (15-17) phases only")
+                        "(4) and training (15-19) phases only")
     p.add_argument("--ssm-only", action="store_true",
                    help="build, then run the SSD kernel phase (7), zamba2's "
                         "attention shapes and the SSM phases (8-9) only")
@@ -3848,8 +4234,9 @@ def main(argv=None) -> int:
         return 0
     t0 = time.perf_counter()
     libs = _build.build_all(KERNELS)
+    PHASE_S["build"] = time.perf_counter() - t0
     log(f"built {', '.join(lib.name for lib in libs.values())} in "
-        f"{time.perf_counter() - t0:.1f}s (one nvcc per source, in parallel)")
+        f"{PHASE_S['build']:.1f}s (one nvcc per source, in parallel)")
     for name in KERNELS:
         log(f"--- {name}: ptxas")
         log("\n".join(line for line in _build.BUILD_LOGS.get(name, "")
@@ -3857,6 +4244,9 @@ def main(argv=None) -> int:
     ptxas = {name: ptxas_summary(name) for name in ("decode_attention",
                                                       "ssd_scan")}
     ptxas["flash_attention_bwd"] = ptxas_summary("flash_attention")
+    ptxas["ssd_scan_bwd"] = {k: ptxas["ssd_scan"].pop(k)
+                             for k in list(ptxas["ssd_scan"])
+                             if k.startswith("bwd")}
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"tensor_core_sass": tensor_core_sass(libs)}))
     if args.profile:
@@ -3867,14 +4257,13 @@ def main(argv=None) -> int:
         return 0
 
     entries, main_path, scheduling = [], None, None
-    fed_entry = flash_entry = None
+    fed_entry = flash_entry = ssd_entry = None
     if args.ssm_only:
         t0 = time.perf_counter()
         ssd_entry, ssd_checked = ssd_cases(dev)
         _, dec_checked = decode_cases(dev, [DECODE_ZAMBA])
         _, flash_checked = flash_cases(dev, [FLASH_ZAMBA])
-        log(f"ssd and zamba2 attention kernel phases passed in "
-            f"{time.perf_counter() - t0:.1f}s")
+        passed("ssd and zamba2 attention kernel phases", t0)
         ssd_entry["launches"] = None
         if not args.kernel_only:
             ssm = ssm_phases(dev, ssd_checked | dec_checked | flash_checked,
@@ -3888,7 +4277,7 @@ def main(argv=None) -> int:
         log(f"chunk rows of the round's update buffers: {rows}")
         t0 = time.perf_counter()
         entry, checked = kernel_phase(dev, rows)
-        log(f"kernel phase passed in {time.perf_counter() - t0:.1f}s")
+        passed("kernel phase", t0)
         entry["launches"] = None
         fed_entry = entry
         if not (args.kernel_only or args.training_only):
@@ -3897,12 +4286,11 @@ def main(argv=None) -> int:
                               args.benchmarking_devices)
             entry["launches"] = slice_launches = res["launches"]
             inline = _slice_summary(res)  # what phase 14 is held against
-            log(f"slice phase passed in {time.perf_counter() - t0:.1f}s")
+            passed("slice phase", t0)
             if not args.scheduling_only:
                 t0 = time.perf_counter()
                 cross_check_phase(args.cross_devices, args.rounds)
-                log(f"cross-check phase passed in "
-                    f"{time.perf_counter() - t0:.1f}s")
+                passed("cross-check phase", t0)
                 t0 = time.perf_counter()
                 main_path = main_path_phase(dev, args.devices, args.rounds,
                                             checked, res, args.cross_devices,
@@ -3912,8 +4300,7 @@ def main(argv=None) -> int:
                 entry["max_abs_err"] = max(
                     entry["max_abs_err"],
                     main_path["max_abs_err"]["fed_reduce"])
-                log(f"main-path phase passed in "
-                    f"{time.perf_counter() - t0:.1f}s")
+                passed("main-path phase", t0)
             del res
             torch.cuda.empty_cache()
             scheduling = (entry, checked, inline, slice_launches)
@@ -3922,25 +4309,22 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         dec_entry, dec_checked = decode_cases(dev)
         flash_entry, flash_checked = flash_cases(dev)
-        log(f"attention kernel phase passed in "
-            f"{time.perf_counter() - t0:.1f}s")
+        passed("attention kernel phase", t0)
         t0 = time.perf_counter()
         ssd_entry = None
         if not args.training_only:
             ssd_entry, ssd_checked = ssd_cases(dev)
-            log(f"ssd kernel phase passed in "
-                f"{time.perf_counter() - t0:.1f}s")
+            passed("ssd kernel phase", t0)
         for e in (dec_entry, flash_entry, ssd_entry):
             if e is not None:
                 e["launches"] = None
         if not (args.kernel_only or args.training_only):
             t0 = time.perf_counter()
             srv = serving_phase(dev, dec_checked | flash_checked, card)
-            log(f"serving phase passed in {time.perf_counter() - t0:.1f}s")
+            passed("serving phase", t0)
             t0 = time.perf_counter()
             serving_cross_check(srv["params"], srv["cfg"], srv["prompts"])
-            log(f"serving cross-check passed in "
-                f"{time.perf_counter() - t0:.1f}s")
+            passed("serving cross-check", t0)
             llama = srv["launches"]
             del srv
             torch.cuda.empty_cache()
@@ -3973,36 +4357,49 @@ def main(argv=None) -> int:
         entry["launches"] += sched["launches"]
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    sched["max_abs_err"])
-        log(f"scheduled phase passed in {time.perf_counter() - t0:.1f}s")
+        passed("scheduled phase", t0)
         t0 = time.perf_counter()
         pooled = pooled_phase(dev, args.devices, args.rounds,
                               args.cross_devices, args.benchmarking_devices,
                               inline, slice_launches, card)
         entry["launches"] += pooled["launches"]
-        log(f"pooled phase passed in {time.perf_counter() - t0:.1f}s")
+        passed("pooled phase", t0)
     if not (args.ssm_only or args.scheduling_only or args.serving_only):
-        # Phases 15-17, last as numbered.
+        # Phases 15-19, last as numbered.
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         bwd_entry, bwd_checked, fwd_err = bwd_phase(dev)
         bwd_entry["launches"] = None
         flash_entry["max_abs_err"] = max(flash_entry["max_abs_err"], fwd_err)
-        log(f"backward kernel phase passed in "
-            f"{time.perf_counter() - t0:.1f}s")
+        passed("backward kernel phase", t0)
         if not args.kernel_only:
             start_training_audit()
             t0 = time.perf_counter()
             train = training_phase(dev, card)
-            log(f"training phase passed in {time.perf_counter() - t0:.1f}s")
+            passed("training phase", t0)
             t0 = time.perf_counter()
             training_cross_check(dev)
-            log(f"training cross-check passed in "
-                f"{time.perf_counter() - t0:.1f}s")
+            passed("training cross-check", t0)
             t0 = time.perf_counter()
             ex = training_examples_phase(dev)
-            log(f"training examples phase passed in "
-                f"{time.perf_counter() - t0:.1f}s")
+            passed("training examples phase", t0)
+        t0 = time.perf_counter()
+        ssd_bwd_entry, ssd_bwd_checked = ssd_bwd_phase(dev)
+        ssd_bwd_entry["launches"] = None
+        passed("ssd backward kernel phase", t0)
+        if not args.kernel_only:
+            start_ssd_audit()
+            t0 = time.perf_counter()
+            ssm_train = training_phase(dev, card, SSM_TRAIN_ARCH)
+            passed("ssm training phase", t0)
+            for arch in SSM_ARCHS:
+                t0 = time.perf_counter()
+                training_cross_check(dev, arch)
+                passed(f"ssm training cross-check [{arch}]", t0)
+            # Every shape phases 16, 17 and 19 launched that phases 15 and
+            # 18 did not check, checked as they check their cases.
             fwd_err, bwd_err = check_training_shapes(dev, bwd_checked)
+            ssd_err, ssd_rel = check_ssd_shapes(dev, ssd_bwd_checked)
             # Each path's own count, read just after it ran.
             bwd_entry["launches"] = (train["launches"]["flash_attention_bwd"]
                                      + ex["launches"]["flash_attention_bwd"])
@@ -4014,10 +4411,19 @@ def main(argv=None) -> int:
                 "launches"]["flash_attention_wgmma"])
             fed_entry["launches"] = ((fed_entry["launches"] or 0)
                                      + ex["launches"]["fed_reduce"])
-        entries.append(bwd_entry)
+            ssd_bwd_entry["launches"] = ssm_train["launches"]["ssd_scan_bwd"]
+            ssd_bwd_entry["max_abs_err"] = max(ssd_bwd_entry["max_abs_err"],
+                                               ssd_err)
+            ssd_bwd_entry["max_rel_err"] = max(ssd_bwd_entry["max_rel_err"],
+                                               ssd_rel)
+            if ssd_entry is not None:
+                ssd_entry["launches"] = ((ssd_entry["launches"] or 0)
+                                         + ssm_train["launches"]["ssd_scan"])
+        entries += [bwd_entry, ssd_bwd_entry]
     for e in entries:
         if ptxas.get(e["name"]):
             e["ptxas"] = ptxas[e["name"]]
+    log(json.dumps({"phase_s": PHASE_S}))
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -122,9 +122,9 @@
 // dQ at 25.2 MB, k, v, dK, dV at 8.4 MB, lse and D) ~135 MB, 0.040 ms at
 // 3.35 TB/s: the flops set it, so the products must run on wgmma.
 //
-// bf16 at d = 64, 128, every training path's route (wg_bwd below), design
-// (b): dQ summed across key tiles, 5 products per tile pair as the bound
-// counts them.  Three launches:
+// bf16 at d = 64, 128, every training path's route (wg_bwd below): dQ
+// summed across key tiles, 5 products per tile pair as the bound counts
+// them.  Three launches:
 //   * flash_bwd_prep_kernel writes D = rowsum(dO o O), lse log2 e (both
 //     padded to 64-row tiles, so a tile's is one aligned 256-byte bulk
 //     copy), q * scale rounded to bf16 (the forward's rounding, so the
@@ -169,18 +169,9 @@
 //   * The turns need every block of key tile kt - 1 dispatched before key
 //     tile kt's: the grid's linear order (KV head fastest, then key tile)
 //     gives that.
-// Design (a), callable by name for timing, on no path: the prep pass, then
-// flash_bwd_dkdv_wgmma_kernel (the fused kernel without dQ; a 3-stage
-// ring, query tiles first to last per head, a warpgroup whose keys no row
-// sees skips its products) and flash_bwd_dq_wgmma_kernel (a block per
-// 128-row query tile, the heaviest first, that recomputes S and dP: 7
-// products per tile pair where the bound counts 5).  The first design, also
-// callable by name: flash_bwd_dot_kernel, then flash_bwd_dkdv_mma_kernel
-// and flash_bwd_dq_mma_kernel on mma.sync m16n8k16 (ldmatrix from padded
-// shared memory, loads synchronous, 4 warps a block).  f32 and the other
-// widths run on plain f32 FMAs (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel:
-// a dK/dV kernel over key tiles and a dQ kernel over query tiles, after a
-// pass that computes D).
+// f32 and the other widths run on plain f32 FMAs (flash_bwd_dkdv_kernel,
+// flash_bwd_dq_kernel: a dK/dV kernel over key tiles and a dQ kernel over
+// query tiles, after a pass that computes D).
 //
 // Plain C interface, loaded through ctypes; each launch goes on the caller's
 // stream and each entry point returns its cudaError_t.
@@ -1348,427 +1339,14 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 }  // namespace bwd
 
 // --------------------------------------------------------------------------
-// The backward on the tensor cores for bf16 at d = 64, 128:
-// flash_bwd_dkdv_mma_kernel and flash_bwd_dq_mma_kernel (after the same
-// flash_bwd_dot_kernel).  The same passes as the plain-FMA kernels above,
-// with every product on mma.sync m16n8k16 (bf16 operands, f32
-// accumulators), operands from padded shared memory through ldmatrix, and
-// P and dS rounded to bf16 in registers, where the accumulator's layout is
-// already the next product's A-fragment layout.
-
-namespace mma_bwd {
-
-using bf16 = __nv_bfloat16;
-constexpr int WARPS = 4;
-constexpr int NT = WARPS * 32;
-constexpr int BKEY = 64;  // keys per dK/dV block and per dQ key tile
-constexpr int BQR = 64;   // query rows per dQ block
-
-template <int D>
-struct Cfg {
-  static constexpr int SP = D + 8;  // row stride (bf16): 16 bytes of pad
-  // Query rows per dK/dV step: 32 at d = 128 keeps dK, dV, S^T and dP^T
-  // (160 f32 a thread) in registers.
-  static constexpr int BQ = D == 128 ? 32 : 64;
-  static constexpr size_t kv_smem =
-      (static_cast<size_t>(2 * BKEY + 2 * BQ) * SP) * sizeof(bf16) + 2 * BQ * sizeof(float);
-  static constexpr size_t q_smem = static_cast<size_t>(2 * BQR + 2 * BKEY) * SP * sizeof(bf16);
-};
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16).
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
-// Lane addresses for ldmatrix.x4 over a tile with row stride SP:
-// the A fragment of rows r0..r0+15, columns c0..c0+15 (row-major A);
-template <int SP>
-__device__ __forceinline__ uint32_t a_addr(uint32_t base, int r0, int c0) {
-  const int l = threadIdx.x & 31, j = l >> 3;
-  return base + ((r0 + (l & 7) + ((j & 1) << 3)) * SP + c0 + ((j >> 1) << 3)) * 2;
-}
-// B fragments of n-tiles n0 and n0 + 8 over k = c0..c0+15 where the tile
-// holds B transposed (row n, column k): regs b0, b1 of n0, then of n0 + 8;
-template <int SP>
-__device__ __forceinline__ uint32_t bt_addr(uint32_t base, int n0, int c0) {
-  const int l = threadIdx.x & 31, j = l >> 3;
-  return base + ((n0 + (l & 7) + ((j >> 1) << 3)) * SP + c0 + ((j & 1) << 3)) * 2;
-}
-// and the same where the tile holds B as it is (row k, column n), loaded
-// with .trans.
-template <int SP>
-__device__ __forceinline__ uint32_t bn_addr(uint32_t base, int k0, int n0) {
-  const int l = threadIdx.x & 31, j = l >> 3;
-  return base + ((k0 + (l & 7) + ((j & 1) << 3)) * SP + n0 + ((j >> 1) << 3)) * 2;
-}
-
-// Rows [r0, r0 + ROWS) of a (rows, heads, D) bf16 slab into shared memory
-// with row stride D + 8; rows >= n_rows are zero.  SCALE: times scale,
-// rounded back to bf16 (the query tile, as the forward rounds it).
-template <int D, int ROWS, bool SCALE>
-__device__ __forceinline__ void load_rows(bf16* __restrict__ dst,
-                                          const bf16* __restrict__ src, size_t stride,
-                                          int r0, int n_rows, float scale) {
-  constexpr int CPR = D / 8;
-  constexpr int SP = D + 8;
-  for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
-    const int r = c / CPR;
-    const int cc = c - r * CPR;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n_rows) {
-      raw = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * stride + cc * 8));
-      if constexpr (SCALE) {
-        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(e[i]);
-          e[i] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * SP + cc * 8) = raw;
-  }
-}
-
-// Grid (key tiles of 64, KV heads, batch); warp w owns keys 16 w .. 16 w +
-// 15 of the tile and their dK, dV rows.  For each query head of the group
-// and each query tile of BQ rows that sees the keys: S^T = K (Q scale)^T
-// and dP^T = V dO^T (16 keys x BQ a warp), P^T = exp(S^T - lse) and dS^T =
-// P^T (dP^T - D) in registers, dV += P^T dO and dK += dS^T (Q scale).
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
-                          int h, int kvh, int causal, int q_offset, float scale) {
-  using C = Cfg<D>;
-  constexpr int SP = C::SP;
-  constexpr int BQ = C::BQ;
-  constexpr int NQ = BQ / 8;  // query n-tiles of S^T
-  constexpr int ND = D / 8;   // d n-tiles of dK, dV
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + BKEY * SP;
-  bf16* q_s = v_s + BKEY * SP;
-  bf16* g_s = q_s + BQ * SP;
-  float* lse_s = reinterpret_cast<float*>(g_s + BQ * SP);
-  float* d_s = lse_s + BQ;
-
-  const int k0 = blockIdx.x * BKEY;
-  const int hk = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int g = h / kvh;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
-  const int kr0 = warp * 16;
-  const int key0 = k0 + kr0 + gq;
-  const int key1 = key0 + 8;
-  const size_t q_stride = static_cast<size_t>(h) * D;
-  const size_t kv_stride = static_cast<size_t>(kvh) * D;
-  const size_t kv_base = static_cast<size_t>(bi) * sk * kv_stride + static_cast<size_t>(hk) * D;
-
-  load_rows<D, BKEY, false>(k_s, k + kv_base, kv_stride, k0, sk, 0.f);
-  load_rows<D, BKEY, false>(v_s, v + kv_base, kv_stride, k0, sk, 0.f);
-  const uint32_t ks = saddr(k_s), vs = saddr(v_s), qs = saddr(q_s), gs = saddr(g_s);
-
-  float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  const int nq = (sq + BQ - 1) / BQ;
-  const int q_first = causal ? max(0, k0 - q_offset) / BQ : 0;
-  for (int hg = 0; hg < g; ++hg) {
-    const int hh = hk * g + hg;
-    const size_t q_base = static_cast<size_t>(bi) * sq * q_stride + static_cast<size_t>(hh) * D;
-    const float* lse_row = lse + (static_cast<size_t>(bi) * h + hh) * sq;
-    const float* d_row = delta + (static_cast<size_t>(bi) * h + hh) * sq;
-    for (int qb = q_first; qb < nq; ++qb) {
-      const int q0 = qb * BQ;
-      __syncthreads();  // the previous query tile is consumed
-      load_rows<D, BQ, true>(q_s, q + q_base, q_stride, q0, sq, scale);
-      load_rows<D, BQ, false>(g_s, dout + q_base, q_stride, q0, sq, 0.f);
-      if (threadIdx.x < BQ) {
-        const int r = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = r < sq ? lse_row[r] : 0.f;
-        d_s[threadIdx.x] = r < sq ? d_row[r] : 0.f;
-      }
-      __syncthreads();
-
-      float s[NQ][4], dp[NQ][4];
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        ldsm_x4(ak, a_addr<SP>(ks, kr0, 16 * kk));
-        ldsm_x4(av, a_addr<SP>(vs, kr0, 16 * kk));
-#pragma unroll
-        for (int nj = 0; nj < NQ / 2; ++nj) {
-          uint32_t bq[4], bg[4];
-          ldsm_x4(bq, bt_addr<SP>(qs, 16 * nj, 16 * kk));
-          ldsm_x4(bg, bt_addr<SP>(gs, 16 * nj, 16 * kk));
-          mma16816(s[2 * nj], ak, bq[0], bq[1]);
-          mma16816(s[2 * nj + 1], ak, bq[2], bq[3]);
-          mma16816(dp[2 * nj], av, bg[0], bg[1]);
-          mma16816(dp[2 * nj + 1], av, bg[2], bg[3]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = 8 * j + 2 * tq + (e & 1);
-          const int qi = q0 + ql;
-          const int key = (e & 2) ? key1 : key0;
-          const bool valid = key < sk && qi < sq && (!causal || q_offset + qi >= key);
-          const float p = valid ? expf(s[j][e] - lse_s[ql]) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - d_s[ql]);
-        }
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        const uint32_t ap[4] = {pack2(s[2 * kk][0], s[2 * kk][1]), pack2(s[2 * kk][2], s[2 * kk][3]),
-                                pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const uint32_t ad[4] = {pack2(dp[2 * kk][0], dp[2 * kk][1]), pack2(dp[2 * kk][2], dp[2 * kk][3]),
-                                pack2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                                pack2(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-        for (int nd = 0; nd < ND / 2; ++nd) {
-          uint32_t bg[4], bq[4];
-          ldsm_x4_t(bg, bn_addr<SP>(gs, 16 * kk, 16 * nd));
-          ldsm_x4_t(bq, bn_addr<SP>(qs, 16 * kk, 16 * nd));
-          mma16816(dv_acc[2 * nd], ap, bg[0], bg[1]);
-          mma16816(dv_acc[2 * nd + 1], ap, bg[2], bg[3]);
-          mma16816(dk_acc[2 * nd], ad, bq[0], bq[1]);
-          mma16816(dk_acc[2 * nd + 1], ad, bq[2], bq[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = half ? key1 : key0;
-    if (key >= sk) continue;
-    const size_t off = kv_base + static_cast<size_t>(key) * kv_stride;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int c = 8 * j + 2 * tq;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + c) =
-          __floats2bfloat162_rn(dk_acc[j][2 * half], dk_acc[j][2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + c) =
-          __floats2bfloat162_rn(dv_acc[j][2 * half], dv_acc[j][2 * half + 1]);
-    }
-  }
-}
-
-// Grid (query tiles of 64, query heads, batch); warp w owns rows 16 w ..
-// 16 w + 15 of the tile and their dQ.  For each key tile the rows see: S
-// = (Q scale) K^T and dP = dO V^T, P and dS = P (dP - D) in registers, dQ
-// += dS K; dQ = scale dQ.
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int sq, int sk, int h, int kvh, int causal,
-                        int q_offset, float scale) {
-  using C = Cfg<D>;
-  constexpr int SP = C::SP;
-  constexpr int NK = BKEY / 8;  // key n-tiles of S
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* g_s = q_s + BQR * SP;
-  bf16* k_s = g_s + BQR * SP;
-  bf16* v_s = k_s + BKEY * SP;
-
-  const int q0 = blockIdx.x * BQR;
-  const int hh = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int hk = hh / (h / kvh);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gq = lane >> 2;
-  const int tq = lane & 3;
-  const int qr0 = warp * 16;
-  const int row0 = q0 + qr0 + gq;
-  const int row1 = row0 + 8;
-  const size_t q_stride = static_cast<size_t>(h) * D;
-  const size_t kv_stride = static_cast<size_t>(kvh) * D;
-  const size_t q_base = static_cast<size_t>(bi) * sq * q_stride + static_cast<size_t>(hh) * D;
-  const size_t kv_base = static_cast<size_t>(bi) * sk * kv_stride + static_cast<size_t>(hk) * D;
-
-  load_rows<D, BQR, true>(q_s, q + q_base, q_stride, q0, sq, scale);
-  load_rows<D, BQR, false>(g_s, dout + q_base, q_stride, q0, sq, 0.f);
-  const float* lse_row = lse + (static_cast<size_t>(bi) * h + hh) * sq;
-  const float* d_row = delta + (static_cast<size_t>(bi) * h + hh) * sq;
-  const float lse0 = row0 < sq ? lse_row[row0] : 0.f;
-  const float lse1 = row1 < sq ? lse_row[row1] : 0.f;
-  const float d0 = row0 < sq ? d_row[row0] : 0.f;
-  const float d1 = row1 < sq ? d_row[row1] : 0.f;
-  const uint32_t qs = saddr(q_s), gs = saddr(g_s), ks = saddr(k_s), vs = saddr(v_s);
-
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  const int nk = (sk + BKEY - 1) / BKEY;
-  const int n_blocks = causal ? min(nk, max(0, (q_offset + q0 + BQR - 1) / BKEY + 1)) : nk;
-  for (int kb = 0; kb < n_blocks; ++kb) {
-    const int k0 = kb * BKEY;
-    __syncthreads();  // the previous key tile is consumed
-    load_rows<D, BKEY, false>(k_s, k + kv_base, kv_stride, k0, sk, 0.f);
-    load_rows<D, BKEY, false>(v_s, v + kv_base, kv_stride, k0, sk, 0.f);
-    __syncthreads();
-
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ag[4];
-      ldsm_x4(aq, a_addr<SP>(qs, qr0, 16 * kk));
-      ldsm_x4(ag, a_addr<SP>(gs, qr0, 16 * kk));
-#pragma unroll
-      for (int nj = 0; nj < NK / 2; ++nj) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(bk, bt_addr<SP>(ks, 16 * nj, 16 * kk));
-        ldsm_x4(bv, bt_addr<SP>(vs, 16 * nj, 16 * kk));
-        mma16816(s[2 * nj], aq, bk[0], bk[1]);
-        mma16816(s[2 * nj + 1], aq, bk[2], bk[3]);
-        mma16816(dp[2 * nj], ag, bv[0], bv[1]);
-        mma16816(dp[2 * nj + 1], ag, bv[2], bv[3]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * tq + (e & 1);
-        const int row = (e & 2) ? row1 : row0;
-        const bool valid = key < sk && row < sq && (!causal || q_offset + row >= key);
-        const float p = valid ? expf(s[j][e] - ((e & 2) ? lse1 : lse0)) : 0.f;
-        dp[j][e] = p * (dp[j][e] - ((e & 2) ? d1 : d0));
-      }
-#pragma unroll
-    for (int kk = 0; kk < BKEY / 16; ++kk) {
-      const uint32_t ad[4] = {pack2(dp[2 * kk][0], dp[2 * kk][1]), pack2(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack2(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack2(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < ND / 2; ++nd) {
-        uint32_t bk[4];
-        ldsm_x4_t(bk, bn_addr<SP>(ks, 16 * kk, 16 * nd));
-        mma16816(acc[2 * nd], ad, bk[0], bk[1]);
-        mma16816(acc[2 * nd + 1], ad, bk[2], bk[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = half ? row1 : row0;
-    if (row >= sq) continue;
-    bf16* o = dq + q_base + static_cast<size_t>(row) * q_stride;
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(acc[j][2 * half] * scale, acc[j][2 * half + 1] * scale);
-  }
-}
-
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const float* lse, const void* dout, void* dq, void* dk, void* dv,
-                   float* delta, int b, int sq, int sk, int h, int kvh, int causal,
-                   int q_offset, float scale, cudaStream_t stream) {
-  using C = Cfg<D>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(C::kv_smem));
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(C::q_smem));
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* gt = static_cast<const bf16*>(dout);
-  const int rows = b * sq * h;
-  bwd::flash_bwd_dot_kernel<bf16><<<(rows + 7) / 8, 256, 0, stream>>>(
-      static_cast<const bf16*>(o), gt, delta, rows, D, sq, h);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const dim3 kv_grid(static_cast<unsigned>((sk + BKEY - 1) / BKEY),
-                     static_cast<unsigned>(kvh), static_cast<unsigned>(b));
-  flash_bwd_dkdv_mma_kernel<D><<<kv_grid, NT, C::kv_smem, stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, h,
-      kvh, causal, q_offset, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const dim3 q_grid(static_cast<unsigned>((sq + BQR - 1) / BQR),
-                    static_cast<unsigned>(h), static_cast<unsigned>(b));
-  flash_bwd_dq_mma_kernel<D><<<q_grid, NT, C::q_smem, stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), sq, sk, h, kvh, causal, q_offset,
-      scale);
-  return cudaGetLastError();
-}
-
-}  // namespace mma_bwd
-
-// --------------------------------------------------------------------------
 // The backward on Hopper's tensor cores for bf16 at d = 64, 128 (the
 // route on every training path): flash_bwd_prep_kernel, then
-// flash_bwd_fused_wgmma_kernel and flash_bwd_dq_convert_kernel (design
-// (a): flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel instead).
-// The product kernels are warp-specialised: two consumer warpgroups of 64 rows each
-// (wgmma, f32 accumulators in registers, setmaxnreg 240) and a producer
-// warpgroup of which one thread keeps TMA loads in flight through a ring
-// of STAGES stages, each with a full and an empty mbarrier of its own.
+// flash_bwd_fused_wgmma_kernel and flash_bwd_dq_convert_kernel.  The
+// product kernel is warp-specialised: two consumer warpgroups of 64 rows
+// each (wgmma, f32 accumulators in registers, setmaxnreg 240) and a
+// producer warpgroup of which one thread keeps TMA loads in flight through
+// a ring of FSTAGES stages, each with a full and an empty mbarrier of its
+// own.
 
 namespace wg_bwd {
 
@@ -1780,8 +1358,7 @@ using tc::SW_ROWS8;
 constexpr int ROWS = 64;       // rows of a tile: one wgmma M, one TMA box
 constexpr int CONSUMERS = 2;   // consumer warpgroups
 constexpr int THREADS = (CONSUMERS + 1) * 128;
-constexpr int STAGES = 3;
-constexpr int FSTAGES = 2;     // the fused kernel's ring (its dS and dQ buffers take the rest)
+constexpr int FSTAGES = 2;     // the ring's stages (the dS and dQ buffers take the rest)
 constexpr uint32_t RELEASE = CONSUMERS * 4;  // one arrival per consumer warp
 
 constexpr size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
@@ -1790,28 +1367,16 @@ template <int D>
 struct Layout {
   static constexpr int boxes = D / BOX_COLS;
   static constexpr uint32_t tile = boxes * BOX_BYTES;  // 64 rows x D bf16
-  // dK/dV: K and V of the block's 128 keys, then the ring of (q * scale,
-  // dO) tiles, then the ring of (lse log2 e, D) vectors of 64 rows each.
-  static constexpr uint32_t kv_k = 0;
-  static constexpr uint32_t kv_v = kv_k + CONSUMERS * tile;
-  static constexpr uint32_t kv_ring = kv_v + CONSUMERS * tile;
-  static constexpr uint32_t kv_vec = kv_ring + STAGES * 2 * tile;
-  static constexpr uint32_t kv_bar = kv_vec + STAGES * 2 * ROWS * 4;
-  // dQ: q * scale and dO of the block's 128 rows, then the ring of (K, V)
-  // tiles of 64 keys.
-  static constexpr uint32_t q_q = 0;
-  static constexpr uint32_t q_do = q_q + CONSUMERS * tile;
-  static constexpr uint32_t q_ring = q_do + CONSUMERS * tile;
-  static constexpr uint32_t q_bar = q_ring + STAGES * 2 * tile;
-  // Barriers: one for the block's fixed tiles, full[STAGES], empty[STAGES].
-  static constexpr uint32_t bars = 8 * (1 + 2 * STAGES);
-  // Fused (design (b)): K and V as for dK/dV, a ring of FSTAGES, then two
+  // K and V of the block's 128 keys, then the ring of FSTAGES (q * scale,
+  // dO) tiles and of (lse log2 e, D) vectors of 64 rows each, then two
   // dS^T buffers (128 keys x 64 queries bf16, 128B-swizzled, used in turn)
   // and the consumers' dQ partials (a 64 x 64 f32 block each, in
   // accumulator-fragment order).
+  static constexpr uint32_t kv_k = 0;
+  static constexpr uint32_t kv_v = kv_k + CONSUMERS * tile;
   static constexpr uint32_t ds_bytes = CONSUMERS * ROWS * ROWS * 2;
   static constexpr uint32_t dq_bytes = CONSUMERS * ROWS * ROWS * 4;
-  static constexpr uint32_t f_ring = kv_ring;
+  static constexpr uint32_t f_ring = kv_v + CONSUMERS * tile;
   static constexpr uint32_t f_vec = f_ring + FSTAGES * 2 * tile;
   static constexpr uint32_t f_ds = (f_vec + FSTAGES * 2 * ROWS * 4 + 1023) / 1024 * 1024;
   static constexpr uint32_t f_dq = f_ds + 2 * ds_bytes;
@@ -1822,9 +1387,7 @@ struct Layout {
   // consumers could not both raise their registers to 240 (setmaxnreg
   // would wait forever).
   static constexpr size_t one_per_sm = 116 * 1024;
-  static constexpr size_t kv_smem = max_sz(kv_bar + bars + 1024, one_per_sm);  // + alignment slack
-  static constexpr size_t q_smem = max_sz(q_bar + bars + 1024, one_per_sm);
-  static constexpr size_t f_smem = max_sz(f_bar + f_bars + 1024, one_per_sm);
+  static constexpr size_t f_smem = max_sz(f_bar + f_bars + 1024, one_per_sm);  // + alignment slack
 };
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -2003,8 +1566,8 @@ __device__ __forceinline__ void tile_grads(float (&s)[32], float (&dp)[32], uint
 // length rounded up to 64): qs = bf16(q scale) (the forward's rounding),
 // delta = rowsum(dO o O) in f32 and lse2 = lse log2 e, the last two laid
 // out (b, h, sq_pad) with zeros past sq, so that a 64-row tile of either
-// is one aligned 256-byte run.  For the fused kernel it also zeroes the
-// turn counter of each (b, h, 64-row tile).
+// is one aligned 256-byte run.  It also zeroes the turn counter of each
+// (b, h, 64-row tile).
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ o,
@@ -2054,186 +1617,19 @@ flash_bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ o,
     const size_t r = (static_cast<size_t>(bi) * h + hh) * sq_pad + i;
     delta[r] = acc;
     lse2[r] = i < sq ? lse[(static_cast<size_t>(bi) * h + hh) * sq + i] * LOG2E : 0.f;
-    if (turns != nullptr && i % ROWS == 0) turns[r / ROWS] = 0;
+    if (i % ROWS == 0) turns[r / ROWS] = 0;
   }
 }
 
-// Grid (b kv, key tiles of 128): every KV head of key tile 0 first, the
-// heaviest under a causal mask.  Consumer warpgroup w owns keys k0 + 64 w
-// .. + 63 and their dK and dV (64 x D f32 each, in registers).  For each
-// query head of the group and each 64-row query tile that sees the block's
-// keys, in that order (so the sum over the group is taken in one fixed
-// order): S^T = K (q scale)^T and dP^T = V dO^T (SS, both K-major),
-// P^T = exp(S^T - lse) and dS^T = P^T (dP^T - D) in registers, then dV +=
-// P^T dO and dK += dS^T (q scale) (RS: the bf16 accumulators as A, the
-// tiles read MN-major as B).
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qs_map,
-                            const __grid_constant__ CUtensorMap do_map,
-                            const __grid_constant__ CUtensorMap k_map,
-                            const __grid_constant__ CUtensorMap v_map,
-                            const float* __restrict__ lse2, const float* __restrict__ delta,
-                            bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
-                            int h, int kvh, int causal, int q_offset) {
-  using L = Layout<D>;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = tc::smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  const float* vec = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kv_vec);
-  const uint32_t bar = base + L::kv_bar;  // K/V; full s at 8 (1 + s); empty s at 8 (1 + STAGES + s)
-
-  const int hk = blockIdx.x % kvh;
-  const int bi = blockIdx.x / kvh;
-  const int k0 = blockIdx.y * CONSUMERS * ROWS;
-  const int g = h / kvh;
-  const int nq = (sq + ROWS - 1) / ROWS;
-  const int sq_pad = nq * ROWS;
-  // Query tile qb sees key k0 iff q_offset + 64 qb + 63 >= k0.
-  const int q_first = causal ? min(nq, max(0, k0 - q_offset) / ROWS) : 0;
-  const int per_head = nq - q_first;
-  const int n_it = g * per_head;
-
-  if (threadIdx.x == 0) {
-    tc::mbar_init(bar, 1);
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      tc::mbar_init(bar + 8u * (1 + s), 1);
-      tc::mbar_init(bar + 8u * (1 + STAGES + s), RELEASE);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= CONSUMERS * 128) {  // the producer warpgroup
-    regs_dealloc<24>();
-    if (threadIdx.x == CONSUMERS * 128 && n_it > 0) {
-      tc::mbar_expect_tx(bar, 2 * CONSUMERS * L::tile);
-#pragma unroll
-      for (int w = 0; w < CONSUMERS; ++w)
-#pragma unroll
-        for (int x = 0; x < L::boxes; ++x) {
-          const uint32_t off = w * L::tile + x * BOX_BYTES;
-          tc::tma_load_4d(base + L::kv_k + off, &k_map, bar, x * BOX_COLS, hk, k0 + w * ROWS, bi);
-          tc::tma_load_4d(base + L::kv_v + off, &v_map, bar, x * BOX_COLS, hk, k0 + w * ROWS, bi);
-        }
-      int stage = 0, phase = 0;
-      for (int it = 0; it < n_it; ++it) {
-        if (it >= STAGES) tc::mbar_wait(bar + 8u * (1 + STAGES + stage), phase ^ 1);
-        const int hh = hk * g + it / per_head;
-        const int q0 = (q_first + it % per_head) * ROWS;
-        const uint32_t full = bar + 8u * (1 + stage);
-        const uint32_t ring = base + L::kv_ring + stage * 2 * L::tile;
-        tc::mbar_expect_tx(full, 2 * L::tile + 2 * ROWS * 4);
-#pragma unroll
-        for (int x = 0; x < L::boxes; ++x) {
-          tc::tma_load_4d(ring + x * BOX_BYTES, &qs_map, full, x * BOX_COLS, hh, q0, bi);
-          tc::tma_load_4d(ring + L::tile + x * BOX_BYTES, &do_map, full, x * BOX_COLS, hh, q0, bi);
-        }
-        const size_t r = (static_cast<size_t>(bi) * h + hh) * sq_pad + q0;
-        const uint32_t v_s = base + L::kv_vec + stage * 2 * ROWS * 4;
-        bulk_load(v_s, lse2 + r, ROWS * 4, full);
-        bulk_load(v_s + ROWS * 4, delta + r, ROWS * 4, full);
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-    }
-    return;
-  }
-
-  regs_alloc<240>();
-  const int wg = threadIdx.x >> 7;
-  const int lane = threadIdx.x & 31;
-  // Accumulator fragment of wgmma m64nN: this thread holds rows r0 and r0
-  // + 8 of its warpgroup's 64; element i sits in row r0 + 8 ((i >> 1) & 1)
-  // and column 8 (i >> 2) + c2 + (i & 1).
-  const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
-  const int c2 = (lane & 3) * 2;
-  const int kw0 = k0 + wg * ROWS;
-  const int key0 = kw0 + r0;
-  const int key1 = key0 + 8;
-  const uint32_t ks = base + L::kv_k + wg * L::tile;
-  const uint32_t vs = base + L::kv_v + wg * L::tile;
-
-  float dka[D / 2], dva[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
-
-  if (n_it > 0) tc::mbar_wait(bar, 0);
-  int stage = 0, phase = 0;
-  for (int it = 0; it < n_it; ++it) {
-    const int q0 = (q_first + it % per_head) * ROWS;
-    tc::mbar_wait(bar + 8u * (1 + stage), phase);
-    // Skipped (uniformly across the warpgroup) when no row of the tile sees
-    // any of its keys: every product would be masked to zero.
-    const int last_row = min(q0 + ROWS, sq) - 1;
-    if (kw0 < sk && (!causal || q_offset + last_row >= kw0)) {
-      const uint32_t qst = base + L::kv_ring + stage * 2 * L::tile;
-      const uint32_t dost = qst + L::tile;
-      const float* lv = vec + stage * 2 * ROWS;  // lse log2 e, then D
-
-      float s[32], dp[32];
-      tile_grads<D>(s, dp, ks, vs, qst, dost, lv, q0, kw0, key0, key1, c2, sq, sk, causal,
-                    q_offset);
-      uint32_t pa[4][4], da[4][4];
-      pack_a(pa, s);
-      pack_a(da, dp);
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
-        tc::pin(dva[i]);
-        tc::pin(dka[i]);
-      }
-      tc::wg_fence();
-      accumulate<D>(dva, pa, dost);
-      accumulate<D>(dka, da, qst);
-      tc::wg_commit();
-      tc::wg_wait_all();
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
-        tc::pin(dva[i]);
-        tc::pin(dka[i]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          pin_u(pa[kk][e]);
-          pin_u(da[kk][e]);
-        }
-    }
-    // This warp is done with the stage (its wgmmas have completed).
-    __syncwarp();
-    if (lane == 0) mbar_arrive(bar + 8u * (1 + STAGES + stage));
-    if (++stage == STAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-
-  const size_t row_stride = static_cast<size_t>(kvh) * D;
-  const size_t head = static_cast<size_t>(bi) * sk * row_stride + static_cast<size_t>(hk) * D;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = half ? key1 : key0;
-    if (key >= sk) continue;
-    bf16* kd = dk + head + static_cast<size_t>(key) * row_stride;
-    bf16* vd = dv + head + static_cast<size_t>(key) * row_stride;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(kd + 8 * j + c2) =
-          __floats2bfloat162_rn(dka[4 * j + 2 * half], dka[4 * j + 2 * half + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(vd + 8 * j + c2) =
-          __floats2bfloat162_rn(dva[4 * j + 2 * half], dva[4 * j + 2 * half + 1]);
-    }
-  }
-}
-
-// Design (b): dK, dV and dQ in one kernel.  Grid, warpgroups and ring as
-// flash_bwd_dkdv_wgmma_kernel, but the items run query tile outer (the
-// last first) and group head inner, and each also takes the block's dQ
-// partial of the tile: both consumer warpgroups put dS^T (bf16) into
+// dK, dV and dQ in one kernel.  Grid (b kv, key tiles of 128): every KV
+// head of key tile 0 first.  Consumer warpgroup w owns keys k0 + 64 w ..
+// + 63 and their dK and dV (64 x D f32 each, in registers).  The items
+// run query tile outer (the last first) and group head inner (so the sum
+// over the group is taken in one fixed order); for each, S^T = K (q
+// scale)^T and dP^T = V dO^T (SS, both K-major), P^T = exp(S^T - lse) and
+// dS^T = P^T (dP^T - D) in registers, then dV += P^T dO and dK += dS^T (q
+// scale) (RS: the bf16 accumulators as A, the tiles read MN-major as B),
+// and the block's dQ partial of the tile: both consumer warpgroups put dS^T (bf16) into
 // shared memory, then compute dQ_part = dS K (SS, both operands MN-major;
 // at d = 128 warpgroup w takes columns 64 w .. + 63, at d = 64 all
 // columns over its own keys) and store it in accumulator-fragment order.
@@ -2531,184 +1927,6 @@ flash_bwd_dq_convert_kernel(const float* __restrict__ dq_acc, bf16* __restrict__
   }
 }
 
-// Grid (b h, query tiles of 128), the heaviest causal tiles first.
-// Consumer warpgroup w owns rows q0 + 64 w .. + 63 and their dQ (64 x D
-// f32 in registers), and walks the 64-key tiles they see: S = (q scale)
-// K^T and dP = dO V^T (SS), P = exp(S - lse) and dS = P (dP - D) in
-// registers, dQ += dS K (RS, K read MN-major); dQ = scale dQ.
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qs_map,
-                          const __grid_constant__ CUtensorMap do_map,
-                          const __grid_constant__ CUtensorMap k_map,
-                          const __grid_constant__ CUtensorMap v_map,
-                          const float* __restrict__ lse2, const float* __restrict__ delta,
-                          bf16* __restrict__ dq, int sq, int sk, int h, int g, int causal,
-                          int q_offset, float scale) {
-  using L = Layout<D>;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = tc::smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t bar = base + L::q_bar;  // Q/dO; full s at 8 (1 + s); empty s at 8 (1 + STAGES + s)
-
-  const int hh = blockIdx.x % h;
-  const int bi = blockIdx.x / h;
-  const int hk = hh / g;
-  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qb * CONSUMERS * ROWS;
-  const int nk = (sk + ROWS - 1) / ROWS;
-  // Key tiles above the causal diagonal of the block's last row below sq
-  // are never loaded.
-  const int last_row = min(q0 + CONSUMERS * ROWS, sq) - 1;
-  const int n_tiles = causal ? min(nk, (q_offset + last_row) / ROWS + 1) : nk;
-
-  if (threadIdx.x == 0) {
-    tc::mbar_init(bar, 1);
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      tc::mbar_init(bar + 8u * (1 + s), 1);
-      tc::mbar_init(bar + 8u * (1 + STAGES + s), RELEASE);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= CONSUMERS * 128) {  // the producer warpgroup
-    regs_dealloc<24>();
-    if (threadIdx.x == CONSUMERS * 128) {
-      tc::mbar_expect_tx(bar, 2 * CONSUMERS * L::tile);
-#pragma unroll
-      for (int w = 0; w < CONSUMERS; ++w)
-#pragma unroll
-        for (int x = 0; x < L::boxes; ++x) {
-          const uint32_t off = w * L::tile + x * BOX_BYTES;
-          tc::tma_load_4d(base + L::q_q + off, &qs_map, bar, x * BOX_COLS, hh, q0 + w * ROWS, bi);
-          tc::tma_load_4d(base + L::q_do + off, &do_map, bar, x * BOX_COLS, hh, q0 + w * ROWS, bi);
-        }
-      int stage = 0, phase = 0;
-      for (int kb = 0; kb < n_tiles; ++kb) {
-        if (kb >= STAGES) tc::mbar_wait(bar + 8u * (1 + STAGES + stage), phase ^ 1);
-        const uint32_t full = bar + 8u * (1 + stage);
-        const uint32_t ring = base + L::q_ring + stage * 2 * L::tile;
-        tc::mbar_expect_tx(full, 2 * L::tile);
-#pragma unroll
-        for (int x = 0; x < L::boxes; ++x) {
-          tc::tma_load_4d(ring + x * BOX_BYTES, &k_map, full, x * BOX_COLS, hk, kb * ROWS, bi);
-          tc::tma_load_4d(ring + L::tile + x * BOX_BYTES, &v_map, full, x * BOX_COLS, hk,
-                          kb * ROWS, bi);
-        }
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-    }
-    return;
-  }
-
-  regs_alloc<240>();
-  const int wg = threadIdx.x >> 7;
-  const int lane = threadIdx.x & 31;
-  const int r0 = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
-  const int c2 = (lane & 3) * 2;
-  const int wq0 = q0 + wg * ROWS;
-  const int row0 = wq0 + r0;
-  const int row1 = row0 + 8;
-  const int wg_last = min(wq0 + ROWS, sq) - 1;
-  const int wg_tiles = wq0 >= sq ? 0 : causal ? min(nk, (q_offset + wg_last) / ROWS + 1) : nk;
-  const uint32_t qw = base + L::q_q + wg * L::tile;
-  const uint32_t dow = base + L::q_do + wg * L::tile;
-  const size_t vrow = (static_cast<size_t>(bi) * h + hh) * (((sq + ROWS - 1) / ROWS) * ROWS);
-  const float l0 = row0 < sq ? lse2[vrow + row0] : 0.f;
-  const float l1 = row1 < sq ? lse2[vrow + row1] : 0.f;
-  const float d0 = row0 < sq ? delta[vrow + row0] : 0.f;
-  const float d1 = row1 < sq ? delta[vrow + row1] : 0.f;
-
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-
-  tc::mbar_wait(bar, 0);
-  int stage = 0, phase = 0;
-  for (int kb = 0; kb < n_tiles; ++kb) {
-    tc::mbar_wait(bar + 8u * (1 + stage), phase);
-    if (kb < wg_tiles) {  // uniform across the warpgroup
-      const uint32_t kst = base + L::q_ring + stage * 2 * L::tile;
-      const uint32_t vst = kst + L::tile;
-      float s[32], dp[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        tc::pin(s[i]);
-        tc::pin(dp[i]);
-      }
-      tc::wg_fence();
-      scores<D>(s, qw, kst);
-      tc::wg_commit();
-      scores<D>(dp, dow, vst);
-      tc::wg_commit();
-      wg_wait_one();
-#pragma unroll
-      for (int i = 0; i < 32; ++i) tc::pin(s[i]);
-
-      const int kt0 = kb * ROWS;
-      const bool edge = kt0 + ROWS > sk || wq0 + ROWS > sq ||
-                        (causal && kt0 + ROWS - 1 > q_offset + wq0);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        float p = tc::exp2_sfu(fmaf(s[i], LOG2E, -((i & 2) ? l1 : l0)));
-        if (edge) {
-          const int key = kt0 + (i >> 2) * 8 + c2 + (i & 1);
-          const int row = (i & 2) ? row1 : row0;
-          const bool valid = key < sk && row < sq && (!causal || q_offset + row >= key);
-          p = valid ? p : 0.f;
-        }
-        s[i] = p;
-      }
-      tc::wg_wait_all();
-#pragma unroll
-      for (int i = 0; i < 32; ++i) tc::pin(dp[i]);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - ((i & 2) ? d1 : d0));
-      uint32_t da[4][4];
-      pack_a(da, dp);
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) tc::pin(acc[i]);
-      tc::wg_fence();
-      accumulate<D>(acc, da, kst);
-      tc::wg_commit();
-      tc::wg_wait_all();
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) tc::pin(acc[i]);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pin_u(da[kk][e]);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(bar + 8u * (1 + STAGES + stage));
-    if (++stage == STAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-
-  const size_t row_stride = static_cast<size_t>(h) * D;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = half ? row1 : row0;
-    if (row >= sq) continue;
-    bf16* dst = dq + (static_cast<size_t>(bi) * sq + row) * row_stride + static_cast<size_t>(hh) * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + c2) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
-  }
-}
-
-// dq_acc and turns null: design (a), the dQ kernel; given: design (b), the
-// fused kernel and the conversion.
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const float* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -2718,30 +1936,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   using L = Layout<D>;
   static bool smem_set = false;
   if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L::kv_smem));
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(L::q_smem));
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(flash_bwd_fused_wgmma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(L::f_smem));
+    const cudaError_t e = cudaFuncSetAttribute(flash_bwd_fused_wgmma_kernel<D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(L::f_smem));
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
   const tc::EncodeTiled encode = tc::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const bool fused = dq_acc != nullptr;
   const int nq = (sq + ROWS - 1) / ROWS;
   const int sq_pad = nq * ROWS;
   const int rows = b * sq_pad * h;
   flash_bwd_prep_kernel<D><<<(rows + 7) / 8, 256, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      lse, static_cast<bf16*>(qs), lse2, delta, fused ? turns : nullptr, rows, sq, sq_pad, h,
-      scale);
+      lse, static_cast<bf16*>(qs), lse2, delta, turns, rows, sq, sq_pad, h, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   CUtensorMap qs_map, do_map, k_map, v_map;
@@ -2753,25 +1961,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   }
   const int span = CONSUMERS * ROWS;
   const dim3 kv_grid(static_cast<unsigned>(b * kvh), static_cast<unsigned>((sk + span - 1) / span));
-  if (fused) {
-    flash_bwd_fused_wgmma_kernel<D><<<kv_grid, THREADS, L::f_smem, stream>>>(
-        qs_map, do_map, k_map, v_map, lse2, delta, dq_acc, turns, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), sq, sk, h, kvh, causal, q_offset);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    flash_bwd_dq_convert_kernel<D><<<b * h * nq, 128, 0, stream>>>(
-        dq_acc, static_cast<bf16*>(dq), sq, h, nq, scale);
-    return cudaGetLastError();
-  }
-  flash_bwd_dkdv_wgmma_kernel<D><<<kv_grid, THREADS, L::kv_smem, stream>>>(
-      qs_map, do_map, k_map, v_map, lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      sq, sk, h, kvh, causal, q_offset);
+  flash_bwd_fused_wgmma_kernel<D><<<kv_grid, THREADS, L::f_smem, stream>>>(
+      qs_map, do_map, k_map, v_map, lse2, delta, dq_acc, turns, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), sq, sk, h, kvh, causal, q_offset);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const dim3 q_grid(static_cast<unsigned>(b * h), static_cast<unsigned>((sq + span - 1) / span));
-  flash_bwd_dq_wgmma_kernel<D><<<q_grid, THREADS, L::q_smem, stream>>>(
-      qs_map, do_map, k_map, v_map, lse2, delta, static_cast<bf16*>(dq), sq, sk, h, h / kvh,
-      causal, q_offset, scale);
+  flash_bwd_dq_convert_kernel<D><<<b * h * nq, 128, 0, stream>>>(
+      dq_acc, static_cast<bf16*>(dq), sq, h, nq, scale);
   return cudaGetLastError();
 }
 
@@ -2852,37 +2048,13 @@ extern "C" int flash_attention_bwd_launch(
   return static_cast<int>(err);
 }
 
-// The backward's tensor-core kernels: bf16 only, d 64 or 128; otherwise as
-// flash_attention_bwd_launch (which takes everything, on plain FMAs).
-extern "C" int flash_attention_bwd_mma_launch(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* delta, int b, int sq, int sk, int h, int kvh, int d, int causal,
-    int q_offset, float scale, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || h < kvh || h % kvh != 0 ||
-      h > 65535 || b > 65535 || q_offset < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (d == 64) {
-    err = mma_bwd::launch<64>(q, k, v, o, l, dout, dq, dk, dv, dl, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
-  } else if (d == 128) {
-    err = mma_bwd::launch<128>(q, k, v, o, l, dout, dq, dk, dv, dl, b, sq, sk, h, kvh, causal, q_offset, scale, stream);
-  }
-  return static_cast<int>(err);
-}
-
 // The backward's Hopper kernels: bf16 only, d 64 or 128.  As
 // flash_attention_bwd_launch, plus the scratch the kernels write and read:
 // qs (b, sq, h, d) bf16 (q * scale), and lse2 and delta, each (b, h,
 // sq_pad) f32, where sq_pad is sq rounded up to the kernels' 64-row tile
-// (the call is refused if it is not).  dq_acc and turns null: design (a),
-// three launches (prep, dK/dV, dQ).  Given: design (b), dq_acc (b, h,
-// sq_pad, d) f32 and turns (b, h, sq_pad / 64) u32, three launches (prep,
-// the fused kernel, the dQ conversion).
+// (the call is refused if it is not), dq_acc (b, h, sq_pad, d) f32 and
+// turns (b, h, sq_pad / 64) u32.  Three launches: prep, the fused kernel,
+// the dQ conversion.
 extern "C" int flash_attention_bwd_wgmma_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -2893,7 +2065,7 @@ extern "C" int flash_attention_bwd_wgmma_launch(
   if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || h < kvh || h % kvh != 0 ||
       h > 65535 || b > 65535 || q_offset < 0 ||
       sq_pad != (sq + wg_bwd::ROWS - 1) / wg_bwd::ROWS * wg_bwd::ROWS ||
-      (dq_acc == nullptr) != (turns == nullptr)) {
+      dq_acc == nullptr || turns == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* l = static_cast<const float*>(lse);

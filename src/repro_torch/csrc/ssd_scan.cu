@@ -894,6 +894,605 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
 
 }  // namespace tc
 
+
+// --------------------------------------------------------------------------
+// K4b: the backward of the chunked scan, on plain f32 FMAs.
+//
+// Replaces no Pallas kernel: the TPU package differentiates the plain
+// chunked version (src/repro/kernels/ssd_scan/ref.py:60, ssd_chunked) with
+// jax.grad.  The formulas are kernels/ssd_scan/ref.py::ssd_bwd_ref's: per
+// chunk, with S_in the state entering it, L = cumsum(dt A), D[t,s] =
+// exp(L_t - L_s) (s <= t), dot[t,s] = dy_t . x_s, G = C B^T, w_s = exp(L_q -
+// L_s) dt_s and u_s = dS_out B_s,
+//
+//   dx_s  = sum_t G D dt_s [t,s] dy_t + w_s u_s
+//   dC_t  = sum_s dot D dt_s [t,s] B_s + exp(L_t) S_in^T dy_t
+//   dB_s  = dt_s sum_t dot D [t,s] C_t + w_s dS_out^T x_s
+//   dS_in = exp(L_q) dS_out + sum_t exp(L_t) dy_t (x) C_t
+//   ddt, dA through dt's own factors and through L (a reverse cumsum of dL;
+//   the terms of dL that cancel exactly are left out, as there).
+//
+// Five launches on the stream, every sum in a fixed order and nothing
+// atomic, so two calls give the same bits:
+//
+//   1. ssd_bwd_cb_kernel, one block per (chunk, group, batch): G = C B^T
+//      below the diagonal, once per group (mamba2's 64 heads share one).
+//   2. ssd_bwd_state_kernel, one block per (head, batch, 16 rows of the
+//      state): the rows of S evolve independently, so the block sweeps the
+//      chunks forward, writing the state entering each chunk (the states
+//      are recomputed here, not kept by the forward: the forward kernels
+//      stay as they are and nothing is held between the two passes), then
+//      backward, writing the state's cotangent leaving each chunk.
+//   3. ssd_bwd_chunk_kernel, one block per (chunk, head, batch): with the
+//      chunk's S_in and dS_out from pass 2 the chunks are independent; the
+//      block writes dx and ddt (its own) and its head's part of dB, dC and
+//      dA.  Entries above the diagonal are never computed: the exponent is
+//      selected before the exp (at A = -64, exp(L_t - L_s) above the
+//      diagonal overflows, and 0 * inf in a gradient is NaN).
+//   4. ssd_bwd_group_kernel sums dB and dC over each group's heads in head
+//      order; 5. ssd_bwd_da_kernel sums dA over batch and chunks in order.
+//
+// Bound at mamba2-1.3b's training shape (1 x 4096, 64 heads of 64, state
+// 128, chunk 128, bf16): 34.5 GFLOP over the causal triangles (recomputing
+// C B^T and the states included), 0.035 ms at the bf16 tensor-core rate,
+// against 0.107 GB of inputs and outputs, 0.032 ms at the HBM rate.  This first
+// version runs on plain f32 FMAs with operands in shared memory (about one
+// shared load per FMA) and takes 13.7 ms there on an H100 SXM at 700 W
+// (chip_smoke.py phase 18), ~400x the bound: the chunk kernel ~11.4 ms (one
+// 203 KB block of 8 warps per SM cannot hide its shared loads' latency),
+// the state sweep ~2.0 ms.  Its f32 scratch (~0.4 GB there, chiefly the
+// per-head dB and dC) is written once and read once.
+
+namespace bwd {
+
+constexpr int NTW = 32;        // state columns per tile of the chunk kernel
+constexpr int NTS = NTW + 1;   // their row stride: conflict-free columns
+constexpr int PT = 16;         // state rows per block of the sweep kernel
+constexpr int KR = MAX_Q / 8;  // rows per warp in the chunk kernel
+constexpr int SE = PT * MAX_N / THREADS;  // state entries per sweep thread
+
+__host__ __device__ constexpr size_t scratch_floats(int b, int l, int h, int p, int g, int n,
+                                                    int q) {
+  return static_cast<size_t>(b) * g * (l / q) * q * q +
+         2 * static_cast<size_t>(b) * h * (l / q) * p * n +
+         2 * static_cast<size_t>(b) * l * h * n + static_cast<size_t>(b) * h * (l / q);
+}
+
+__host__ __device__ constexpr size_t chunk_smem_floats(int q, int p) {
+  return 2 * static_cast<size_t>(p) * (q | 1) + static_cast<size_t>(q) * (q | 1) +
+         static_cast<size_t>(ROWS) * (q | 1) + 2 * static_cast<size_t>(q) * NTS +
+         2 * static_cast<size_t>(p) * NTS + 6 * static_cast<size_t>(q) + THREADS;
+}
+
+__host__ __device__ constexpr size_t cb_smem_floats(int q, int n) {
+  return static_cast<size_t>(n) * (q | 1) + static_cast<size_t>(q) * (n | 1);
+}
+
+__host__ __device__ constexpr size_t state_smem_floats(int q, int n) {
+  return static_cast<size_t>(q) * PT + static_cast<size_t>(q) * n + 2 * static_cast<size_t>(q);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Inclusive cumsum of dt * a over q steps by one warp, in the forward
+// kernel's fixed order: each lane sums its run, a shuffle scan adds the
+// runs before it.
+__device__ void chunk_cumsum(const float* dts, float* Ls, float a, int q, int lane) {
+  const int per = (q + 31) / 32, lo = lane * per;
+  float run = 0.f;
+  for (int i = 0; i < per; ++i) {
+    if (lo + i < q) {
+      run += dts[lo + i] * a;
+      Ls[lo + i] = run;
+    }
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const float prev = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane > 0) {
+    for (int i = 0; i < per; ++i) {
+      if (lo + i < q) Ls[lo + i] += prev;
+    }
+  }
+}
+
+// 1. G[t][s] = C_t . B_s for s <= t (0 above), per (batch, group, chunk).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_cb_kernel(const T* __restrict__ B, const T* __restrict__ C, float* __restrict__ G,
+                  int l, int g, int n, int q) {
+  extern __shared__ float smem[];
+  const int QS = q | 1, NS = n | 1;
+  float* bT = smem;          // [n][QS]: B_s[k] at bT[k * QS + s]
+  float* cs = bT + n * QS;   // [q][NS]
+  const int c = blockIdx.x, gi = blockIdx.y, bi = blockIdx.z, nc = l / q;
+  const size_t row0 = static_cast<size_t>(bi) * l + static_cast<size_t>(c) * q;
+  for (int i = threadIdx.x; i < q * n; i += THREADS) {
+    const int s = i / n, k = i - s * n;
+    const size_t src = ((row0 + s) * g + gi) * n + k;
+    bT[k * QS + s] = to_f32<T>(B[src]);
+    cs[s * NS + k] = to_f32<T>(C[src]);
+  }
+  __syncthreads();
+  float* out = G + ((static_cast<size_t>(bi) * g + gi) * nc + c) * q * q;
+  for (int i = threadIdx.x; i < q * q; i += THREADS) {
+    const int t = i / q, s = i - t * q;
+    float acc = 0.f;
+    if (s <= t) {
+      const float* cr = cs + t * NS;
+      for (int k = 0; k < n; ++k) acc = fmaf(cr[k], bT[k * QS + s], acc);
+    }
+    out[i] = acc;
+  }
+}
+
+// 2. The state entering each chunk, then the state's cotangent leaving it,
+// for rows [p0, p0 + PT) of one (batch, head).  dstate (b, h, p, n) may be
+// null (a zero cotangent).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const T* __restrict__ B,
+                     const T* __restrict__ C, const T* __restrict__ dy,
+                     const float* __restrict__ dstate, float* __restrict__ states,
+                     float* __restrict__ dstates, int l, int h, int p, int g, int n, int q) {
+  extern __shared__ float smem[];
+  float* vs = smem;          // [q][PT]: w_s x_s, then exp(L_t) dy_t, this block's rows
+  float* ws = vs + q * PT;   // [q][n]: B, then C
+  float* Ls = ws + q * n;
+  float* dts = Ls + q;
+  const int hh = blockIdx.x, bi = blockIdx.y, p0 = blockIdx.z * PT;
+  const int nc = l / q, gi = hh / (h / g), tid = threadIdx.x;
+  const int pr = min(PT, p - p0);
+  const float a_h = A[hh];
+  int jr[SE], kc[SE];  // this thread's state entries: row p0 + jr, column kc
+#pragma unroll
+  for (int m = 0; m < SE; ++m) {
+    const int e = tid + THREADS * m;
+    jr[m] = e / n;
+    kc[m] = e - jr[m] * n;
+  }
+  const size_t head = static_cast<size_t>(bi) * h + hh;
+  float S[SE];
+#pragma unroll
+  for (int m = 0; m < SE; ++m) S[m] = 0.f;
+
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool fwd = pass == 0;
+    const T* vin = fwd ? x : dy;
+    const T* win = fwd ? B : C;
+    float* out = fwd ? states : dstates;
+    if (!fwd) {
+#pragma unroll
+      for (int m = 0; m < SE; ++m) {
+        S[m] = (dstate != nullptr && jr[m] < pr)
+                   ? dstate[(head * p + p0 + jr[m]) * n + kc[m]] : 0.f;
+      }
+    }
+    for (int it = 0; it < nc; ++it) {
+      const int c = fwd ? it : nc - 1 - it;
+      const size_t row0 = static_cast<size_t>(bi) * l + static_cast<size_t>(c) * q;
+      __syncthreads();  // the previous chunk is done with the staged inputs
+      for (int i = tid; i < q; i += THREADS) dts[i] = dt[(row0 + i) * h + hh];
+      __syncthreads();
+      if (tid < 32) chunk_cumsum(dts, Ls, a_h, q, tid);
+      __syncthreads();
+      const float LQ = Ls[q - 1];
+      for (int i = tid; i < q * PT; i += THREADS) {
+        const int s = i / PT, j = i - s * PT;
+        const float f = fwd ? expf(LQ - Ls[s]) * dts[s] : expf(Ls[s]);
+        vs[i] = j < pr ? f * to_f32<T>(vin[((row0 + s) * h + hh) * p + p0 + j]) : 0.f;
+      }
+      for (int i = tid; i < q * n; i += THREADS) {
+        const int s = i / n, k = i - s * n;
+        ws[i] = to_f32<T>(win[((row0 + s) * g + gi) * n + k]);
+      }
+      __syncthreads();
+      float acc[SE];
+#pragma unroll
+      for (int m = 0; m < SE; ++m) acc[m] = 0.f;
+      for (int s = 0; s < q; ++s) {
+#pragma unroll
+        for (int m = 0; m < SE; ++m) {
+          if (jr[m] < pr) acc[m] = fmaf(vs[s * PT + jr[m]], ws[s * n + kc[m]], acc[m]);
+        }
+      }
+      // Forward: S_in of chunk c, then S_out = exp(L_q) S_in + acc.
+      // Backward: dS_out of chunk c, then dS_in = exp(L_q) dS_out + acc.
+      const float eQ = expf(LQ);
+      float* o = out + (head * nc + c) * p * n;
+#pragma unroll
+      for (int m = 0; m < SE; ++m) {
+        if (jr[m] < pr) {
+          o[(p0 + jr[m]) * n + kc[m]] = S[m];
+          S[m] = fmaf(eQ, S[m], acc[m]);
+        }
+      }
+    }
+  }
+}
+
+// 3. One chunk of one (batch, head): dx and ddt, and the head's part of dB,
+// dC (f32, (b, l, h, n)) and dA (f32, (b, h, nc)).  Warp w takes rows
+// w, w + 8, ... of every per-step quantity; lanes take columns.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const T* __restrict__ B,
+                     const T* __restrict__ C, const T* __restrict__ dy,
+                     const float* __restrict__ G, const float* __restrict__ states,
+                     const float* __restrict__ dstates, T* __restrict__ dx,
+                     float* __restrict__ ddt, float* __restrict__ dBp, float* __restrict__ dCp,
+                     float* __restrict__ dAp, int l, int h, int p, int g, int n, int q) {
+  extern __shared__ float smem[];
+  const int QS = q | 1;
+  float* xT = smem;            // [p][QS]: x_s[j] at xT[j * QS + s]
+  float* dyT = xT + p * QS;    // [p][QS]
+  float* wdd = dyT + p * QS;   // [q][QS]: dot[t][s] exp(L_t - L_s), s <= t
+  float* mt = wdd + q * QS;    // [ROWS][QS]: a row tile of G, then of G D dt
+  float* bt = mt + ROWS * QS;  // [q][NTS]: a column tile of B
+  float* ct = bt + q * NTS;    // [q][NTS]: of C
+  float* sn = ct + q * NTS;    // [p][NTS]: of S_in
+  float* dn = sn + p * NTS;    // [p][NTS]: of dS_out
+  float* Ls = dn + p * NTS;
+  float* dts = Ls + q;
+  float* eL = dts + q;         // exp(L_t)
+  float* rq = eL + q;          // exp(L_q - L_s)
+  float* dL = rq + q;
+  float* rs = dL + q;          // r_s = exp(L_q - L_s) x_s . u_s
+  float* red = rs + q;         // one partial per thread
+
+  const int c = blockIdx.x, hh = blockIdx.y, bi = blockIdx.z;
+  const int nc = l / q, gi = hh / (h / g);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t row0 = static_cast<size_t>(bi) * l + static_cast<size_t>(c) * q;
+  const size_t head = static_cast<size_t>(bi) * h + hh;
+  const float a_h = A[hh];
+
+  for (int i = tid; i < q * p; i += THREADS) {
+    const int t = i / p, j = i - t * p;
+    const size_t src = ((row0 + t) * h + hh) * p + j;
+    xT[j * QS + t] = to_f32<T>(x[src]);
+    dyT[j * QS + t] = to_f32<T>(dy[src]);
+  }
+  for (int i = tid; i < q; i += THREADS) {
+    dts[i] = dt[(row0 + i) * h + hh];
+    dL[i] = 0.f;
+  }
+  __syncthreads();
+  if (tid < 32) chunk_cumsum(dts, Ls, a_h, q, tid);
+  __syncthreads();
+  const float LQ = Ls[q - 1];
+  for (int i = tid; i < q; i += THREADS) {
+    eL[i] = expf(Ls[i]);
+    rq[i] = expf(LQ - Ls[i]);
+  }
+
+  // (a) wdd[t][s] = (dy_t . x_s) exp(L_t - L_s) for s <= t; nothing above.
+  for (int t = warp; t < q; t += 8) {
+    float acc[MAX_Q / 32];
+#pragma unroll
+    for (int m = 0; m < MAX_Q / 32; ++m) acc[m] = 0.f;
+    const int mn = t / 32 + 1;
+    for (int j = 0; j < p; ++j) {
+      const float dv = dyT[j * QS + t];
+      const float* xr = xT + j * QS;
+#pragma unroll
+      for (int m = 0; m < MAX_Q / 32; ++m) {
+        if (m < mn) acc[m] = fmaf(dv, xr[min(lane + 32 * m, q - 1)], acc[m]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MAX_Q / 32; ++m) {
+      const int s = lane + 32 * m;
+      if (m < mn && s <= t) wdd[t * QS + s] = acc[m] * expf(Ls[t] - Ls[s]);
+    }
+  }
+  __syncthreads();
+
+  // (b) Row tiles of G: dL_t += sum_{s < t} wdd G dt_s (row sums), the
+  // column sums of wdd G below the diagonal (dt_s times them leaves dL_s)
+  // and the diagonal apart (ddt's own term takes both), then M = G D dt
+  // and dx_s += sum_{t >= s} M[t][s] dy_t.  W[t][t] would enter dL_t with
+  // both signs: left out, it cannot leave its rounding behind, which at
+  // A = -64 (where it is dL's largest term) would cost dA ~3e-3 in f32.
+  const float* Gc = G + ((static_cast<size_t>(bi) * g + gi) * nc + c) * q * q;
+  float colg = 0.f, diag = 0.f;  // thread s < q
+  float dxa[KR][2];  // rows s = warp + 8 k, columns j = lane + 32 m
+#pragma unroll
+  for (int k = 0; k < KR; ++k) dxa[k][0] = dxa[k][1] = 0.f;
+  for (int t0 = 0; t0 < q; t0 += ROWS) {
+    const int te = min(t0 + ROWS, q);
+    for (int i = tid; i < (te - t0) * q; i += THREADS) {
+      const int r = i / q, s = i - r * q;
+      mt[r * QS + s] = Gc[static_cast<size_t>(t0 + r) * q + s];
+    }
+    __syncthreads();
+    for (int t = t0 + warp; t < te; t += 8) {
+      float part = 0.f;
+      for (int s = lane; s < t; s += 32) {
+        part = fmaf(wdd[t * QS + s] * mt[(t - t0) * QS + s], dts[s], part);
+      }
+      part = warp_sum(part);
+      if (lane == 0) dL[t] += part;
+    }
+    if (tid < q) {
+      if (tid >= t0 && tid < te) diag = wdd[tid * QS + tid] * mt[(tid - t0) * QS + tid];
+      for (int t = max(t0, tid + 1); t < te; ++t) {
+        colg = fmaf(wdd[t * QS + tid], mt[(t - t0) * QS + tid], colg);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < (te - t0) * q; i += THREADS) {
+      const int r = i / q, s = i - r * q, t = t0 + r;
+      mt[r * QS + s] = s <= t ? mt[r * QS + s] * expf(Ls[t] - Ls[s]) * dts[s] : 0.f;
+    }
+    __syncthreads();
+    for (int t = t0; t < te; ++t) {
+      const float dv0 = dyT[min(lane, p - 1) * QS + t];
+      const float dv1 = dyT[min(lane + 32, p - 1) * QS + t];
+      const float* mr = mt + (t - t0) * QS;
+#pragma unroll
+      for (int k = 0; k < KR; ++k) {
+        const int s = warp + 8 * k;
+        if (s <= t) {
+          const float mv = mr[s];
+          dxa[k][0] = fmaf(mv, dv0, dxa[k][0]);
+          dxa[k][1] = fmaf(mv, dv1, dxa[k][1]);
+        }
+      }
+    }
+    __syncthreads();  // the next tile rewrites mt
+  }
+
+  // (c) Column tiles of B, C, S_in and dS_out.
+  const float* Sin = states + (head * nc + c) * p * n;
+  const float* dSo = dstates + (head * nc + c) * p * n;
+  float ua[KR][2];  // u_s[j] = sum_k dS_out[j][k] B_s[k]
+#pragma unroll
+  for (int k = 0; k < KR; ++k) ua[k][0] = ua[k][1] = 0.f;
+  float ss = 0.f;  // this thread's part of <dS_out, S_in>
+  for (int n0 = 0; n0 < n; n0 += NTW) {
+    for (int i = tid; i < q * NTW; i += THREADS) {
+      const int s = i / NTW, cc = i - s * NTW, k = n0 + cc;
+      const size_t src = ((row0 + s) * g + gi) * n + k;
+      bt[s * NTS + cc] = k < n ? to_f32<T>(B[src]) : 0.f;
+      ct[s * NTS + cc] = k < n ? to_f32<T>(C[src]) : 0.f;
+    }
+    for (int i = tid; i < p * NTW; i += THREADS) {
+      const int j = i / NTW, cc = i - j * NTW, k = n0 + cc;
+      const float sv = k < n ? Sin[j * n + k] : 0.f;
+      const float dv = k < n ? dSo[j * n + k] : 0.f;
+      sn[j * NTS + cc] = sv;
+      dn[j * NTS + cc] = dv;
+      ss = fmaf(dv, sv, ss);
+    }
+    __syncthreads();
+    // u_s[j] += sum_cc dS_out[j][cc] B_s[cc]
+    for (int cc = 0; cc < NTW; ++cc) {
+      const float dv0 = dn[min(lane, p - 1) * NTS + cc];
+      const float dv1 = dn[min(lane + 32, p - 1) * NTS + cc];
+#pragma unroll
+      for (int k = 0; k < KR; ++k) {
+        const int s = warp + 8 * k;
+        if (s < q) {
+          const float bv = bt[s * NTS + cc];
+          ua[k][0] = fmaf(dv0, bv, ua[k][0]);
+          ua[k][1] = fmaf(dv1, bv, ua[k][1]);
+        }
+      }
+    }
+    // dC_t = sum_{s <= t} wdd[t][s] dt_s B_s + exp(L_t) S_in^T dy_t, and
+    // dL_t += C_t . (exp(L_t) S_in^T dy_t); lane = column.
+    {
+      float ca[KR], ci[KR];
+#pragma unroll
+      for (int k = 0; k < KR; ++k) ca[k] = ci[k] = 0.f;
+      for (int s = 0; s < q; ++s) {
+        const float bv = bt[s * NTS + lane] * dts[s];
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+          const int t = warp + 8 * k;
+          if (t < q && s <= t) ca[k] = fmaf(wdd[t * QS + s], bv, ca[k]);
+        }
+      }
+      for (int j = 0; j < p; ++j) {
+        const float sv = sn[j * NTS + lane];
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+          const int t = warp + 8 * k;
+          if (t < q) ci[k] = fmaf(dyT[j * QS + t], sv, ci[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < KR; ++k) {
+        const int t = warp + 8 * k;
+        if (t < q) {
+          const float inter = eL[t] * ci[k];
+          if (n0 + lane < n) dCp[((row0 + t) * h + hh) * n + n0 + lane] = ca[k] + inter;
+          const float part = warp_sum(ct[t * NTS + lane] * inter);
+          if (lane == 0) dL[t] += part;
+        }
+      }
+    }
+    // dB_s = dt_s (sum_{t >= s} wdd[t][s] C_t + exp(L_q - L_s) dS_out^T x_s).
+    {
+      float ba[KR], bs[KR];
+#pragma unroll
+      for (int k = 0; k < KR; ++k) ba[k] = bs[k] = 0.f;
+      for (int t = 0; t < q; ++t) {
+        const float cv = ct[t * NTS + lane];
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+          const int s = warp + 8 * k;
+          if (s <= t) ba[k] = fmaf(wdd[t * QS + s], cv, ba[k]);
+        }
+      }
+      for (int j = 0; j < p; ++j) {
+        const float dv = dn[j * NTS + lane];
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+          const int s = warp + 8 * k;
+          if (s < q) bs[k] = fmaf(xT[j * QS + s], dv, bs[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < KR; ++k) {
+        const int s = warp + 8 * k;
+        if (s < q && n0 + lane < n) {
+          dBp[((row0 + s) * h + hh) * n + n0 + lane] = dts[s] * fmaf(rq[s], bs[k], ba[k]);
+        }
+      }
+    }
+    __syncthreads();  // the next tile rewrites bt, ct, sn, dn
+  }
+
+  // (d) dx = intra + w_s u_s; r_s; then dL, its reverse cumsum, ddt, dA.
+#pragma unroll
+  for (int k = 0; k < KR; ++k) {
+    const int s = warp + 8 * k;
+    if (s < q) {
+      const float ws = rq[s] * dts[s];
+      float part = 0.f;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int j = lane + 32 * m;
+        if (j < p) {
+          dx[((row0 + s) * h + hh) * p + j] = from_f32<T>(fmaf(ws, ua[k][m], dxa[k][m]));
+          part = fmaf(xT[j * QS + s], ua[k][m], part);
+        }
+      }
+      part = warp_sum(part);
+      if (lane == 0) {
+        rs[s] = rq[s] * part;
+        if (s < q - 1) dL[s] -= dts[s] * rs[s];  // cancels at q - 1
+      }
+    }
+  }
+  red[tid] = ss;
+  __syncthreads();
+  if (tid < q) dL[tid] -= dts[tid] * colg;
+  __syncthreads();
+  if (tid == 0) {
+    float tot = 0.f;
+    for (int i = 0; i < THREADS; ++i) tot += red[i];
+    float sr = 0.f;
+    for (int s = 0; s < q - 1; ++s) sr = fmaf(dts[s], rs[s], sr);
+    dL[q - 1] += expf(LQ) * tot + sr;
+    float rev = 0.f, da = 0.f;
+    for (int s = q - 1; s >= 0; --s) {
+      rev += dL[s];
+      dL[s] = rev;
+      da = fmaf(dts[s], rev, da);
+    }
+    dAp[head * nc + c] = da;
+  }
+  __syncthreads();
+  if (tid < q) ddt[(row0 + tid) * h + hh] = (colg + diag) + rs[tid] + a_h * dL[tid];
+}
+
+// 4. dB, dC (b, l, g, n) in T: each group's heads summed in head order.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_bwd_group_kernel(const float* __restrict__ dBp, const float* __restrict__ dCp,
+                     T* __restrict__ dB, T* __restrict__ dC, size_t total, int h, int g,
+                     int n) {
+  const int rep = h / g;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * THREADS) {
+    const int k = static_cast<int>(i % n);
+    const size_t rest = i / n;
+    const int gi = static_cast<int>(rest % g);
+    const size_t src = ((rest / g) * h + static_cast<size_t>(gi) * rep) * n + k;
+    float sb = 0.f, sc = 0.f;
+    for (int r = 0; r < rep; ++r) {
+      sb += dBp[src + static_cast<size_t>(r) * n];
+      sc += dCp[src + static_cast<size_t>(r) * n];
+    }
+    dB[i] = from_f32<T>(sb);
+    dC[i] = from_f32<T>(sc);
+  }
+}
+
+// 5. dA (h,) f32: each head's parts summed over batch, then chunks, in order.
+__global__ void ssd_bwd_da_kernel(const float* __restrict__ dAp, float* __restrict__ dA, int b,
+                                  int h, int nc) {
+  const int hh = blockIdx.x * blockDim.x + threadIdx.x;
+  if (hh >= h) return;
+  float s = 0.f;
+  for (int bi = 0; bi < b; ++bi) {
+    for (int c = 0; c < nc; ++c) s += dAp[(static_cast<size_t>(bi) * h + hh) * nc + c];
+  }
+  dA[hh] = s;
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const float* dt, const float* A, const void* B, const void* C,
+                   const void* dy, const float* dstate, void* dx, float* ddt, float* dA,
+                   void* dB, void* dC, float* scratch, int b, int l, int h, int p, int g, int n,
+                   int q, cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(ssd_bwd_cb_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(SMEM_LIMIT));
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(ssd_bwd_state_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(SMEM_LIMIT));
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(SMEM_LIMIT));
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const int nc = l / q;
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(B);
+  const T* ctp = static_cast<const T*>(C);
+  const T* dyt = static_cast<const T*>(dy);
+  float* Gs = scratch;
+  float* st = Gs + static_cast<size_t>(b) * g * nc * q * q;
+  float* dst = st + static_cast<size_t>(b) * h * nc * p * n;
+  float* dBp = dst + static_cast<size_t>(b) * h * nc * p * n;
+  float* dCp = dBp + static_cast<size_t>(b) * l * h * n;
+  float* dAp = dCp + static_cast<size_t>(b) * l * h * n;
+  ssd_bwd_cb_kernel<T><<<dim3(nc, g, b), THREADS, cb_smem_floats(q, n) * sizeof(float),
+                         stream>>>(bt, ctp, Gs, l, g, n, q);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_bwd_state_kernel<T><<<dim3(h, b, (p + PT - 1) / PT), THREADS,
+                            state_smem_floats(q, n) * sizeof(float), stream>>>(
+      xt, dt, A, bt, ctp, dyt, dstate, st, dst, l, h, p, g, n, q);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_bwd_chunk_kernel<T><<<dim3(nc, h, b), THREADS, chunk_smem_floats(q, p) * sizeof(float),
+                            stream>>>(xt, dt, A, bt, ctp, dyt, Gs, st, dst, static_cast<T*>(dx),
+                                      ddt, dBp, dCp, dAp, l, h, p, g, n, q);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const size_t total = static_cast<size_t>(b) * l * g * n;
+  const unsigned blocks = static_cast<unsigned>(
+      total / THREADS + 1 < 132 * 8 ? total / THREADS + 1 : 132 * 8);
+  ssd_bwd_group_kernel<T><<<blocks, THREADS, 0, stream>>>(
+      dBp, dCp, static_cast<T*>(dB), static_cast<T*>(dC), total, h, g, n);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_bwd_da_kernel<<<(h + 127) / 128, 128, 0, stream>>>(dAp, dA, b, h, nc);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // x: (b, l, h, p); dt: (b, l, h) f32; A: (h,) f32; B, C: (b, l, g, n);
@@ -944,4 +1543,43 @@ extern "C" int ssd_scan_tc_launch(const void* x, const void* dt, const void* A,
   if (n == 64 && chunk == 64)
     return static_cast<int>(tc::launch<64, 64>(x, dtf, Af, B, C, y, sf, b, l, h, g, stream));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of ssd_scan_launch (K4b): x, B, C, dy and dx, dB, dC in one
+// dtype (0 = float32, 1 = bfloat16); dt, A, ddt, dA f32; dstate (b, h, p,
+// n) f32 or null (a zero cotangent).  p <= 64, n <= 128, chunk <= 128, l a
+// multiple of chunk, all contiguous.  scratch holds scratch_floats f32,
+// which must equal bwd::scratch_floats for these shapes (kernels/ssd_scan/
+// ops.py::bwd_scratch_floats), or the call is refused.  Five launches.
+extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
+                                   const void* B, const void* C, const void* dy,
+                                   const void* dstate, void* dx, void* ddt, void* dA,
+                                   void* dB, void* dC, void* scratch,
+                                   long long scratch_floats, int dtype, int b, int l,
+                                   int h, int p, int g, int n, int chunk,
+                                   void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (b < 1 || b > 65535 || l < 1 || h < 1 || h > 65535 || g < 1 || g > 65535 ||
+      h % g != 0 || p < 1 || p > MAX_P || n < 1 || n > MAX_N || chunk < 1 ||
+      chunk > MAX_Q || l % chunk != 0 ||
+      bwd::chunk_smem_floats(chunk, p) * sizeof(float) > SMEM_LIMIT ||
+      static_cast<size_t>(scratch_floats) !=
+          bwd::scratch_floats(b, l, h, p, g, n, chunk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const float* dsf = static_cast<const float*>(dstate);
+  float* sc = static_cast<float*>(scratch);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = bwd::launch<float>(x, dtf, Af, B, C, dy, dsf, dx, static_cast<float*>(ddt),
+                             static_cast<float*>(dA), dB, dC, sc, b, l, h, p, g, n, chunk,
+                             stream);
+  } else if (dtype == 1) {
+    err = bwd::launch<__nv_bfloat16>(x, dtf, Af, B, C, dy, dsf, dx, static_cast<float*>(ddt),
+                                     static_cast<float*>(dA), dB, dC, sc, b, l, h, p, g, n,
+                                     chunk, stream);
+  }
+  return static_cast<int>(err);
 }

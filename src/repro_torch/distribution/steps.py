@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, hybrid, mamba2, transformer
 from repro_torch.models.registry import get_model
 from repro_torch.optim.optimizers import (
     AdamWConfig,
@@ -78,7 +78,8 @@ def train_state_from_numpy(tree: dict, cfg: ModelConfig,
                            device="cuda") -> dict:
     """The reference's ``{"params", "opt"}`` train state (numpy leaves) as
     the port's (layer stacks unstacked)."""
-    mod = encdec if cfg.family == "audio" else transformer
+    mod = {"audio": encdec, "ssm": mamba2, "hybrid": hybrid}.get(
+        cfg.family, transformer)
 
     def convert(t, dev):
         return mod.params_from_numpy(t, cfg, dev)

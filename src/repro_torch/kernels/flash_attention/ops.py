@@ -31,19 +31,14 @@ backward (``csrc/flash_attention.cu``) for CUDA tensors, chosen by
 is no fallback between them.  bf16 at d = 64, 128 runs on ``wgmma`` with
 TMA: a prep pass, one kernel for dK, dV and dQ (dQ's partials summed
 across key tiles in a fixed order) and a pass that casts dQ; everything
-else runs a dK/dV kernel and a dQ kernel on plain FMAs.  Two earlier
-tensor-core backwards stay callable by name for timing beside it, on no
-path: ``kernel="wgmma_a"`` (a dK/dV kernel and a dQ kernel that
-recomputes S and dP) and ``kernel="mma"`` (``mma.sync``).
+else runs a dK/dV kernel and a dQ kernel on plain FMAs.
 
 ``flash_attention.launches`` counts kernel launches of either forward
 kernel (one per call that reaches a kernel),
 ``flash_attention.wgmma_launches`` those of the tensor-core kernel alone,
 and ``flash_attention.bwd_launches`` the backward's calls (one per
 backward, its three kernels together), ``flash_attention.wgmma_bwd_launches``
-those on ``wgmma`` (the route or ``wgmma_a``) and
-``flash_attention.mma_bwd_launches`` those on ``mma.sync``; nothing else
-touches them.  When a
+those on ``wgmma``; nothing else touches them.  When a
 caller sets ``flash_attention.shapes`` (``bwd_shapes``) to a set, each
 forward (backward) launch also adds its ``(b, sq, sk, h, kv, d, causal,
 q_offset, dtype name)`` to it.
@@ -64,7 +59,7 @@ from repro_torch.kernels.flash_attention.ref import (
 __all__ = ["flash_attention", "FlashAttention", "attention_chunked",
            "attention_ref", "attention_fwd_lse", "attention_bwd_ref",
            "kernel_for", "kernel_for_bwd", "HEAD_DIMS", "BWD_HEAD_DIMS",
-           "WGMMA_HEAD_DIMS", "TILE"]
+           "WGMMA_HEAD_DIMS", "TILE", "BWD_ROWS", "bwd_rows"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)  # head widths the kernels are built for
@@ -97,16 +92,19 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        fn = lib.flash_attention_bwd_mma_launch
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
         fn = lib.flash_attention_bwd_wgmma_launch
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def bwd_rows(sq: int) -> int:
+    """The rows the Hopper backward's scratch holds for ``sq`` query rows:
+    ``sq`` rounded up to ``BWD_ROWS``, the padded length the launch is
+    given and checks against its own tile."""
+    return -(-sq // BWD_ROWS) * BWD_ROWS
 
 
 def kernel_for(dtype: torch.dtype, d: int) -> str:
@@ -208,17 +206,15 @@ def _flash_attention_cuda(q, k, v, causal, q_offset, scale, kernel=None, *,
 def _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, q_offset, scale,
                               kernel=None):
     """The backward kernels on CUDA tensors: ``(dq, dk, dv)``; ``kernel``
-    (by default ``kernel_for_bwd(q.dtype, d)``; the smoke names
-    ``"wgmma_a"``, ``"mma"`` and ``"simt"`` to time the earlier wgmma
-    design, the ``mma.sync`` kernels and the plain-FMA kernels on bf16)."""
+    (by default ``kernel_for_bwd(q.dtype, d)``; the smoke names ``"simt"``
+    to time the plain-FMA kernels on bf16)."""
     if q.device.type != "cuda":
         raise ValueError(f"the backward kernel needs CUDA tensors, q is on "
                          f"{q.device}")
     b, sq, h, d = q.shape
     route = kernel_for_bwd(q.dtype, d)
     kernel = route if kernel is None else kernel
-    if kernel not in ((route, "wgmma_a", "mma", "simt") if route == "wgmma"
-                      else (route, "simt")):
+    if kernel not in (route, "simt"):
         raise ValueError(f"the {kernel!r} backward does not take {q.dtype} "
                          f"at head_dim {d}")
     _check_operands(q, (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)))
@@ -235,10 +231,9 @@ def _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, q_offset, scale,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # Scratch: D = rowsum(dO * O) per row; the wgmma kernels also take
     # q * scale in bf16 and lse * log2(e), with D and lse padded to
-    # BWD_ROWS-row tiles; the fused kernel also takes dQ's f32 sum and a
-    # turn counter per tile.
-    wgmma = kernel in ("wgmma", "wgmma_a")
-    rows = -(-sq // BWD_ROWS) * BWD_ROWS if wgmma else sq
+    # BWD_ROWS-row tiles, dQ's f32 sum and a turn counter per tile.
+    wgmma = kernel == "wgmma"
+    rows = bwd_rows(sq) if wgmma else sq
     delta = torch.empty((b, h, rows), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -249,19 +244,13 @@ def _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, q_offset, scale,
                  float(scale), stream)
         if wgmma:
             qs, lse2 = torch.empty_like(q), torch.empty_like(delta)
-            acc = turns = None
-            if kernel == "wgmma":  # design (b): dQ summed across key tiles
-                acc = torch.empty((b, h, rows, d), dtype=torch.float32,
-                                  device=q.device)
-                turns = torch.empty((b, h, rows // BWD_ROWS),
-                                    dtype=torch.int32, device=q.device)
+            acc = torch.empty((b, h, rows, d), dtype=torch.float32,
+                              device=q.device)
+            turns = torch.empty((b, h, rows // BWD_ROWS), dtype=torch.int32,
+                                device=q.device)
             err = _library().flash_attention_bwd_wgmma_launch(
                 *ptrs, qs.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
-                *(None if t is None else t.data_ptr() for t in (acc, turns)),
-                rows, *shape)
-        elif kernel == "mma":
-            err = _library().flash_attention_bwd_mma_launch(
-                *ptrs, delta.data_ptr(), *shape)
+                acc.data_ptr(), turns.data_ptr(), rows, *shape)
         else:
             err = _library().flash_attention_bwd_launch(
                 *ptrs, delta.data_ptr(), _DTYPE_CODES[q.dtype], *shape)
@@ -271,8 +260,6 @@ def _flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, q_offset, scale,
     flash_attention.bwd_launches += 1
     if wgmma:
         flash_attention.wgmma_bwd_launches += 1
-    elif kernel == "mma":
-        flash_attention.mma_bwd_launches += 1
     if flash_attention.bwd_shapes is not None:
         flash_attention.bwd_shapes.add(_shape_key(q, k, causal, q_offset))
     return dq, dk, dv
@@ -403,6 +390,5 @@ flash_attention.launches = 0
 flash_attention.wgmma_launches = 0
 flash_attention.bwd_launches = 0
 flash_attention.wgmma_bwd_launches = 0
-flash_attention.mma_bwd_launches = 0
 flash_attention.shapes = None
 flash_attention.bwd_shapes = None

@@ -23,25 +23,42 @@ identity steps (decay exp(0) = 1, no input), and y is cut back, as the
 reference does.  ``ssd_decode_step`` (one token) stays a plain torch op: the
 reference has no kernel for it.
 
-``ssd_scan.launches`` counts kernel launches of either kernel (one per call
-that reaches a kernel), ``ssd_scan.tc_launches`` those of the tensor-core
-kernel alone; nothing else touches them.
+Training goes through :class:`SsdScan`, a ``torch.autograd.Function``
+(``setup_context`` style, with a ``vmap`` rule, so ``torch.func``'s
+``vmap(grad(...))`` of a model runs it) that returns ``(y, final_state)``.
+Its backward is the hand-written backward (``csrc/ssd_scan.cu``, plain f32
+FMAs, chosen by :func:`kernel_for_bwd`) for CUDA tensors and
+:func:`~.ref.ssd_bwd_ref` for CPU tensors (or with ``impl="chunked"``);
+there is no fallback between them.  It takes the final state's cotangent
+too, and a length that is not a multiple of the chunk is padded as the
+forward pads it, the pad's gradients cut away.
+
+``ssd_scan.launches`` counts kernel launches of either forward kernel (one
+per call that reaches a kernel), ``ssd_scan.tc_launches`` those of the
+tensor-core kernel alone and ``ssd_scan.bwd_launches`` the backward's calls
+(one per backward, its five kernels together); nothing else touches them.
+When a caller sets ``ssd_scan.shapes`` (``bwd_shapes``) to a set, each
+forward (backward) launch also adds its ``(b, l, h, p, g, n, chunk, dtype
+name)`` to it.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ref import (
+    pad_steps,
+    ssd_bwd_ref,
     ssd_chunked,
     ssd_decode_step,
     ssd_ref,
 )
 
-__all__ = ["ssd_scan", "ssd_decode_step", "ssd_ref", "ssd_chunked",
-           "smem_bytes", "tc_smem_bytes", "kernel_takes", "kernel_for"]
+__all__ = ["ssd_scan", "SsdScan", "ssd_decode_step", "ssd_ref",
+           "ssd_chunked", "ssd_bwd_ref", "smem_bytes", "tc_smem_bytes",
+           "kernel_takes", "kernel_for", "bwd_smem_bytes",
+           "bwd_scratch_floats", "kernel_for_bwd"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
@@ -98,6 +115,47 @@ def kernel_for(dtype: torch.dtype, p: int, n: int, q: int) -> str:
         f"{smem_bytes(q, p, n)}")
 
 
+def bwd_smem_bytes(q: int, p: int) -> int:
+    """The backward's chunk kernel's shared memory for chunk q and head dim
+    p (``csrc/ssd_scan.cu::bwd::chunk_smem_floats``): x and dy transposed,
+    the q x q matrix (dy_t . x_s) exp(L_t - L_s), one row tile of C B^T,
+    column tiles (32 wide, stride 33) of B, C, S_in and dS_out, six
+    per-step vectors and one partial per thread, in f32."""
+    qs = q | 1
+    return 4 * (2 * p * qs + q * qs + _ROWS * qs + 2 * q * 33 + 2 * p * 33
+                + 6 * q + 256)
+
+
+def bwd_scratch_floats(b: int, l: int, h: int, p: int, g: int, n: int,
+                       q: int) -> int:
+    """The backward's f32 scratch (``csrc/ssd_scan.cu::bwd::scratch_floats``;
+    l a multiple of q): C B^T per (batch, group, chunk), the state entering
+    each chunk and its cotangent leaving it per (batch, head, chunk), each
+    head's dB and dC before the sum over its group, and each (batch, head,
+    chunk)'s part of dA."""
+    nc = l // q
+    return (b * g * nc * q * q + 2 * b * h * nc * p * n + 2 * b * l * h * n
+            + b * h * nc)
+
+
+def kernel_for_bwd(dtype: torch.dtype, p: int, n: int, q: int) -> str:
+    """The backward kernels a CUDA call with this dtype, head dim p, state
+    n and chunk q launches: ``"simt"`` (plain f32 FMAs, x, B and C in f32 or
+    bf16) for p <= 64, n <= 128 and chunk <= 128 within the shared memory
+    (:func:`bwd_smem_bytes`).  Raises for anything else; a pure function of
+    its arguments."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"ssd_scan backward takes x, B and C as float32 or "
+                        f"bfloat16, got {dtype}")
+    if not (1 <= q <= MAX_CHUNK and 1 <= p <= MAX_HEAD_DIM
+            and 1 <= n <= MAX_STATE and bwd_smem_bytes(q, p) <= SMEM_LIMIT):
+        raise ValueError(
+            f"ssd_scan backward takes chunk <= {MAX_CHUNK}, head dim <= "
+            f"{MAX_HEAD_DIM} and state <= {MAX_STATE}; got chunk {q}, p {p}, "
+            f"n {n}")
+    return "simt"
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -111,6 +169,10 @@ def _library():
         fn = lib.ssd_scan_tc_launch
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.ssd_scan_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -174,7 +236,160 @@ def _ssd_scan_cuda(x, dt, A, B, C, chunk, kernel=None):
     ssd_scan.launches += 1
     if kernel == "tc":
         ssd_scan.tc_launches += 1
+    if ssd_scan.shapes is not None:
+        ssd_scan.shapes.add(_shape_key(x, B, chunk))
     return y, state
+
+
+def _shape_key(x, B, chunk):
+    return (*x.shape, *B.shape[2:], chunk,
+            str(x.dtype).removeprefix("torch."))
+
+
+def _ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dstate, chunk):
+    """The backward kernels on CUDA tensors: ``(dx, ddt, dA, dB, dC)``;
+    ``dstate`` (the final state's cotangent) may be None.  A length that is
+    not a multiple of the chunk is padded with identity steps and the pad's
+    gradients cut away."""
+    _check_cuda(x, dt, A, B, C, chunk)
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    kernel_for_bwd(x.dtype, p, n, chunk)
+    for name, t, shape in (("dy", dy, x.shape),
+                           ("dstate", dstate, (b, h, p, n))):
+        if t is None:
+            continue
+        want = x.dtype if name == "dy" else torch.float32
+        if (t.dtype != want or tuple(t.shape) != tuple(shape)
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {want} tensor of "
+                             f"shape {tuple(shape)} on {x.device}")
+    if l % chunk:
+        pad = chunk - l % chunk
+        dx, ddt, dA, dB, dC = _ssd_scan_bwd_cuda(
+            *(pad_steps(t, pad) for t in (x, dt)), A,
+            *(pad_steps(t, pad) for t in (B, C, dy)), dstate, chunk)
+        return dx[:, :l], ddt[:, :l], dA, dB[:, :l], dC[:, :l]
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(B), torch.empty_like(C)
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    floats = bwd_scratch_floats(b, l, h, p, g, n, chunk)
+    scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _library().ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            scratch.data_ptr(), floats, _DTYPE_CODES[x.dtype], b, l, h, p, g,
+            n, chunk, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward launch failed: cudaError "
+                           f"{err}")
+    ssd_scan.bwd_launches += 1
+    if ssd_scan.bwd_shapes is not None:
+        ssd_scan.bwd_shapes.add(_shape_key(x, B, chunk))
+    return dx, ddt, dA, dB, dC
+
+
+def _resolve(impl: str, x: torch.Tensor) -> str:
+    if impl == "auto":
+        return "cuda" if x.device.type == "cuda" else "chunked"
+    if impl not in ("cuda", "chunked"):
+        raise ValueError(f"SsdScan takes impl 'auto', 'cuda' or 'chunked', "
+                         f"got {impl!r}")
+    return impl
+
+
+def _fold(t, dim, batch, axis):
+    """A vmapped operand with its vmapped dimension ``dim`` (``None``:
+    unbatched, expanded) folded into its ``axis`` (the heads of x, dt, dy,
+    A and the state, the groups of B and C), vmapped index outermost."""
+    t = t.expand(batch, *t.shape) if dim is None else t.movedim(dim, 0)
+    t = t.movedim(0, axis)
+    return t.reshape(*t.shape[:axis], -1, *t.shape[axis + 2:]).contiguous()
+
+
+def _unfold(t, batch, axis):
+    return t.reshape(*t.shape[:axis], batch, -1, *t.shape[axis + 1:])
+
+
+# The axis of heads (or groups) of each operand, where a vmapped dimension
+# folds in: a ctypes launch cannot be vmapped, and the heads are independent
+# of each other (A differs per head, so the batch axis would not do).
+_FWD_AXES = (2, 2, 0, 2, 2)  # x, dt, A, B, C
+_BWD_AXES = (*_FWD_AXES, 2, 1)  # ..., dy, dstate
+
+
+class SsdScan(torch.autograd.Function):
+    """Differentiable SSD scan (what :func:`ssd_scan` runs): ``SsdScan.apply(
+    x, dt, A, B, C, chunk, impl)`` -> ``(y, final_state)``.  ``impl="auto"`` runs CUDA tensors on
+    the forward kernel and, in the backward, the backward kernel (or
+    raises), CPU tensors on the plain versions; ``"chunked"`` takes the
+    plain versions wherever the tensors lie.  Under ``torch.func.vmap`` the
+    vmapped dimension is folded into the heads."""
+
+    @staticmethod
+    def forward(x, dt, A, B, C, chunk, impl):
+        return _ssd_scan(x, dt, A, B, C, min(chunk, x.shape[1]),
+                         _resolve(impl, x))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, A, B, C, chunk, impl = inputs
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.args = (min(chunk, x.shape[1]), _resolve(impl, x))
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        grads = _SsdScanBackward.apply(*ctx.saved_tensors, dy, dstate,
+                                       *ctx.args)
+        return (*grads, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, B, C, chunk, impl):
+        n = info.batch_size
+        y, state = SsdScan.apply(
+            *(_fold(t, d, n, a) for t, d, a in zip((x, dt, A, B, C),
+                                                   in_dims, _FWD_AXES)),
+            chunk, impl)
+        return (_unfold(y, n, 2), _unfold(state, n, 1)), (2, 1)
+
+
+class _SsdScanBackward(torch.autograd.Function):
+    """``SsdScan``'s backward as a function of its own, so that
+    ``torch.func`` can vmap it (the backward of ``vmap(grad(...))`` runs on
+    vmapped tensors).  It has no backward itself."""
+
+    @staticmethod
+    def forward(x, dt, A, B, C, dy, dstate, chunk, impl):
+        args = (x, dt, A, B, C, dy.contiguous(),
+                None if dstate is None else dstate.contiguous())
+        if impl == "cuda":
+            return _ssd_scan_bwd_cuda(*args, chunk)
+        return ssd_bwd_ref(*args, chunk=chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("ssd_scan has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, B, C, dy, dstate, chunk, impl):
+        n = info.batch_size
+        if dstate is None:
+            in_dims = in_dims[:6]
+        ops = (x, dt, A, B, C, dy) + (() if dstate is None else (dstate,))
+        folded = [_fold(t, d, n, a) for t, d, a in zip(ops, in_dims,
+                                                       _BWD_AXES)]
+        grads = _SsdScanBackward.apply(
+            *folded, *([None] if dstate is None else []), chunk, impl)
+        return (tuple(_unfold(gr, n, a) for gr, a in zip(grads, _FWD_AXES)),
+                _FWD_AXES)
 
 
 def ssd_scan(
@@ -187,7 +402,9 @@ def ssd_scan(
     chunk: int = 64,
     impl: str = "auto",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (b,l,h,p), final_state (b,h,p,n))."""
+    """Returns (y (b,l,h,p), final_state (b,h,p,n)), differentiable in x,
+    dt, A, B and C (through :class:`SsdScan`; ``impl="ref"`` through
+    autograd of the sequential oracle)."""
     b, l, h, p = x.shape
     if (dt.shape != (b, l, h) or A.shape != (h,) or B.ndim != 4
             or B.shape[:2] != (b, l) or C.shape != B.shape
@@ -195,29 +412,32 @@ def ssd_scan(
         raise ValueError(
             f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, B {tuple(B.shape)}, "
             f"C {tuple(C.shape)} do not fit x {tuple(x.shape)}")
-    if impl == "auto":
-        impl = "cuda" if x.device.type == "cuda" else "chunked"
-    chunk = min(chunk, l)
+    if impl == "ref":
+        return ssd_ref(x, dt, A, B, C)
+    if impl not in ("auto", "cuda", "chunked"):
+        raise ValueError(f"unknown impl {impl!r}")
+    return SsdScan.apply(x, dt, A, B, C, chunk, impl)
+
+
+def _ssd_scan(x, dt, A, B, C, chunk, impl):
+    """The forward of ``impl`` ("cuda" or "chunked") at ``chunk`` (<= l)."""
+    l = x.shape[1]
     if impl == "cuda":
         _check_cuda(x, dt, A, B, C, chunk)  # before any padding copies
     if l % chunk:
         # Pad to a chunk multiple with identity steps: dt=0 gives decay
         # exp(0)=1 and zero input contribution, so y/state are exact.
         pad = chunk - l % chunk
-
-        def padt(a):
-            return F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
-        y, s = ssd_scan(padt(x), padt(dt), A, padt(B), padt(C),
-                        chunk=chunk, impl=impl)
+        y, s = _ssd_scan(*(pad_steps(t, pad) for t in (x, dt)), A,
+                         *(pad_steps(t, pad) for t in (B, C)), chunk, impl)
         return y[:, :l], s
     if impl == "cuda":
         return _ssd_scan_cuda(x, dt, A, B, C, chunk)
-    if impl == "chunked":
-        return ssd_chunked(x, dt, A, B, C, chunk=chunk)
-    if impl == "ref":
-        return ssd_ref(x, dt, A, B, C)
-    raise ValueError(f"unknown impl {impl!r}")
+    return ssd_chunked(x, dt, A, B, C, chunk=chunk)
 
 
 ssd_scan.launches = 0
 ssd_scan.tc_launches = 0
+ssd_scan.bwd_launches = 0
+ssd_scan.shapes = None
+ssd_scan.bwd_shapes = None

@@ -13,6 +13,12 @@ The shared block is the port's transformer layer (``transformer.layer_init``
 on a card.  The cache is ``{"mamba": [per-layer Mamba2 caches], "attn":
 [{"k", "v", "pos": host int} per application]}``; decode writes each
 application's K/V row in place.
+
+``loss_fn`` trains through both kernels' backwards (``SsdScan`` in every
+Mamba2 block, ``FlashAttention`` in each application of the shared block);
+the shared weights collect their gradient from every application.  Under
+``remat`` each Mamba2 block and each application is checkpointed on its
+own, as the reference wraps each in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
     _attend,
     _project_qkv,
+    cross_entropy,
     embed_apply,
     embed_init,
     mlp_apply,
@@ -63,19 +70,32 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
 
-def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig
-          ) -> tuple[torch.Tensor, torch.Tensor]:
+def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+          remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (b, s, padded_vocab) f32, aux_loss = 0)."""
     x = embed_apply(params["embed"], tokens)
     positions = _positions(x)
     attn_at = set(_attn_positions(cfg))
+    mb = m2.rematerialized(m2.block_apply, remat)
+    ab = m2.rematerialized(tfm.layer_apply, remat)
     for i, lp in enumerate(params["mamba_layers"]):
         if i in attn_at:
-            x, _ = tfm.layer_apply(params["shared_attn"], x, cfg, positions)
-        x = m2.block_apply(lp, x, cfg)
+            x, _ = ab(params["shared_attn"], x, cfg, positions)
+        x = mb(lp, x, cfg, impl=m2.scan_impl(cfg))
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return (unembed_apply(params["embed"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
+            remat: bool = True) -> tuple[torch.Tensor, dict]:
+    """Token-mean cross-entropy of ``batch["targets"]`` under
+    ``batch["mask"]`` over the padded vocabulary; returns ``(loss,
+    {"ce"})``."""
+    logits, _ = apply(params, batch["tokens"], cfg, remat=remat)
+    ce = cross_entropy(logits, batch["targets"], batch["mask"],
+                       cfg.vocab_size)
+    return ce, {"ce": ce}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

@@ -10,10 +10,12 @@ per-layer param dicts and the decode cache as a list of per-layer dicts
 ``{"conv_x", "conv_BC", "ssm"}`` (the reference stacks both for
 ``lax.scan`` when ``cfg.scan_layers``; :func:`params_from_numpy` unstacks
 its params).  There is no sharding on one card, so the reference's
-``constrain`` calls have no counterpart.  ``loss_fn`` is not ported: it
-needs the ``ssd_scan`` backward (ROADMAP K4b), which comes with the next
-slice (``models/registry.py`` raises for the ``ssm`` and ``hybrid``
-families).
+``constrain`` calls have no counterpart.  ``loss_fn`` trains through the
+scan's backward (``kernels/ssd_scan/ops.py::SsdScan``: the hand-written
+backward on a card), each block rematerialized under ``remat``
+(``torch.utils.checkpoint``, non-reentrant, as ``transformer.loss_fn``).
+``cfg.attention_impl`` ``"einsum"`` or ``"ref"`` asks for the plain scan
+(forward and backward) on any device, as it asks for the plain attention.
 """
 from __future__ import annotations
 
@@ -23,11 +25,14 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ssd_scan.ops import ssd_decode_step, ssd_scan
 from repro_torch.models.layers import (
+    _PLAIN,
+    cross_entropy,
     embed_apply,
     embed_init,
     rmsnorm,
@@ -136,6 +141,13 @@ def _scan(p: Params, x: torch.Tensor, xs, BC, dt_raw, cfg: ModelConfig,
     return y.reshape(b, l, di).to(x.dtype), state
 
 
+def scan_impl(cfg: ModelConfig) -> str:
+    """The scan a model with ``cfg`` runs: ``"chunked"`` (the plain
+    version) when ``cfg.attention_impl`` asks for the plain ops, else
+    ``"auto"`` (the kernels on a card)."""
+    return "chunked" if cfg.attention_impl in _PLAIN else "auto"
+
+
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 *, impl: str = "auto") -> torch.Tensor:
     hn = rmsnorm(x, p["ln"], cfg.norm_eps)
@@ -213,15 +225,35 @@ def init(generator, cfg: ModelConfig, *, device="cuda") -> Params:
     }
 
 
-def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig
-          ) -> tuple[torch.Tensor, torch.Tensor]:
+def rematerialized(f, remat: bool):
+    """``f`` checkpointed (non-reentrant) when ``remat``, as the reference
+    wraps a block in ``jax.checkpoint``; else ``f``."""
+    if not remat:
+        return f
+    return lambda *a, **kw: checkpoint(f, *a, use_reentrant=False, **kw)
+
+
+def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+          remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (b, s, padded_vocab) f32, aux_loss = 0)."""
     x = embed_apply(params["embed"], tokens)
+    block = rematerialized(block_apply, remat)
     for lp in params["layers"]:
-        x = block_apply(lp, x, cfg)
+        x = block(lp, x, cfg, impl=scan_impl(cfg))
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return (unembed_apply(params["embed"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
+            remat: bool = True) -> tuple[torch.Tensor, dict]:
+    """Token-mean cross-entropy of ``batch["targets"]`` under
+    ``batch["mask"]`` over the padded vocabulary (its pad never a target);
+    returns ``(loss, {"ce"})``."""
+    logits, _ = apply(params, batch["tokens"], cfg, remat=remat)
+    ce = cross_entropy(logits, batch["targets"], batch["mask"],
+                       cfg.vocab_size)
+    return ce, {"ce": ce}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, *,

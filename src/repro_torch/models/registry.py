@@ -1,8 +1,6 @@
 """Family -> (init, loss_fn, apply, serving functions) dispatch.
 
-``loss_fn`` trains the dense, MoE, VLM and audio families.  The ``ssm``
-and ``hybrid`` families' ``loss_fn`` raises: their training needs the
-``ssd_scan`` backward (ROADMAP K4b), which comes with the next slice.
+``loss_fn`` trains every family: dense, MoE, VLM, SSM, hybrid and audio.
 """
 from __future__ import annotations
 
@@ -23,15 +21,6 @@ class ModelApi:
     decode_step: "Callable | None" = None
 
 
-def _needs_ssd_backward(family: str) -> Callable:
-    def loss_fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"family {family!r} cannot train yet: its loss_fn needs the "
-            "ssd_scan backward (ROADMAP K4b), which comes with the next "
-            "slice")
-    return loss_fn
-
-
 def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family in ("dense", "moe", "vlm"):
         return ModelApi(
@@ -46,7 +35,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         mod = mamba2 if cfg.family == "ssm" else hybrid
         return ModelApi(
             init=mod.init,
-            loss_fn=_needs_ssd_backward(cfg.family),
+            loss_fn=mod.loss_fn,
             apply=mod.apply,
             init_cache=mod.init_cache,
             prefill=mod.prefill,

@@ -528,3 +528,22 @@ def test_flash_bwd_kernel_refuses_cpu_tensors():
     lse = torch.zeros(1, 2, 4)
     with pytest.raises(ValueError, match="CUDA"):
         tflash._flash_attention_bwd_cuda(q, q, q, q, lse, q, True, 0, 0.25)
+
+
+@pytest.mark.parametrize("sq,rows", [(1, 64), (63, 64), (64, 64), (65, 128),
+                                     (4000, 4032), (4096, 4096)])
+def test_flash_bwd_scratch_rows_pad_to_the_kernels_tile(sq, rows):
+    """The Hopper backward's scratch (lse, D, dQ's f32 sum, turn counters)
+    holds ``bwd_rows(sq)`` rows: sq rounded up to ``BWD_ROWS``, the row
+    tile the CUDA side (``wg_bwd::ROWS``) reads in whole runs and checks
+    the padded length against."""
+    import pathlib
+    import re
+
+    assert tflash.bwd_rows(sq) == rows
+    assert rows % tflash.BWD_ROWS == 0 and 0 <= rows - sq < tflash.BWD_ROWS
+    src = (pathlib.Path(tflash.__file__).resolve().parents[2] / "csrc"
+           / "flash_attention.cu").read_text()
+    ns = src[src.index("namespace wg_bwd {"):]
+    tile = int(re.search(r"constexpr int ROWS = (\d+);", ns).group(1))
+    assert tile == tflash.BWD_ROWS

@@ -1000,7 +1000,6 @@ def test_flash_bwd_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
                                            q_offset=off)
     before = flash_attention.bwd_launches
     wgmma_before = flash_attention.wgmma_bwd_launches
-    mma_before = flash_attention.mma_bwd_launches
     got = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
                                         scale)
     again = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
@@ -1009,12 +1008,10 @@ def test_flash_bwd_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
                                   q_offset=off)
     torch.cuda.synchronize()
     assert flash_attention.bwd_launches == before + 2
-    # bf16 at d = 64, 128 on wgmma; the rest on plain FMAs; no path takes
-    # the mma.sync kernels.
+    # bf16 at d = 64, 128 on wgmma; the rest on plain FMAs.
     on_tensor_cores = dtype == torch.bfloat16 and d in (64, 128)
     assert flash_attention.wgmma_bwd_launches == wgmma_before + (
         2 if on_tensor_cores else 0)
-    assert flash_attention.mma_bwd_launches == mma_before
     torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
@@ -1054,31 +1051,9 @@ def test_flash_attention_vmap_grad_on_card_equals_a_loop(cuda_device):
 
 
 @pytest.mark.parametrize("case", [c for c in BWD_CASES if c[5] in (64, 128)])
-def test_flash_bwd_mma_and_plain_fma_kernels_agree(cuda_device, case):
-    """bf16: the mma.sync backward against the plain-FMA backward on the
-    same inputs (2e-2)."""
-    from repro_torch.kernels.flash_attention import ops
-
-    b, sq, sk, h, kv, d, causal, off = case
-    q, k, v, do = _bwd_inputs(case, torch.bfloat16, cuda_device)
-    o, lse = ops._flash_attention_cuda(q, k, v, causal, off, d ** -0.5,
-                                       with_lse=True)
-    tc = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
-                                       d ** -0.5, kernel="mma")
-    fma = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
-                                        d ** -0.5, kernel="simt")
-    for a, b_ in zip(tc, fma):
-        torch.testing.assert_close(a.float(), b_.float(), atol=2e-2,
-                                   rtol=2e-2)
-
-
-@pytest.mark.parametrize("other", ["wgmma_a", "mma", "simt"])
-@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[5] in (64, 128)])
-def test_flash_bwd_wgmma_kernels_agree_with_mma_and_plain_fma(cuda_device,
-                                                              case, other):
+def test_flash_bwd_wgmma_kernels_agree_with_plain_fma(cuda_device, case):
     """bf16: the wgmma backward (the route, dQ summed across key tiles in
-    the fused kernel) against design (a)'s wgmma kernels (a dQ kernel of
-    its own), the mma.sync and the plain-FMA backward on the same inputs
+    the fused kernel) against the plain-FMA backward on the same inputs
     (2e-2); each call counts on its own kernel's counter."""
     from repro_torch.kernels.flash_attention import ops
 
@@ -1086,16 +1061,16 @@ def test_flash_bwd_wgmma_kernels_agree_with_mma_and_plain_fma(cuda_device,
     q, k, v, do = _bwd_inputs(case, torch.bfloat16, cuda_device)
     o, lse = ops._flash_attention_cuda(q, k, v, causal, off, d ** -0.5,
                                        with_lse=True)
-    before = (flash_attention.wgmma_bwd_launches,
-              flash_attention.mma_bwd_launches)
+    before = (flash_attention.bwd_launches,
+              flash_attention.wgmma_bwd_launches)
     wg = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
                                        d ** -0.5)
     ref = ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, off,
-                                        d ** -0.5, kernel=other)
+                                        d ** -0.5, kernel="simt")
     torch.cuda.synchronize()
-    assert (flash_attention.wgmma_bwd_launches,
-            flash_attention.mma_bwd_launches) == (
-        before[0] + 1 + (other == "wgmma_a"), before[1] + (other == "mma"))
+    assert (flash_attention.bwd_launches,
+            flash_attention.wgmma_bwd_launches) == (before[0] + 2,
+                                                    before[1] + 1)
     for name, a, b_ in zip(("dq", "dk", "dv"), wg, ref):
         torch.testing.assert_close(a.float(), b_.float(), atol=2e-2,
                                    rtol=2e-2,
@@ -1166,3 +1141,164 @@ def test_train_step_kernel_path_matches_plain_path_on_card(cuda_device, dtype,
         for a, b in (*zip(pk, pp), *zip(gk, gp)):
             err = float((a.float() - b.float()).norm() / b.float().norm())
             assert err <= tol
+
+
+# --------------------------------------------------------------------------
+# slice 10: the SSD scan's backward (K4b) and SSM training on the card
+
+SSD_BWD_CASES = SSD_CASES + [(1, 4096, 64, 64, 1, 128, 128),  # mamba2 train
+                             (1, 4096, 64, 64, 1, 64, 128)]   # zamba2 train
+
+
+def _rel_to_max(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
+    """The backward kernels against ``ssd_bwd_ref`` on the card, with a
+    nonzero cotangent of the final state: dx, ddt, dA, dB, dC within 3e-4
+    (f32) or 2e-2 (bf16) of the plain version's largest entry, in their
+    dtypes, two calls bitwise equal, one backward launch each."""
+    gen = torch.Generator().manual_seed(sum(case) + 2)
+    args = _ssd_inputs(gen, case, dtype, cuda_device)
+    b, l, h, p, g, n, chunk = case
+    dy = _randn(gen, (b, l, h, p), dtype, cuda_device)
+    ds = _randn(gen, (b, h, p, n), torch.float32, cuda_device)
+    before = ssd_ops.ssd_scan.bwd_launches
+    got = ssd_ops._ssd_scan_bwd_cuda(*args, dy, ds, chunk)
+    again = ssd_ops._ssd_scan_bwd_cuda(*args, dy, ds, chunk)
+    plain = ssd_ops.ssd_bwd_ref(*args, dy, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.bwd_launches == before + 2
+    tol = 3e-4 if dtype == torch.float32 else 2e-2
+    for name, a, a2, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, again,
+                              plain):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, a2), f"{name} is not bitwise repeatable"
+        assert _rel_to_max(a, w) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_overflowing_decays_give_no_nan(cuda_device, dtype):
+    """A = -64, dt = 0.1: every gradient finite; dx, dB and dC, which no
+    cancellation touches, within the limits of the case above."""
+    case = (2, 256, 8, 64, 1, 128, 128)
+    gen = torch.Generator().manual_seed(64)
+    args = _ssd_inputs(gen, case, dtype, cuda_device, A=-64.0, dt=0.1)
+    dy = _randn(gen, (2, 256, 8, 64), dtype, cuda_device)
+    got = ssd_ops._ssd_scan_bwd_cuda(*args, dy, None, 128)
+    plain = ssd_ops.ssd_bwd_ref(*args, dy, None, chunk=128)
+    torch.cuda.synchronize()
+    tol = 3e-4 if dtype == torch.float32 else 2e-2
+    for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, plain):
+        assert bool(torch.isfinite(a.float()).all()), name
+        if name in ("dx", "dB", "dC"):
+            assert _rel_to_max(a, w) <= tol, name
+
+
+def test_ssd_scan_vmap_grad_on_card_equals_a_loop(cuda_device):
+    """``vmap(grad(...))`` through ``SsdScan`` with A shared and the data
+    batched (the federated clients' pattern) folds the vmapped dimension
+    into the heads: one forward and one backward launch, equal to the
+    per-sample grads."""
+    from torch.func import grad, vmap
+
+    gen = torch.Generator().manual_seed(7)
+    n, case = 3, (2, 100, 4, 16, 2, 16, 32)
+    x, dt, A, B, C = _ssd_inputs(gen, case, torch.float32, cuda_device)
+    xs, dts, Bs, Cs = (torch.stack([t * (1 + 0.1 * i) for i in range(n)])
+                       for t in (x, dt, B, C))
+
+    def loss(A, x, dt, B, C):
+        y, s = ssd_ops.SsdScan.apply(x, dt, A, B, C, 32, "auto")
+        return (y ** 2).sum() + s.sum()
+
+    argnums = (0, 1, 2, 3, 4)
+    before = (ssd_ops.ssd_scan.launches, ssd_ops.ssd_scan.bwd_launches)
+    batched = vmap(grad(loss, argnums=argnums),
+                   in_dims=(None, 0, 0, 0, 0))(A, xs, dts, Bs, Cs)
+    torch.cuda.synchronize()
+    assert (ssd_ops.ssd_scan.launches, ssd_ops.ssd_scan.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    for i in range(n):
+        one = grad(loss, argnums=argnums)(A, xs[i], dts[i], Bs[i], Cs[i])
+        for a, w in zip(batched, one):
+            torch.testing.assert_close(a[i], w, atol=1e-6, rtol=1e-5)
+
+
+def test_ssd_bwd_rejects_what_it_does_not_take(cuda_device):
+    gen = torch.Generator().manual_seed(3)
+    case = (1, 64, 2, 128, 1, 16, 32)
+    x, dt, A, B, C = _ssd_inputs(gen, case, torch.float32, cuda_device)
+    with pytest.raises(ValueError):
+        ssd_ops._ssd_scan_bwd_cuda(x, dt, A, B, C, x, None, 32)  # p > 64
+    x, dt, A, B, C = _ssd_inputs(gen, (1, 64, 2, 16, 1, 16, 32),
+                                 torch.float16, cuda_device)
+    with pytest.raises(TypeError):
+        ssd_ops._ssd_scan_bwd_cuda(x, dt, A, B, C, x, None, 32)
+    x, dt, A, B, C = _ssd_inputs(gen, (1, 64, 2, 16, 1, 16, 32),
+                                 torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_ops._ssd_scan_bwd_cuda(x, dt, A, B, C, x.transpose(1, 2), None,
+                                   32)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_1_3b", "zamba2_1_2b"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_ssm_train_step_kernel_path_matches_plain_path_on_card(
+        cuda_device, arch, dtype, tol):
+    """Two ``build_train_step`` steps of the smoke SSM and hybrid models:
+    the kernels' path (the scan's forward and backward kernels, and for
+    zamba2 the flash kernels) against the plain path
+    (``attention_impl="einsum"``: the plain scan, its written-out backward
+    and the plain attention), both on the card.  Loss and grad norm
+    within ``tol`` relative, and the first-step gradients: each leaf's in
+    f32; in bf16 all leaves' together (at this width a leaf with a small
+    gradient, A_log or dt_bias, sums terms that cancel, and bf16 rounding
+    in the activations moves it by a few percent; ``chip_smoke.py`` phase
+    19 holds each leaf at full width).  The kernel path launches one scan
+    backward per layer and microbatch."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distribution.steps import (
+        build_train_step,
+        init_train_state,
+    )
+    from repro_torch.optim.optimizers import AdamWConfig, tree_leaves
+
+    shape = ShapeConfig("t", 128, 4, "train", microbatches=2)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, 512, (2, 2, 128)).astype(np.int32),
+                "targets": rng.integers(0, 512, (2, 2, 128)).astype(np.int32),
+                "mask": np.ones((2, 2, 128), np.float32)} for _ in range(2)]
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    runs = {}
+    for path, c in (("kernel", cfg), ("plain", dataclasses.replace(
+            cfg, attention_impl="einsum"))):
+        state = init_train_state(c, seed=0, device=cuda_device)
+        step, _, _ = build_train_step(c, None, shape,
+                                      AdamWConfig(warmup_steps=1))
+        before = ssd_ops.ssd_scan.bwd_launches
+        metrics, grads = [], None
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(v).to(cuda_device)
+                                    for k, v in b.items()})
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+            if grads is None:
+                grads = [t.clone() for t in tree_leaves(state["opt"]["m"])]
+        torch.cuda.synchronize()
+        runs[path] = (metrics, grads, ssd_ops.ssd_scan.bwd_launches - before)
+    (mk, gk, nk), (mp, gp, np_) = runs["kernel"], runs["plain"]
+    assert nk == cfg.num_layers * 2 * 2 and np_ == 0
+    np.testing.assert_allclose(mk, mp, rtol=tol)
+    if dtype == "bfloat16":
+        gk, gp = ([torch.cat([t.float().flatten() for t in g])]
+                  for g in (gk, gp))
+    for a, b in zip(gk, gp):
+        err = float((a.float() - b.float()).norm()
+                    / b.float().norm().clamp_min(1e-30))
+        assert err <= tol

@@ -52,7 +52,10 @@ def test_new_runtime_modules_import_no_jax_and_no_reference():
                      "repro_torch.distribution.steps",
                      "repro_torch.launch.train",
                      "repro_torch.examples.lm_pretrain",
-                     "repro_torch.examples.lm_federation"):
+                     "repro_torch.examples.lm_federation",
+                     "repro_torch.kernels.ssd_scan.ops",
+                     "repro_torch.models.mamba2",
+                     "repro_torch.models.hybrid"):
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -199,6 +202,24 @@ def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors():
     assert ssd_scan.launches == s0
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan(x, dt, A, B, B, chunk=4, impl="cuda")
+
+
+def test_ssd_scan_backward_takes_the_plain_version_only_for_cpu_tensors():
+    """A backward through ``ssd_scan`` on CPU tensors runs the plain
+    backward and counts no launch; the CUDA backward refuses CPU
+    tensors."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    x = torch.randn(1, 8, 2, 4, requires_grad=True)
+    dt, A = torch.rand(1, 8, 2), -torch.ones(2)
+    B = torch.randn(1, 8, 1, 3)
+    b0 = ops.ssd_scan.bwd_launches
+    y, _ = ops.ssd_scan(x, dt, A, B, B, chunk=4)
+    y.sum().backward()
+    assert ops.ssd_scan.bwd_launches == b0 and x.grad is not None
+    with pytest.raises(ValueError, match="CUDA"):
+        ops._ssd_scan_bwd_cuda(x.detach(), dt, A, B, B,
+                               torch.ones(1, 8, 2, 4), None, 4)
 
 
 def test_chip_smoke_fails_without_the_repo(tmp_path):

@@ -1,10 +1,11 @@
 """Parity of the port's LM training with the JAX package on the CPU:
-``loss_fn`` value and gradients (dense, MoE and encoder-decoder, f32)
-against ``jax.value_and_grad``, remat on and off, the padded vocabulary's
+``loss_fn`` value and gradients (dense, MoE, encoder-decoder, SSM and
+hybrid, f32) against ``jax.value_and_grad``, remat on and off, the padded vocabulary's
 zero gradient, two ``build_train_step`` steps against the reference's on a
 (1, 1) mesh (f32 and bf16) with the state carried across through numpy,
 ``TrainingSupervisor`` resuming the cloud loop to the same losses bit for
-bit, and what the one-card slice refuses."""
+bit, the SSM and hybrid train steps against the reference's, and what
+the one-card slice refuses."""
 import dataclasses
 
 import jax
@@ -19,6 +20,7 @@ from repro.configs.registry import get_config as jget_config  # noqa: E402
 from repro.distribution import steps as jsteps  # noqa: E402
 from repro.distribution.sharding import derive_logical_mesh  # noqa: E402
 from repro.models import encdec as jencdec  # noqa: E402
+from repro.models.registry import get_model as jget_model  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
@@ -26,6 +28,8 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.distribution import steps as tsteps  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import encdec as tencdec  # noqa: E402
+from repro_torch.models import hybrid as thybrid  # noqa: E402
+from repro_torch.models import mamba2 as tmamba2  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
@@ -135,13 +139,84 @@ def test_padded_vocab_tail_gets_exactly_zero_gradient():
     assert torch.count_nonzero(head[:, :v]) > 0
 
 
-@pytest.mark.parametrize("family,arch", [("ssm", "mamba2_1_3b"),
-                                         ("hybrid", "zamba2_1_2b")])
-def test_families_without_the_scan_backward_refuse_to_train(family, arch):
+SSM_ARCHS = [("ssm", "mamba2_1_3b"), ("hybrid", "zamba2_1_2b")]
+
+
+def _ssm_cfgs(arch, **kw):
+    return (dataclasses.replace(jget_config(arch, smoke=True), **kw),
+            dataclasses.replace(get_config(arch, smoke=True), **kw))
+
+
+def _ssm_port_grads(tcfg, jparams_np, batch, remat):
+    mod = tmamba2 if tcfg.family == "ssm" else thybrid
+    params = mod.params_from_numpy(jparams_np, tcfg, device="cpu")
+    leaves = topt.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, _ = get_model(tcfg).loss_fn(params, tb, tcfg, remat=remat)
+    loss.backward()
+    return float(loss.detach()), params, [p.grad for p in leaves]
+
+
+@pytest.mark.parametrize("family,arch", SSM_ARCHS)
+def test_ssm_and_hybrid_loss_fn_value_and_grads_match_jax(family, arch):
+    """The ``ssm`` and ``hybrid`` families' ``loss_fn`` (the scan's
+    backward, and the shared attention block's collecting its gradient
+    from every application) against ``jax.value_and_grad`` of the
+    reference's ``loss_fn`` on the same params (f32)."""
+    jcfg, tcfg = _ssm_cfgs(arch, dtype="float32")
+    assert tcfg.family == family
+    api = jget_model(jcfg)
+    jp = api.init(jax.random.PRNGKey(0), jcfg)
+    batch = _batch(tcfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, _), jg = jax.value_and_grad(
+        lambda p: api.loss_fn(p, jb, jcfg), has_aux=True)(jp)
+    tree = jax.tree.map(np.asarray, jp)
+    loss, params, grads = _ssm_port_grads(tcfg, tree, batch, True)
+    assert abs(loss - float(jloss)) <= 1e-5 * abs(float(jloss))
+    mod = tmamba2 if family == "ssm" else thybrid
+    want = topt.tree_leaves(mod.params_from_numpy(
+        jax.tree.map(np.asarray, jg), tcfg, device="cpu"))
+    assert len(want) == len(grads)
+    for g, w in zip(grads, want):
+        assert g is not None and g.shape == w.shape
+        assert _rel(g.numpy(), w.numpy()) <= 1e-4
+    # Remat changes no number.
+    _, _, plain = _ssm_port_grads(tcfg, tree, batch, False)
+    for g, p in zip(grads, plain):
+        torch.testing.assert_close(g, p, atol=1e-7, rtol=1e-6)
+    # The padded vocabulary gets exactly zero gradient.
+    v = tcfg.vocab_size
+    head, emb = params["embed"]["lm_head"].grad, params["embed"][
+        "embedding"].grad
+    assert head.shape[1] > v and torch.count_nonzero(head[:, v:]) == 0
+    assert torch.count_nonzero(emb[v:]) == 0
+
+
+@pytest.mark.parametrize("family,arch", SSM_ARCHS)
+def test_ssm_and_hybrid_smoke_train_step(family, arch):
+    """The reference's ``test_smoke_train_step`` (tests/test_models.py:34)
+    for the port: the smoke config as published (bf16), a finite loss
+    near ln(vocab) and a finite, nonzero gradient norm."""
     cfg = get_config(arch, smoke=True)
-    assert cfg.family == family
-    with pytest.raises(NotImplementedError, match="K4b"):
-        get_model(cfg).loss_fn({}, {}, cfg)
+    params = get_model(cfg).init(0, cfg, device="cpu")
+    leaves = topt.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32)),
+        "targets": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 32)).astype(np.int32)),
+        "mask": torch.ones((2, 32))}
+    loss, _ = get_model(cfg).loss_fn(params, batch, cfg)
+    loss.backward()
+    assert np.isfinite(float(loss))
+    assert abs(float(loss) - np.log(cfg.vocab_size)) < 1.5
+    gnorm = sum(float(p.grad.float().square().sum()) for p in leaves)
+    assert np.isfinite(gnorm) and gnorm > 0
 
 
 SHAPE = dict(seq_len=32, global_batch=8, kind="train", microbatches=2)
@@ -151,7 +226,29 @@ OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 2e-2)])
 def test_train_step_matches_reference_on_a_one_device_mesh(dtype, tol):
-    jcfg, tcfg = _cfgs("dense", dtype=dtype)
+    _train_step_parity(*_cfgs("dense", dtype=dtype), tol)
+
+
+@pytest.mark.parametrize("family,arch", SSM_ARCHS)
+def test_ssm_train_step_matches_reference_on_a_one_device_mesh(family, arch):
+    """As the dense test in f32 (in bf16 the two frameworks round the
+    SSM block at different places, and the first step's gradients differ
+    by 1-2.4 % leaf by leaf, which says nothing of the scan's backward:
+    the card's cross-check holds it in bf16 against the plain path on the
+    same card).  The updated params and master are not held:
+    the conv biases start at 0, so after two steps each is Adam's near-sign
+    step, which turns gradients near 0 into sign flips, and the second
+    step's gradients follow from those params; the first step's gradients
+    (AdamW's first moment after it) are held instead."""
+    _train_step_parity(*_ssm_cfgs(arch, dtype="float32"), 1e-5,
+                       hold=("m",))
+
+
+def _train_step_parity(jcfg, tcfg, tol, hold=("params", "master", "m")):
+    """Two ``build_train_step`` steps of the port against the reference's
+    on a (1, 1) mesh from the same state: loss and grad norm per step, and
+    the updated params, f32 master and AdamW's first moment after the first
+    step (its gradients) as ``hold`` names them."""
     jshape = jbase.ShapeConfig("t", **SHAPE)
     tshape = tbase.ShapeConfig("t", **SHAPE)
     mesh = jax.make_mesh((1, 1), ("data", "model"))
@@ -171,19 +268,28 @@ def test_train_step_matches_reference_on_a_one_device_mesh(dtype, tol):
         tstate = tsteps.train_state_from_numpy(
             jax.tree.map(np.asarray, jstate), tcfg, device="cpu")
         jitted = jax.jit(jfn, in_shardings=in_sh, out_shardings=out_sh)
+        first = None
         for batch in batches:
             jstate, jm = jitted(jstate, {k: jnp.asarray(v)
                                          for k, v in batch.items()})
             tstate, tm = tfn(tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
+            if first is None:
+                first = ([t.clone() for t in topt.tree_leaves(
+                    tstate["opt"]["m"])], jax.tree.map(np.asarray,
+                                                       jstate["opt"]["m"]))
             assert abs(float(tm["loss"]) - float(jm["loss"])) <= tol * abs(
                 float(jm["loss"]))
             assert abs(float(tm["grad_norm"]) - float(jm["grad_norm"])) \
                 <= tol * float(jm["grad_norm"])
     assert int(tstate["opt"]["step"]) == 2
+    mod = {"ssm": tmamba2, "hybrid": thybrid}.get(tcfg.family, ttf)
     for key, got, ref in (
             ("params", tstate["params"], jstate["params"]),
-            ("master", tstate["opt"]["master"], jstate["opt"]["master"])):
-        ref_t = ttf.params_from_numpy(jax.tree.map(np.asarray, ref), tcfg,
+            ("master", tstate["opt"]["master"], jstate["opt"]["master"]),
+            ("m", first[0], first[1])):
+        if key not in hold:
+            continue
+        ref_t = mod.params_from_numpy(jax.tree.map(np.asarray, ref), tcfg,
                                       device="cpu")
         for a, b in zip(topt.tree_leaves(got), topt.tree_leaves(ref_t)):
             assert _rel(a.float().numpy(), b.float().numpy()) <= tol, key

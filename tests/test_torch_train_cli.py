@@ -28,9 +28,11 @@ from repro.configs.registry import get_config as jget_config  # noqa: E402
 from repro.distribution.steps import init_train_state  # noqa: E402
 from repro.launch import train as jtrain  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
+from repro.models.registry import get_model as jget_model  # noqa: E402
 from repro_torch.distribution.steps import train_state_from_numpy  # noqa: E402
 from repro_torch.examples import lm_federation, lm_pretrain  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.models import mamba2 as tmamba2  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 
 
@@ -71,6 +73,23 @@ def _init_params(cfg, seed, device):
 def _init_state(cfg, seed, device):
     js = init_train_state(jget_config(ARCH, smoke=True), seed=seed)
     return train_state_from_numpy(jax.tree.map(np.asarray, js), cfg, device)
+
+
+def _ssm_init_params(cfg, seed, device):
+    """The reference's mamba2 params for ``SSM_ARCH``'s smoke config, in the
+    port."""
+    jcfg = jget_config(SSM_ARCH, smoke=True)
+    jp = jget_model(jcfg).init(jax.random.PRNGKey(seed), jcfg)
+    return tmamba2.params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                     device)
+
+
+def _ssm_init_state(cfg, seed, device):
+    js = init_train_state(jget_config(SSM_ARCH, smoke=True), seed=seed)
+    return train_state_from_numpy(jax.tree.map(np.asarray, js), cfg, device)
+
+
+SSM_ARCH = "mamba2_1_3b"
 
 
 def _floats(pattern, text):
@@ -141,3 +160,49 @@ def test_multi_task_preemptive_matches_reference():
                 if line.startswith(("task", "interleaved", "DONE"))]
 
     assert len(lines(text)) == 5 and lines(text) == lines(ref)
+
+
+def test_ssm_cloud_smoke_losses_match_reference(tmp_path, monkeypatch):
+    """``--arch mamba2_1_3b --mode cloud --smoke``: the step losses within
+    2e-2 and the lr column exact, as for llama.  The reference CLI donates
+    the train state, and its ``init_train_state`` gives each f32 leaf
+    (A_log, dt_bias, D_skip) and its f32 master the same buffer, which
+    XLA refuses to donate twice; the reference runs here with the master's
+    f32 leaves copied, which changes no number."""
+    real = jtrain.init_train_state
+
+    def unaliased(cfg, seed=0):
+        state = real(cfg, seed=seed)
+        state["opt"]["master"] = jax.tree.map(lambda a: a.copy(),
+                                              state["opt"]["master"])
+        return state
+
+    monkeypatch.setattr(jtrain, "init_train_state", unaliased)
+    argv = ["--mode", "cloud", "--arch", SSM_ARCH, "--smoke", "--steps", "3",
+            "--checkpoint-every", "2", "--log-every", "1"]
+    ref = _reference(argv + ["--checkpoint-dir", str(tmp_path / "j")])
+    text, res = _port(argv + ["--checkpoint-dir", str(tmp_path / "t")],
+                      init_state=_ssm_init_state)
+    want = _floats(r"loss (\S+) ", ref)
+    assert len(want) == len(res["losses"]) == 3
+    np.testing.assert_allclose(res["losses"], want, rtol=2e-2)
+    assert re.findall(r"lr (\S+)", text) == re.findall(r"lr (\S+)", ref)
+
+
+def test_ssm_federated_smoke_matches_reference():
+    """``--arch mamba2_1_3b`` federated (curve traffic): the virtual-time
+    columns and the aggregation count exact, client losses within 2e-2,
+    wire bytes equal (no top-k here, so no ties)."""
+    argv = ["--arch", SSM_ARCH, "--smoke", "--rounds", "2",
+            "--clients-per-round", "4", "--traffic", "curve"]
+    ref = _reference(argv)
+    text, _ = _port(argv, init_params=_ssm_init_params)
+
+    def virtual(t):
+        return [re.sub(r"client-loss \S+ ", "", line)
+                for line in t.splitlines() if line.startswith("round")]
+
+    assert len(virtual(text)) == 2 and virtual(text) == virtual(ref)
+    assert _done(text) == _done(ref)
+    np.testing.assert_allclose(_floats(r"client-loss (\S+)", text),
+                               _floats(r"client-loss (\S+)", ref), rtol=2e-2)
