@@ -210,10 +210,16 @@ numbered order; any failure raises and the script exits non-zero:
     bytes equal, client losses within 2e-2; their ``fed_reduce`` and flash
     launches (forward and backward, under vmap) printed and nonzero.
 18. **Scan backward kernel.**  The forward kernel against ``ssd_chunked``
-    and the scan's backward (five launches: C B^T per group, the states
-    and their cotangents per chunk, the chunks' gradients, the sums over
-    each group's heads and over dA's parts; plain f32 FMAs) on the card
-    against ``ssd_bwd_ref`` on the card: the reference's forward cases (g
+    and the scan's backward on its route on the card against
+    ``ssd_bwd_ref`` on the card: bf16 at the models' shapes on the tensor
+    cores (six launches: each chunk's own state contributions, the
+    cross-chunk recurrences, the chunks' gradients with the head-summed
+    Wd, dB and dC per block of heads, their sums over each group's blocks,
+    dA's sum; each row names its route and the route's launch count is
+    checked), everything else on plain f32 FMAs (five launches: C B^T per
+    group, the states and their cotangents per chunk, the chunks'
+    gradients, the sums over each group's heads and over dA's parts): the
+    reference's forward cases (g
     < h among them), a ragged 500, A = -64, mamba2-1.3b's training shape
     (1 x 4096, 64 heads of 64, state 128, chunk 128) in bf16 and f32 and
     zamba2-1.2b's (state 64), all but the training shapes with a nonzero
@@ -223,17 +229,19 @@ numbered order; any failure raises and the script exits non-zero:
     f32 plain version's own error where that is larger: dA at A = -64);
     ``torch.func.vmap(grad(...))`` through ``SsdScan`` equal to a
     per-sample loop.  Times mamba2's training shape with CUDA events,
-    inputs cycled past the L2: kernel, plain version, autograd through the
-    chunked plain forward (no PyTorch call computes the scan's backward),
-    the forward kernel, and the bound.
+    inputs cycled past the L2: the tensor-core route and the plain-FMA
+    route on the same inputs (each with its share of the bound and its
+    GFLOP/s), plain version, autograd through the chunked plain forward (no
+    PyTorch call computes the scan's backward), the forward kernel, and the
+    bound.
 19. **SSM training.**  mamba2-1.3b at full width and depth (48 layers,
     d_model 2048, 64 heads of 64, state 128, 1.45 B params, seeded bf16
     weights, f32 master, m and v) through ``make_cloud_step`` on phase
     16's shape (8 microbatches of one 4096-token sequence), one warm-up,
     three timed steps and one profiled step: loss, lr and grad norm
     finite, wall s, tokens/s, the 6 N share of 989 TFLOP/s, peak memory,
-    and ``ssd_scan`` launches equal to the audit (768 forward, all on the
-    tensor-core kernel, and 384 backward per step under remat), the
+    and ``ssd_scan`` launches equal to the audit (768 forward and 384
+    backward per step under remat, all on the tensor-core kernels), the
     profiled step's kernels too.  Then phase 16's cross-check for mamba2
     and for zamba2-1.2b (2 layers at full width, its shared block at layer
     0).  Then every forward and backward shape that phases 16, 17 and 19
@@ -252,7 +260,8 @@ seconds.
 ``--compare-with DIR`` times the decode and scan kernels of the checkout at
 DIR (e.g. the parent commit, unpacked by ``git archive``) against this
 checkout's at the serving shapes, and the flash backward's route at
-llama3.2-3b's training shape, in turns (DIR, this, this, DIR), each in
+llama3.2-3b's training shape and the scan backward's at mamba2-1.3b's, each
+keyed by its checkout's route, in turns (DIR, this, this, DIR), each in
 its own process and build, and prints one ``{"kernel_ab": ...}`` line per
 run.  ``--profile`` runs the federated slice alone instead: per wire, round 1
 under ``torch.profiler`` (device busy time as the union of kernel
@@ -3283,6 +3292,7 @@ def _zero_ssd_counters():
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     ssd_scan.launches = ssd_scan.tc_launches = ssd_scan.bwd_launches = 0
+    ssd_scan.tc_bwd_launches = 0
 
 
 def _ssd_counters() -> dict:
@@ -3290,7 +3300,8 @@ def _ssd_counters() -> dict:
 
     return {"ssd_scan": ssd_scan.launches,
             "ssd_scan_tc": ssd_scan.tc_launches,
-            "ssd_scan_bwd": ssd_scan.bwd_launches}
+            "ssd_scan_bwd": ssd_scan.bwd_launches,
+            "ssd_scan_bwd_tc": ssd_scan.tc_bwd_launches}
 
 
 def _zero_counters():
@@ -3307,18 +3318,20 @@ def _audit(cfg) -> tuple[dict, tuple, dict]:
     launch: the counters' expected values, the kernels a profiled step
     must show and their expected counts.  Each layer launches its forward
     kernel twice (the forward and the recompute) and its backward once:
-    flash attention for llama, the scan (on the tensor cores) for mamba2."""
+    flash attention for llama, the scan (on the tensor cores, forward and
+    backward) for mamba2."""
     L, n = cfg.num_layers, TRAIN_MICRO
     if cfg.family == "ssm":
         expected = {"ssd_scan": 2 * L * n, "ssd_scan_tc": 2 * L * n,
-                    "ssd_scan_bwd": L * n}
-        match = ("ssd_scan_tc_kernel", *SSD_BWD_KERNELS)
+                    "ssd_scan_bwd": L * n, "ssd_scan_bwd_tc": L * n}
+        match = ("ssd_scan_tc_kernel", *SSD_BWD_KERNELS["tc"])
     else:
         expected = {"flash_attention": 2 * L * n,
                     "flash_attention_wgmma": 2 * L * n,
                     "flash_attention_bwd": L * n,
                     "flash_attention_bwd_wgmma": L * n,
-                    "ssd_scan": 0, "ssd_scan_tc": 0, "ssd_scan_bwd": 0}
+                    "ssd_scan": 0, "ssd_scan_tc": 0, "ssd_scan_bwd": 0,
+                    "ssd_scan_bwd_tc": 0}
         match = ("flash_fwd_wgmma_kernel", "flash_bwd_prep_kernel",
                  "flash_bwd_fused_wgmma_kernel",
                  "flash_bwd_dq_convert_kernel")
@@ -3557,10 +3570,14 @@ def training_cross_check(dev, arch: str = TRAIN_ARCH) -> dict:
     for dtype, res in out.items():
         tol = res["limit"]
         lk, lp = res["launches_kernel"], res["launches_plain"]
-        if any(lk[k] != v or lp[k] != 0 for k, v in want.items()):
+        # bf16 takes the scan's tensor-core backward, f32 the plain-FMA one.
+        want_tc = want["ssd_scan_bwd"] if dtype == "bfloat16" else 0
+        if any(lk[k] != v or lp[k] != 0 for k, v in want.items()) or (
+                lk["ssd_scan_bwd_tc"] != want_tc):
             raise AssertionError(f"[{arch} {dtype}] the kernel path launched "
                                  f"{lk}, the plain path {lp}; expected "
-                                 f"{want} and none")
+                                 f"{want} ({want_tc} on the tensor cores) "
+                                 f"and none")
         if not (res["max_metric_rel_err"] <= tol
                 and res["max_leaf_rel_err"] <= tol
                 and res["max_grad_rel_err"] <= tol):
@@ -3752,9 +3769,14 @@ SSD_BWD_CASES = [
     (SSD_TRAIN_ZAMBA, ("bfloat16",), False, False),
 ]
 SSD_BWD_REPLACES = "src/repro/kernels/ssd_scan/ref.py:60"
-SSD_BWD_KERNELS = ("ssd_bwd_cb_kernel", "ssd_bwd_state_kernel",
-                   "ssd_bwd_chunk_kernel", "ssd_bwd_group_kernel",
-                   "ssd_bwd_da_kernel")
+# Each route's kernels, one launch each per backward.
+SSD_BWD_KERNELS = {
+    "tc": ("ssd_bwd_tc_local_kernel", "ssd_bwd_tc_state_kernel",
+           "ssd_bwd_tc_chunk_kernel", "ssd_bwd_tc_dbdc_kernel",
+           "ssd_bwd_group_kernel", "ssd_bwd_da_kernel"),
+    "simt": ("ssd_bwd_cb_kernel", "ssd_bwd_state_kernel",
+             "ssd_bwd_chunk_kernel", "ssd_bwd_group_kernel",
+             "ssd_bwd_da_kernel")}
 GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
 
 
@@ -3816,10 +3838,14 @@ def ssd_bwd_case(dev, gen, case, dtype: str, *, overflow=False,
             f"{' with dstate' if dstate else ''}")
     y, s = ops._ssd_scan(*args, q, "cuda")
     py, ps = ops._ssd_scan(*args, q, "chunked")
+    route = ops.kernel_for_bwd(dt_, p, n, q)
+    tc0 = ops.ssd_scan.tc_bwd_launches
     got = ops._ssd_scan_bwd_cuda(*args, dy, ds, q)
     again = ops._ssd_scan_bwd_cuda(*args, dy, ds, q)
     plain = ops.ssd_bwd_ref(*args, dy, ds, chunk=q)
     torch.cuda.synchronize()
+    if ops.ssd_scan.tc_bwd_launches - tc0 != (2 if route == "tc" else 0):
+        raise AssertionError(f"{name} should run on the {route} route")
     ey = (y.float() - py.float()).abs()
     es = float((s - ps).abs().max())
     fwd_ok = (float(ey.max()) <= 3e-4 if dt_ == torch.float32 else bool(
@@ -3830,7 +3856,8 @@ def ssd_bwd_case(dev, gen, case, dtype: str, *, overflow=False,
                              f"state {es:.3e}")
     tol = _ssd_tol(dt_)
     row = {"case": list(case), "dtype": dtype, "overflow": overflow,
-           "dstate": dstate, "kernel": ops.kernel_for_bwd(dt_, p, n, q),
+           "dstate": dstate, "kernel": route,
+           "kernels": "+".join(SSD_BWD_KERNELS[route]),
            "fwd_max_abs_err_y": float(ey.max()),
            "fwd_max_abs_err_state": es}
     for gname, a, a2, want in zip(GRAD_NAMES, got, again, plain):
@@ -3858,7 +3885,9 @@ def ssd_bwd_case(dev, gen, case, dtype: str, *, overflow=False,
 
 def ssd_bwd_timing(tensors, case) -> dict:
     """Times at the timed shape, inputs cycled past the L2: the backward
-    kernels, the plain version, autograd through the chunked plain forward
+    kernels on their route and (for the tensor-core route) the plain-FMA
+    kernels on the same inputs, with each one's share of the bound and
+    GFLOP/s, the plain version, autograd through the chunked plain forward
     (a reference point: no PyTorch call computes the scan or its
     backward), the forward kernel, and the bound."""
     import torch
@@ -3870,8 +3899,13 @@ def ssd_bwd_timing(tensors, case) -> dict:
     nbytes = sum(t.numel() * t.element_size() for t in (*args, dy))
     n = _copies(nbytes)
     sets = [([t.clone() for t in args], dy.clone()) for _ in range(n)]
+    route = ops.kernel_for_bwd(args[0].dtype, case[3], case[5], q)
     row = {"ms": time_ms(lambda i: ops._ssd_scan_bwd_cuda(
-        *sets[i % n][0], sets[i % n][1], ds, q), iters=10)}
+        *sets[i % n][0], sets[i % n][1], ds, q), iters=20 if route == "tc"
+        else 10)}
+    if route != "simt":  # the plain-FMA kernels on the same inputs
+        row["simt_ms"] = time_ms(lambda i: ops._ssd_scan_bwd_cuda(
+            *sets[i % n][0], sets[i % n][1], ds, q, kernel="simt"), iters=5)
     row["plain_ms"] = time_ms(lambda i: ops.ssd_bwd_ref(
         *sets[i % n][0], sets[i % n][1], ds, chunk=q), iters=3)
     leaves = [t.clone().requires_grad_(True) for t in args]
@@ -3887,6 +3921,10 @@ def ssd_bwd_timing(tensors, case) -> dict:
                              else F32_FLOPS))
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["gflops_per_s"] = row["flops"] / (row["ms"] * 1e6)
+    if "simt_ms" in row:
+        row["simt_bound_share"] = row["bound_ms"] / row["simt_ms"]
+        row["simt_gflops_per_s"] = row["flops"] / (row["simt_ms"] * 1e6)
+        row["speedup_vs_simt"] = row["simt_ms"] / row["ms"]
     del sets
     return row
 
@@ -3926,12 +3964,35 @@ def ssd_vmap_grad_check(dev) -> float:
     return err
 
 
+def tc_bwd_smem_check() -> dict:
+    """The tensor-core backward's shared memory per kernel as the library
+    reports it (``ssd_scan_bwd_tc_smem``) against its Python mirror
+    (``ops.tc_bwd_smem_bytes``), at each shape the route takes; raises on
+    a difference."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    out = {}
+    for q in ops.TC_CHUNKS:
+        for n in ops.TC_STATES:
+            mirror = ops.tc_bwd_smem_bytes(q, n)
+            lib = {k: ops._library().ssd_scan_bwd_tc_smem(i, n, q)
+                   for i, k in enumerate(("local", "chunk", "dbdc"))}
+            if lib != mirror:
+                raise AssertionError(f"tensor-core backward shared memory "
+                                     f"at q {q}, n {n}: library {lib}, "
+                                     f"mirror {mirror}")
+            out[f"q{q} n{n}"] = lib
+    return out
+
+
 def ssd_bwd_phase(dev) -> tuple[dict, set]:
-    """Phase 18: every case of ``SSD_BWD_CASES``, the timed shape
-    (mamba2's training shape in bf16), the ``vmap(grad)`` check; returns
-    the kernel's JSON entry and the checked (case, dtype) pairs."""
+    """Phase 18: the tensor-core backward's shared memory against its
+    mirror, every case of ``SSD_BWD_CASES``, the timed shape (mamba2's
+    training shape in bf16), the ``vmap(grad)`` check; returns the
+    kernel's JSON entry and the checked (case, dtype) pairs."""
     import torch
 
+    log(json.dumps({"ssd_scan_bwd_tc_smem_bytes": tc_bwd_smem_check()}))
     gen = torch.Generator().manual_seed(18)
     checked, errs, rel_errs, main_row = set(), [], [], None
     for case, dtypes, overflow, dstate in SSD_BWD_CASES:
@@ -3952,7 +4013,8 @@ def ssd_bwd_phase(dev) -> tuple[dict, set]:
     entry = _timed_entry("ssd_scan_bwd", SSD_SOURCE, SSD_BWD_REPLACES, errs,
                          main_row)
     entry["max_rel_err"] = max(rel_errs)  # to each gradient's largest entry
-    entry["kernel"] = "+".join(SSD_BWD_KERNELS)
+    entry["kernel"] = "+".join(SSD_BWD_KERNELS[main_row["kernel"]
+                                               if main_row else "tc"])
     torch.cuda.empty_cache()
     return entry, checked
 
@@ -3993,7 +4055,7 @@ def check_ssd_shapes(dev, checked: set) -> tuple[float, float]:
 
 # --------------------------------------------------------------------------
 
-# --compare-with DIR: the decode, scan and flash backward kernels of this
+# --compare-with DIR: the decode, scan and both backward kernels of this
 # checkout and of the checkout at DIR (e.g. the parent commit), timed in
 # turns (DIR, this, this, DIR) on one card, each in its own process with
 # its own build.  The code runs against either package: it uses only the
@@ -4074,6 +4136,24 @@ route = flash_ops.kernel_for_bwd(q.dtype, d)
 out["flash_bwd"] = {"llama_train " + route: time_ms(
     lambda i: flash_ops._flash_attention_bwd_cuda(q, k, v, o, lse, do, True,
                                                   0, d ** -0.5), 10)}
+# The scan backward (K4b) at mamba2-1.3b's training shape, keyed likewise by
+# each checkout's route ("simt" before the tensor-core route, "tc" after).
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+g = torch.Generator().manual_seed(24)
+b, l, h, p, n = 1, 4096, 64, 64, 128
+sets = []
+for _ in range(4):
+    x = (torch.randn((b, l, h, p), generator=g) * 0.5).bfloat16()
+    dt = torch.randn((b, l, h), generator=g).abs() * 0.1 + 0.01
+    A = -torch.randn(h, generator=g).abs() - 0.1
+    B = (torch.randn((b, l, 1, n), generator=g) * 0.3).bfloat16()
+    C = (torch.randn((b, l, 1, n), generator=g) * 0.3).bfloat16()
+    dy = torch.randn((b, l, h, p), generator=g).bfloat16()
+    sets.append([t.to(dev) for t in (x, dt, A, B, C, dy)])
+route = ssd_ops.kernel_for_bwd(torch.bfloat16, p, n, 128)
+out["ssd_bwd"] = {"mamba_train " + route: time_ms(
+    lambda i: ssd_ops._ssd_scan_bwd_cuda(*sets[i % 4], None, 128),
+    20 if route == "tc" else 5)}
 print(json.dumps(out))
 """
 
@@ -4106,7 +4186,14 @@ PTXAS_KERNELS = {
                  "n64 q128": "ssd_scan_tc_kernelILi64ELi128E",
                  "bwd chunk bf16": "ssd_bwd_chunk_kernelI13__nv_bfloat16E",
                  "bwd state bf16": "ssd_bwd_state_kernelI13__nv_bfloat16E",
-                 "bwd cb bf16": "ssd_bwd_cb_kernelI13__nv_bfloat16E"},
+                 "bwd cb bf16": "ssd_bwd_cb_kernelI13__nv_bfloat16E",
+                 "bwd tc local n128 q128": "ssd_bwd_tc_local_kernelILi128ELi128E",
+                 "bwd tc chunk n128 q128": "ssd_bwd_tc_chunk_kernelILi128ELi128E",
+                 "bwd tc dbdc n128 q128": "ssd_bwd_tc_dbdc_kernelILi128ELi128E",
+                 "bwd tc local n64 q128": "ssd_bwd_tc_local_kernelILi64ELi128E",
+                 "bwd tc chunk n64 q128": "ssd_bwd_tc_chunk_kernelILi64ELi128E",
+                 "bwd tc dbdc n64 q128": "ssd_bwd_tc_dbdc_kernelILi64ELi128E",
+                 "bwd tc state n128": "ssd_bwd_tc_state_kernelILi128E"},
     "flash_attention": {
         "bwd fused wgmma d128": "flash_bwd_fused_wgmma_kernelILi128E",
         "bwd fused wgmma d64": "flash_bwd_fused_wgmma_kernelILi64E",
@@ -4138,39 +4225,48 @@ def ptxas_summary(name: str) -> dict:
 
 def tensor_core_sass(libs: dict) -> dict:
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in each built
-    library's SASS (``cuobjdump -sass``), and per function for the flash
-    backward's tensor-core kernels; raises unless flash_attention and
-    ssd_scan hold HGMMA, decode_attention HMMA, and each wgmma backward
-    kernel HGMMA."""
+    library's SASS (``cuobjdump -sass``), and per function for the
+    backwards' tensor-core kernels (the flash backward's fused kernel, and
+    the scan backward's kernels that run a product); raises unless
+    flash_attention and ssd_scan hold HGMMA, decode_attention HMMA, and
+    each of those backward kernels HGMMA."""
     from repro_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    bwd = {label: needle for label, needle in
-           PTXAS_KERNELS["flash_attention"].items() if "mma" in label}
+    bwd = {"flash_attention": {
+               label: needle for label, needle in
+               PTXAS_KERNELS["flash_attention"].items() if "mma" in label},
+           "ssd_scan": {
+               label: needle for label, needle in
+               PTXAS_KERNELS["ssd_scan"].items()
+               if label.startswith("bwd tc") and "state" not in label}}
     out, per_kernel = {}, {}
     for name, path in libs.items():
         sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                               text=True, check=True).stdout.splitlines()
         out[name] = {op: sum(op + "." in line or op + " " in line
                              for line in sass) for op in ("HGMMA", "HMMA")}
-        if name == "flash_attention":
-            label = None
-            for line in sass:
-                if "Function :" in line:
-                    label = next((k for k, v in bwd.items() if v in line),
-                                 None)
-                    if label:
-                        per_kernel[label] = {"HGMMA": 0, "HMMA": 0}
-                elif label:
-                    for op in ("HGMMA", "HMMA"):
-                        per_kernel[label][op] += (op + "." in line
-                                                  or op + " " in line)
-    out["flash_attention_bwd"] = per_kernel
+        label = None
+        for line in sass:
+            if "Function :" in line:
+                label = next((k for k, v in bwd.get(name, {}).items()
+                              if v in line), None)
+                if label:
+                    per_kernel[label] = {"HGMMA": 0, "HMMA": 0}
+            elif label:
+                for op in ("HGMMA", "HMMA"):
+                    per_kernel[label][op] += (op + "." in line
+                                              or op + " " in line)
+    out["flash_attention_bwd"] = {k: v for k, v in per_kernel.items()
+                                  if k in bwd["flash_attention"]}
+    out["ssd_scan_bwd"] = {k: v for k, v in per_kernel.items()
+                           if k in bwd["ssd_scan"]}
     want = {"flash_attention": "HGMMA", "ssd_scan": "HGMMA",
             "decode_attention": "HMMA"}
+    need = [k for k in bwd["flash_attention"] if "wgmma" in k] + list(
+        bwd["ssd_scan"])
     if any(out[name][op] == 0 for name, op in want.items()) or any(
-            per_kernel.get(k, {}).get("HGMMA", 0) == 0
-            for k in bwd if "wgmma" in k):
+            per_kernel.get(k, {}).get("HGMMA", 0) == 0 for k in need):
         raise AssertionError(f"tensor-core instructions missing: {out}")
     return out
 

@@ -26,17 +26,22 @@ reference has no kernel for it.
 Training goes through :class:`SsdScan`, a ``torch.autograd.Function``
 (``setup_context`` style, with a ``vmap`` rule, so ``torch.func``'s
 ``vmap(grad(...))`` of a model runs it) that returns ``(y, final_state)``.
-Its backward is the hand-written backward (``csrc/ssd_scan.cu``, plain f32
-FMAs, chosen by :func:`kernel_for_bwd`) for CUDA tensors and
-:func:`~.ref.ssd_bwd_ref` for CPU tensors (or with ``impl="chunked"``);
-there is no fallback between them.  It takes the final state's cotangent
-too, and a length that is not a multiple of the chunk is padded as the
-forward pads it, the pad's gradients cut away.
+Its backward is the hand-written backward (``csrc/ssd_scan.cu``) for CUDA
+tensors and :func:`~.ref.ssd_bwd_ref` for CPU tensors (or with
+``impl="chunked"``); there is no fallback between them.
+:func:`kernel_for_bwd` picks its route before the launch, as
+:func:`kernel_for` does the forward's: bf16 at the models' shapes runs on
+the tensor cores (``"tc"``: six kernels, wgmma with TMA loads, the
+cross-chunk recurrences elementwise), the rest on plain f32 FMAs
+(``"simt"``: five kernels).  It takes the final state's cotangent too, and
+a length that is not a multiple of the chunk is padded as the forward pads
+it, the pad's gradients cut away.
 
 ``ssd_scan.launches`` counts kernel launches of either forward kernel (one
 per call that reaches a kernel), ``ssd_scan.tc_launches`` those of the
-tensor-core kernel alone and ``ssd_scan.bwd_launches`` the backward's calls
-(one per backward, its five kernels together); nothing else touches them.
+tensor-core kernel alone, ``ssd_scan.bwd_launches`` the backward's calls
+(one per backward, its kernels together) and ``ssd_scan.tc_bwd_launches``
+those on the tensor-core route alone; nothing else touches them.
 When a caller sets ``ssd_scan.shapes`` (``bwd_shapes``) to a set, each
 forward (backward) launch also adds its ``(b, l, h, p, g, n, chunk, dtype
 name)`` to it.
@@ -58,13 +63,16 @@ from repro_torch.kernels.ssd_scan.ref import (
 __all__ = ["ssd_scan", "SsdScan", "ssd_decode_step", "ssd_ref",
            "ssd_chunked", "ssd_bwd_ref", "smem_bytes", "tc_smem_bytes",
            "kernel_takes", "kernel_for", "bwd_smem_bytes",
-           "bwd_scratch_floats", "kernel_for_bwd"]
+           "bwd_scratch_floats", "tc_bwd_smem_bytes",
+           "tc_bwd_scratch_floats", "kernel_for_bwd"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 SMEM_LIMIT = 232448  # Hopper's opt-in shared memory per block
 _ROWS = 32  # rows of the intra-chunk matrix the kernel builds per tile
 TC_HEAD_DIM, TC_STATES, TC_CHUNKS = 64, (64, 128), (64, 128)
+TC_BWD_HEADS = 8  # heads per block of the tensor-core backward (bwd_tc::HPB)
+_TC_BWD_SPLIT = 1024  # state entries per block of its recurrence (SPLIT)
 
 _lib = None
 
@@ -138,15 +146,54 @@ def bwd_scratch_floats(b: int, l: int, h: int, p: int, g: int, n: int,
             + b * h * nc)
 
 
+def tc_bwd_smem_bytes(q: int, n: int) -> dict:
+    """The tensor-core backward's shared memory per block at chunk q and
+    state n (``csrc/ssd_scan.cu::bwd_tc``'s layouts, 1 KB of alignment slack
+    each): ``"local"`` (B, C, x, dy in bf16, dt and L), ``"chunk"`` (B, C, x,
+    dy, S_in, dS_out in bf16, the f32 fragments of C B^T on and above the
+    diagonal, ten per-step f32 vectors at q = 128, three mbarriers) and
+    ``"dbdc"`` (two buffers of one head's x, dy, S_in, dS_out, the first
+    over the summed Wd^T, C and B)."""
+    box, s_box, nb, nw = q * 128, 64 * 128, n // 64, q // 64
+    chunk = (2 * nb * box + 2 * box + 2 * nb * s_box
+             + nw * (nw + 1) // 2 * 32 * 128 * 4 + (6 + 4 * nw) * q * 4
+             + 3 * 8 + 1024)
+    head = 2 * box + 2 * nb * s_box
+    front = nw * box + 2 * nb * box
+    return {"local": 2 * nb * box + 2 * box + 2 * q * 4 + 8 + 1024,
+            "chunk": chunk,
+            "dbdc": max(front, head) + head + 3 * 8 + 1024}
+
+
+def tc_bwd_scratch_floats(b: int, l: int, h: int, p: int, g: int, n: int,
+                          q: int) -> int:
+    """The tensor-core backward's f32 scratch
+    (``csrc/ssd_scan.cu::bwd_tc::scratch_floats``; l a multiple of q):
+    S_in and dS_out per (batch, head, chunk) in bf16; each chunk's own
+    state and cotangent contributions X and Y in f32, whose room the summed
+    Wd^T and the per-block dB and dC then reuse; L per step; the parts of
+    <dS_out, S_in>; each (batch, head, chunk)'s part of dA."""
+    bhc, pn = b * h * (l // q), p * n
+    blocks = b * (l // q) * g * -(-(h // g) // TC_BWD_HEADS)
+    return (bhc * pn + max(2 * bhc * pn, blocks * (q * q + 2 * q * n))
+            + b * h * l + bhc * (pn // _TC_BWD_SPLIT) + bhc)
+
+
 def kernel_for_bwd(dtype: torch.dtype, p: int, n: int, q: int) -> str:
     """The backward kernels a CUDA call with this dtype, head dim p, state
-    n and chunk q launches: ``"simt"`` (plain f32 FMAs, x, B and C in f32 or
-    bf16) for p <= 64, n <= 128 and chunk <= 128 within the shared memory
-    (:func:`bwd_smem_bytes`).  Raises for anything else; a pure function of
-    its arguments."""
+    n and chunk q launches: ``"tc"`` (bf16 at the forward's tensor-core
+    shapes, p = 64, n in (64, 128), q in (64, 128): the models' shapes) or
+    ``"simt"`` (plain f32 FMAs, x, B and C in f32 or bf16: f32, and bf16
+    elsewhere, for p <= 64, n <= 128 and chunk <= 128 within the shared
+    memory, :func:`bwd_smem_bytes`; f32 on tensor cores would be TF32,
+    outside the f32 tolerance).  Raises for anything else; a pure function
+    of its arguments."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"ssd_scan backward takes x, B and C as float32 or "
                         f"bfloat16, got {dtype}")
+    if (dtype == torch.bfloat16 and p == TC_HEAD_DIM and n in TC_STATES
+            and q in TC_CHUNKS):
+        return "tc"
     if not (1 <= q <= MAX_CHUNK and 1 <= p <= MAX_HEAD_DIM
             and 1 <= n <= MAX_STATE and bwd_smem_bytes(q, p) <= SMEM_LIMIT):
         raise ValueError(
@@ -174,6 +221,13 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [
             ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.ssd_scan_bwd_tc_launch
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.ssd_scan_bwd_tc_smem
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -246,15 +300,21 @@ def _shape_key(x, B, chunk):
             str(x.dtype).removeprefix("torch."))
 
 
-def _ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dstate, chunk):
+def _ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dstate, chunk, kernel=None):
     """The backward kernels on CUDA tensors: ``(dx, ddt, dA, dB, dC)``;
-    ``dstate`` (the final state's cotangent) may be None.  A length that is
-    not a multiple of the chunk is padded with identity steps and the pad's
+    ``dstate`` (the final state's cotangent) may be None.  ``kernel``
+    defaults to :func:`kernel_for_bwd`'s route (the smoke names ``"simt"``
+    to time the plain-FMA kernels on bf16).  A length that is not a
+    multiple of the chunk is padded with identity steps and the pad's
     gradients cut away."""
     _check_cuda(x, dt, A, B, C, chunk)
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    kernel_for_bwd(x.dtype, p, n, chunk)
+    route = kernel_for_bwd(x.dtype, p, n, chunk)
+    kernel = route if kernel is None else kernel
+    if kernel not in (route, "simt"):
+        raise ValueError(f"the {kernel!r} ssd_scan backward does not take "
+                         f"{x.dtype} at p {p}, n {n}, chunk {chunk}")
     for name, t, shape in (("dy", dy, x.shape),
                            ("dstate", dstate, (b, h, p, n))):
         if t is None:
@@ -264,30 +324,42 @@ def _ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dstate, chunk):
                 or t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {want} tensor of "
                              f"shape {tuple(shape)} on {x.device}")
+    if kernel == "tc" and any(t.data_ptr() % 16 for t in (x, B, C, dy)):
+        raise ValueError("the tensor-core ssd_scan backward needs 16-byte "
+                         "aligned x, B, C and dy")
     if l % chunk:
         pad = chunk - l % chunk
         dx, ddt, dA, dB, dC = _ssd_scan_bwd_cuda(
             *(pad_steps(t, pad) for t in (x, dt)), A,
-            *(pad_steps(t, pad) for t in (B, C, dy)), dstate, chunk)
+            *(pad_steps(t, pad) for t in (B, C, dy)), dstate, chunk, kernel)
         return dx[:, :l], ddt[:, :l], dA, dB[:, :l], dC[:, :l]
     dx, dB, dC = torch.empty_like(x), torch.empty_like(B), torch.empty_like(C)
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
-    floats = bwd_scratch_floats(b, l, h, p, g, n, chunk)
+    if kernel == "tc":
+        floats = tc_bwd_scratch_floats(b, l, h, p, g, n, chunk)
+    else:
+        floats = bwd_scratch_floats(b, l, h, p, g, n, chunk)
     scratch = torch.empty((floats,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().ssd_scan_bwd_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), dy.data_ptr(),
-            None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            scratch.data_ptr(), floats, _DTYPE_CODES[x.dtype], b, l, h, p, g,
-            n, chunk, stream)
+        ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                C.data_ptr(), dy.data_ptr(),
+                None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+                ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                scratch.data_ptr(), floats)
+        if kernel == "tc":
+            err = _library().ssd_scan_bwd_tc_launch(*ptrs, b, l, h, p, g, n,
+                                                    chunk, stream)
+        else:
+            err = _library().ssd_scan_bwd_launch(
+                *ptrs, _DTYPE_CODES[x.dtype], b, l, h, p, g, n, chunk, stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan backward launch failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"ssd_scan {kernel} backward launch failed: "
+                           f"cudaError {err}")
     ssd_scan.bwd_launches += 1
+    if kernel == "tc":
+        ssd_scan.tc_bwd_launches += 1
     if ssd_scan.bwd_shapes is not None:
         ssd_scan.bwd_shapes.add(_shape_key(x, B, chunk))
     return dx, ddt, dA, dB, dC
@@ -439,5 +511,6 @@ def _ssd_scan(x, dt, A, B, C, chunk, impl):
 ssd_scan.launches = 0
 ssd_scan.tc_launches = 0
 ssd_scan.bwd_launches = 0
+ssd_scan.tc_bwd_launches = 0
 ssd_scan.shapes = None
 ssd_scan.bwd_shapes = None

@@ -1161,18 +1161,22 @@ def test_ssd_bwd_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
     """The backward kernels against ``ssd_bwd_ref`` on the card, with a
     nonzero cotangent of the final state: dx, ddt, dA, dB, dC within 3e-4
     (f32) or 2e-2 (bf16) of the plain version's largest entry, in their
-    dtypes, two calls bitwise equal, one backward launch each."""
+    dtypes, two calls bitwise equal, one backward launch each, on the
+    tensor-core route for bf16 at the models' shapes (the training shapes
+    among them) and on the plain-FMA route otherwise."""
     gen = torch.Generator().manual_seed(sum(case) + 2)
     args = _ssd_inputs(gen, case, dtype, cuda_device)
     b, l, h, p, g, n, chunk = case
     dy = _randn(gen, (b, l, h, p), dtype, cuda_device)
     ds = _randn(gen, (b, h, p, n), torch.float32, cuda_device)
-    before = ssd_ops.ssd_scan.bwd_launches
+    tc = ssd_ops.kernel_for_bwd(dtype, p, n, chunk) == "tc"
+    before = (ssd_ops.ssd_scan.bwd_launches, ssd_ops.ssd_scan.tc_bwd_launches)
     got = ssd_ops._ssd_scan_bwd_cuda(*args, dy, ds, chunk)
     again = ssd_ops._ssd_scan_bwd_cuda(*args, dy, ds, chunk)
     plain = ssd_ops.ssd_bwd_ref(*args, dy, ds, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_ops.ssd_scan.bwd_launches == before + 2
+    assert (ssd_ops.ssd_scan.bwd_launches, ssd_ops.ssd_scan.tc_bwd_launches
+            ) == (before[0] + 2, before[1] + (2 if tc else 0))
     tol = 3e-4 if dtype == torch.float32 else 2e-2
     for name, a, a2, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, again,
                               plain):
@@ -1184,19 +1188,43 @@ def test_ssd_bwd_kernel_matches_plain_and_repeats(cuda_device, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_bwd_overflowing_decays_give_no_nan(cuda_device, dtype):
     """A = -64, dt = 0.1: every gradient finite; dx, dB and dC, which no
-    cancellation touches, within the limits of the case above."""
+    cancellation touches, within the limits of the case above; bf16 on the
+    tensor-core route."""
     case = (2, 256, 8, 64, 1, 128, 128)
     gen = torch.Generator().manual_seed(64)
     args = _ssd_inputs(gen, case, dtype, cuda_device, A=-64.0, dt=0.1)
     dy = _randn(gen, (2, 256, 8, 64), dtype, cuda_device)
+    tc = ssd_ops.ssd_scan.tc_bwd_launches
     got = ssd_ops._ssd_scan_bwd_cuda(*args, dy, None, 128)
     plain = ssd_ops.ssd_bwd_ref(*args, dy, None, chunk=128)
     torch.cuda.synchronize()
+    assert ssd_ops.ssd_scan.tc_bwd_launches == tc + (
+        dtype == torch.bfloat16)
     tol = 3e-4 if dtype == torch.float32 else 2e-2
     for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, plain):
         assert bool(torch.isfinite(a.float()).all()), name
         if name in ("dx", "dB", "dC"):
             assert _rel_to_max(a, w) <= tol, name
+
+
+@pytest.mark.parametrize("case", [c for c in SSD_BWD_CASES
+                                  if c[3] == 64 and c[5] in (64, 128)
+                                  and c[6] in (64, 128)])
+def test_ssd_bwd_tc_and_plain_fma_routes_agree(cuda_device, case):
+    """On the same bf16 inputs the tensor-core route and the plain-FMA
+    route give each gradient within 2e-2 of the plain-FMA one's largest
+    entry."""
+    gen = torch.Generator().manual_seed(sum(case) + 5)
+    args = _ssd_inputs(gen, case, torch.bfloat16, cuda_device)
+    b, l, h, p, g, n, chunk = case
+    dy = _randn(gen, (b, l, h, p), torch.bfloat16, cuda_device)
+    ds = _randn(gen, (b, h, p, n), torch.float32, cuda_device)
+    assert ssd_ops.kernel_for_bwd(torch.bfloat16, p, n, chunk) == "tc"
+    tc = ssd_ops._ssd_scan_bwd_cuda(*args, dy, ds, chunk)
+    simt = ssd_ops._ssd_scan_bwd_cuda(*args, dy, ds, chunk, kernel="simt")
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), tc, simt):
+        assert _rel_to_max(a, w) <= 2e-2, name
 
 
 def test_ssd_scan_vmap_grad_on_card_equals_a_loop(cuda_device):
