@@ -248,7 +248,24 @@ numbered order; any failure raises and the script exits non-zero:
     launched and phases 15 and 18 did not check is checked as they check
     their cases.
 
-``--training-only`` runs phases 1, 4 and 15-19.
+Phase 20 drives the sharded paths on a one-rank NCCL group
+(``init_process_group("nccl", store=HashStore(), rank=0, world_size=1)``),
+each against its unsharded path: ``fed_reduce(mesh=make_fleet_mesh(1))`` at
+8192 x 256, f32 and int8 with scales (bitwise expected, held to 1e-6, each
+call's device ms beside the call with no mesh); the federated rounds at
+2 000 devices with the service and both tiers on that mesh (timeline and
+params equal); llama3.2-3b at full width and depth through
+``build_prefill_step`` and ``build_serve_step`` on a (1, 1) logical mesh,
+one 16 x 512 prefill and 8 greedy decode steps (logits within 2e-2,
+tokens equal); ``build_train_step(cfg, lmesh)`` for llama3.2-3b and
+granite-moe (the expert-parallel block), 2 steps each at full width and 2
+layers against ``build_train_step(cfg, None)`` (2e-2, bitwise expected;
+each path's wall s per step); and granite-moe's sharded prefill.  Its K1,
+K2, K3 and K3b launches join the kernels line.  One rank shows the
+sharded paths equal to the unsharded ones and nothing more.
+
+``--training-only`` runs phases 1, 4 and 15-19; ``--sharded-only`` runs
+the build and phase 20.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``, before that one JSON
@@ -637,13 +654,14 @@ def run_slice(device, n_devices: int, *, dim: int, cohort: int, rounds: int,
               wires=("f32", "int8"), verbose: bool = True, bench: int = 1,
               profiler: "RoundProfiler | None" = None,
               recycle: bool = False, transform=None, pool=None,
-              on_round=None) -> dict:
+              on_round=None, mesh=None) -> dict:
     """Quickstart sections 1-5 (and the int8 wire of section 9) through the
     port's public API, optionally with recycled update buffers, a payload
     transform (``transform()`` builds one per wire) or the cohort chunks in
     a worker pool (``pool``, a ``FleetWorkerPool`` shared by the wires and
-    left open).  ``on_round(sim, rnd)`` runs before each round.  Returns
-    per-wire results."""
+    left open).  ``on_round(sim, rnd)`` runs before each round.  ``mesh``
+    (a fleet mesh) shards the service's reductions and both tiers' cohort
+    rows over its ``dp`` axis.  Returns per-wire results."""
     import numpy as np
     import torch
 
@@ -681,14 +699,17 @@ def run_slice(device, n_devices: int, *, dim: int, cohort: int, rounds: int,
     for wire in wires:
         svc = AggregationService(
             ctr.lr_init(dim, device=dev),
-            trigger=SampleThresholdTrigger(n_devices * RECORDS // 2))
+            trigger=SampleThresholdTrigger(n_devices * RECORDS // 2),
+            mesh=mesh)
         audit = LaunchAudit(svc, n_leaves=2)
         flow = DeviceFlow(audit)
         flow.register_task(0, AccumulatedStrategy(thresholds=(1,)))
         sim = HybridSimulation(
-            LogicalTier(local_train, cohort_size=cohort, device=dev),
+            LogicalTier(local_train, cohort_size=cohort, device=dev,
+                        mesh=mesh, data_axis="dp"),
             tiers={g: DeviceTier(local_train, GRADES[g], cohort_size=cohort,
-                                 device=dev) for g in ("High", "Low")},
+                                 device=dev, mesh=mesh, data_axis="dp")
+                   for g in ("High", "Low")},
             deviceflow=flow, wire=wire, error_feedback=True,
             recycle_buffers=recycle,
             payload_transform=None if transform is None else transform(),
@@ -4271,6 +4292,358 @@ def tensor_core_sass(libs: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 20: the sharded paths on one NCCL rank
+
+SHARD_SERVE_BATCH = 16
+SHARD_SERVE_PROMPT = 512
+SHARD_DECODE_STEPS = 8
+SHARD_TRAIN_LAYERS = 2
+SHARD_TRAIN_SEQ = 4096
+SHARD_FLEET_DEVICES = 2_000
+
+
+def _rel(a, b) -> float:
+    """``max |a - b| / max |b|`` (f32)."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _one_rank_group():
+    """A one-rank NCCL process group on an in-memory store."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)  # the rank's card, before any device mesh
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"phase 20 needs NCCL, the group runs "
+                             f"{dist.get_backend()}")
+
+
+def _logical_mesh(cfg, dev):
+    from repro_torch.configs.base import choose_mesh_plan
+    from repro_torch.distribution.sharding import derive_logical_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(1, 1, device=dev)
+    return derive_logical_mesh(mesh, choose_mesh_plan(cfg, model_axis=1))
+
+
+def sharded_fed_reduce(dev, card: str) -> dict:
+    """(a) ``fed_reduce(mesh=make_fleet_mesh(1))`` against the call with no
+    mesh at 8192 x 256, f32 and int8 with scales: bitwise expected, held to
+    1e-6 relative; each call's device ms with CUDA events."""
+    import torch
+
+    from repro_torch.distribution.sharding import make_fleet_mesh
+    from repro_torch.kernels.fed_reduce.ops import fed_reduce
+
+    fleet = make_fleet_mesh(1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    n, d = COHORT, LEAF_WIDTHS[0]
+    w = torch.rand(n, generator=gen, device=dev)
+    out, launches = {}, 0
+    for name, stack, scales in (
+            ("float32", torch.randn((n, d), generator=gen, device=dev), None),
+            ("int8", torch.randint(-127, 128, (n, d), generator=gen,
+                                   device=dev, dtype=torch.int8),
+             torch.rand(n, generator=gen, device=dev) / 127)):
+        plain = fed_reduce(stack, w, scales=scales)
+        fed_reduce.launches = 0
+        meshed = fed_reduce(stack, w, scales=scales, mesh=fleet)
+        torch.cuda.synchronize()
+        launches += fed_reduce.launches
+        if fed_reduce.launches != 1:
+            raise AssertionError(f"fed_reduce(mesh=) launched K1 "
+                                 f"{fed_reduce.launches} times, expected 1")
+        err = _rel(meshed, plain)
+        row = {"dtype": name, "rows": n, "width": d,
+               "bitwise_equal": bool(torch.equal(meshed, plain)),
+               "max_rel_err": err, "limit": 1e-6,
+               "ms_mesh": time_ms(lambda i: fed_reduce(stack, w,
+                                                       scales=scales,
+                                                       mesh=fleet)),
+               "ms_no_mesh": time_ms(lambda i: fed_reduce(stack, w,
+                                                          scales=scales)),
+               "card": card}
+        log(json.dumps({"sharded_fed_reduce": row}))
+        if not err <= 1e-6:
+            raise AssertionError(f"fed_reduce(mesh=) [{name}] off by {err}")
+        out[name] = row
+    return {"rows": out, "launches": launches}
+
+
+def sharded_fleet_rounds(dev) -> dict:
+    """(b) federated rounds at 2 000 devices with the service and both
+    tiers on ``make_fleet_mesh(1)`` against the same rounds with no mesh:
+    the virtual timeline and the params equal."""
+    import numpy as np
+
+    from repro_torch.configs.avazu_lr import CONFIG
+    from repro_torch.distribution.sharding import make_fleet_mesh
+    from repro_torch.kernels.fed_reduce.ops import fed_reduce
+
+    kw = dict(dim=CONFIG.dim, cohort=512, rounds=2, verbose=False)
+    plain = run_slice(dev, SHARD_FLEET_DEVICES, **kw)
+    fed_reduce.launches = 0
+    meshed = run_slice(dev, SHARD_FLEET_DEVICES,
+                       mesh=make_fleet_mesh(1, device=dev), **kw)
+    launches = fed_reduce.launches
+    report = {}
+    for wire, a in meshed["wires"].items():
+        b = plain["wires"][wire]
+        same = {
+            "timeline": (a["aggregations"] == b["aggregations"]
+                         and a["bytes"] == b["bytes"]
+                         and a["dispatched"] == b["dispatched"]
+                         and all(np.array_equal(x, y) for x, y in
+                                 zip(a["arrivals"], b["arrivals"]))),
+            "params": all(np.array_equal(pa[k], pb[k])
+                          for pa, pb in zip(a["params"], b["params"])
+                          for k in pa)}
+        report[wire] = same
+        log(f"fleet-sharded rounds [{wire}, {SHARD_FLEET_DEVICES} devices, "
+            f"make_fleet_mesh(1)]: timeline equal {same['timeline']}, "
+            f"params bitwise equal {same['params']}")
+        if not all(same.values()):
+            raise AssertionError(f"fleet-sharded rounds [{wire}]: {same}")
+    want = sum(w["audit"].expected for w in meshed["wires"].values())
+    log(f"fleet-sharded rounds: fed_reduce launches {launches} "
+        f"(expected {want})")
+    if launches != want or launches <= 0:
+        raise AssertionError(f"fleet-sharded rounds launched K1 {launches} "
+                             f"times, expected {want}")
+    return {"wires": report, "launches": launches}
+
+
+def sharded_serving(dev, card: str) -> dict:
+    """(c) llama3.2-3b at full width and depth: one prefill of 16 x 512 and
+    8 greedy decode steps through ``build_prefill_step`` and
+    ``build_serve_step`` on a (1, 1) logical mesh, against ``prefill`` and
+    ``decode_step`` from the same weights: logits within 2e-2 relative,
+    greedy tokens equal."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distribution.steps import (build_prefill_step,
+                                                build_serve_step,
+                                                place_params)
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.models import transformer
+
+    cfg = get_config(SERVE_ARCH)
+    b, s, steps = SHARD_SERVE_BATCH, SHARD_SERVE_PROMPT, SHARD_DECODE_STEPS
+    max_len = s + steps
+    params = transformer.init(
+        torch.Generator(device=dev).manual_seed(SERVE_SEED), cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=dev, dtype=torch.int32)
+
+    def greedy(logits):
+        return logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+
+    with torch.no_grad():
+        logits, cache = transformer.prefill(params, prompts, cfg, max_len)
+        plain_logits, plain_tokens = [logits.float().cpu()], []
+        for _ in range(steps):
+            tok = greedy(logits)
+            plain_tokens.append(tok.cpu())
+            logits, cache = transformer.decode_step(params, tok, cfg, cache)
+            plain_logits.append(logits.float().cpu())
+    del cache
+    lmesh = _logical_mesh(cfg, dev)
+    shape = ShapeConfig("serve", max_len, b, "decode")
+    prefill_step = build_prefill_step(cfg, lmesh, shape)[0]
+    serve_step = build_serve_step(cfg, lmesh, shape)[0]
+    placed = place_params(params, cfg, lmesh)
+    _zero_flash_counters()
+    decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(placed, prompts)
+    got_logits, got_tokens = [logits.full_tensor().float().cpu()], []
+    for _ in range(steps):
+        tok = greedy(logits.full_tensor())
+        got_tokens.append(tok.cpu())
+        logits, cache = serve_step(placed, cache, tok)
+        got_logits.append(logits.full_tensor().float().cpu())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**_flash_counters(),
+                "decode_attention": decode_attention.launches}
+    err = max(_rel(a, b_) for a, b_ in zip(got_logits, plain_logits))
+    same = all(torch.equal(a, b_) for a, b_ in zip(got_tokens, plain_tokens))
+    row = {"arch": SERVE_ARCH, "layers": cfg.num_layers, "batch": b,
+           "prompt": s, "decode_steps": steps, "max_rel_err": err,
+           "limit": 2e-2, "tokens_equal": same, "launches": launches,
+           "wall_s": wall, "card": card}
+    log(json.dumps({"sharded_serving": row}))
+    want = {"flash_attention_wgmma": cfg.num_layers,
+            "decode_attention": cfg.num_layers * steps}
+    if not (err <= 2e-2 and same):
+        raise AssertionError(f"sharded serving off: {row}")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"sharded serving launched {launches}, "
+                             f"expected {want}")
+    del placed, params, cache
+    free_cycles()
+    return row
+
+
+def _train_batch(cfg, shape, dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.data.tokens import TokenPipeline
+
+    bt = next(TokenPipeline(cfg.vocab_size, shape.seq_len, shape.global_batch,
+                            seed=0))
+    n, mb = shape.microbatches, shape.global_batch // shape.microbatches
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        getattr(bt, k).reshape(n, mb, -1))).to(dev)
+        for k in ("tokens", "targets", "mask")}
+
+
+def sharded_training(dev, arch: str, card: str, steps: int = 2) -> dict:
+    """(d, e) ``arch`` at full width and 2 layers: ``steps`` steps through
+    ``build_train_step(cfg, lmesh)`` on a (1, 1) mesh against
+    ``build_train_step(cfg, None)`` from the same seed and batch: loss,
+    grad norm and updated leaves within 2e-2 relative (bitwise expected);
+    each path's wall s per step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distribution.steps import (build_train_step, gather,
+                                                init_train_state,
+                                                place_train_state)
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=SHARD_TRAIN_LAYERS)
+    shape = ShapeConfig("train_4k_x", SHARD_TRAIN_SEQ, 2, "train",
+                        microbatches=2)
+    batch = _train_batch(cfg, shape, dev)
+    runs = {}
+    for path in ("plain", "sharded"):
+        state = init_train_state(cfg, seed=0, device=dev)
+        lmesh = _logical_mesh(cfg, dev) if path == "sharded" else None
+        if lmesh is not None:
+            state = place_train_state(state, cfg, lmesh)
+        step = build_train_step(cfg, lmesh, shape)[0]
+        _zero_counters()
+        metrics, walls = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            walls.append(time.perf_counter() - t)
+        params = [t.float().cpu() for t in tree_leaves(
+            gather(state["params"]) if lmesh is not None
+            else state["params"])]
+        runs[path] = (metrics, walls, params, _counters())
+        del state, step
+        free_cycles()
+    (mp, wp, pp, _), (ms, ws, ps, launches) = runs["plain"], runs["sharded"]
+    metric_err = max(abs(a - b) / abs(b) for x, y in zip(ms, mp)
+                     for a, b in zip(x, y))
+    leaf_err = max(_rel(a, b) for a, b in zip(ps, pp))
+    row = {"arch": arch, "layers": cfg.num_layers, "seq": SHARD_TRAIN_SEQ,
+           "microbatches": shape.microbatches, "steps": steps,
+           "loss_grad_norm": {"sharded": ms, "plain": mp},
+           "metric_max_rel_err": metric_err, "leaf_max_rel_err": leaf_err,
+           "limit": 2e-2,
+           "bitwise_equal": metric_err == 0.0 and leaf_err == 0.0,
+           "wall_s_per_step": {"sharded": ws, "plain": wp},
+           "launches": launches, "card": card}
+    log(json.dumps({"sharded_training": row}))
+    if not (metric_err <= 2e-2 and leaf_err <= 2e-2):
+        raise AssertionError(f"sharded training [{arch}] off: {row}")
+    L, n = cfg.num_layers, shape.microbatches
+    want = {"flash_attention_wgmma": 2 * L * n * steps,
+            "flash_attention_bwd": L * n * steps}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"sharded training [{arch}] launched "
+                             f"{launches}, expected {want}")
+    return row
+
+
+def sharded_moe_prefill(dev, card: str) -> dict:
+    """(e) granite-moe at full width and 2 layers: a prefill of 4 x 512
+    through ``build_prefill_step`` (the expert-parallel block of
+    ``make_moe_sharded``) against ``prefill`` (``moe_apply``): logits within
+    2e-2 relative."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distribution.steps import build_prefill_step, place_params
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=SHARD_TRAIN_LAYERS)
+    b, s = 4, SHARD_SERVE_PROMPT
+    params = transformer.init(
+        torch.Generator(device=dev).manual_seed(SERVE_SEED), cfg, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(22), dtype=torch.int32)
+    with torch.no_grad():
+        plain, _ = transformer.prefill(params, prompts, cfg, s)
+    lmesh = _logical_mesh(cfg, dev)
+    step = build_prefill_step(cfg, lmesh, ShapeConfig("p", s, b, "prefill"))[0]
+    _zero_flash_counters()
+    got, _ = step(place_params(params, cfg, lmesh), prompts)
+    got = got.full_tensor()
+    err = _rel(got, plain)
+    row = {"arch": MOE_ARCH, "layers": cfg.num_layers, "batch": b,
+           "prompt": s, "max_rel_err": err, "limit": 2e-2,
+           "bitwise_equal": bool(torch.equal(got, plain)),
+           "launches": _flash_counters(), "card": card}
+    log(json.dumps({"sharded_moe_prefill": row}))
+    if not err <= 2e-2:
+        raise AssertionError(f"sharded MoE prefill off: {row}")
+    del params
+    free_cycles()
+    return row
+
+
+def sharded_phase(dev, card: str) -> dict:
+    """Phase 20: the sharded paths (fleet-sharded ``fed_reduce`` and
+    rounds, DTensor-placed serving and training, the expert-parallel MoE)
+    on a one-rank NCCL group, each against its unsharded path.  One rank
+    shows these paths equal to the unsharded ones and nothing more: no
+    communication between cards, no sharded scaling."""
+    _one_rank_group()
+    fed = sharded_fed_reduce(dev, card)
+    fleet = sharded_fleet_rounds(dev)
+    serve = sharded_serving(dev, card)
+    train = sharded_training(dev, TRAIN_ARCH, card)
+    moe_train = sharded_training(dev, MOE_ARCH, card)
+    moe = sharded_moe_prefill(dev, card)
+    launches = {
+        "fed_reduce": fed["launches"] + fleet["launches"],
+        "decode_attention": serve["launches"]["decode_attention"],
+        "flash_attention_wgmma": (serve["launches"]["flash_attention_wgmma"]
+                                  + train["launches"]["flash_attention_wgmma"]
+                                  + moe_train["launches"][
+                                      "flash_attention_wgmma"]
+                                  + moe["launches"]["flash_attention_wgmma"]),
+        "flash_attention_bwd": (train["launches"]["flash_attention_bwd"]
+                                + moe_train["launches"]["flash_attention_bwd"])}
+    log(json.dumps({"sharded": {"launches": launches, "card": card}}))
+    return {"launches": launches}
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4301,6 +4674,8 @@ def main(argv=None) -> int:
     p.add_argument("--ssm-only", action="store_true",
                    help="build, then run the SSD kernel phase (7), zamba2's "
                         "attention shapes and the SSM phases (8-9) only")
+    p.add_argument("--sharded-only", action="store_true",
+                   help="build, then run the sharded phase (20) only")
     p.add_argument("--profile", action="store_true",
                    help="profile the federated slice's rounds 1 and 2 "
                         "instead")
@@ -4352,8 +4727,18 @@ def main(argv=None) -> int:
         log(card)
         return 0
 
+    if args.sharded_only:
+        t0 = time.perf_counter()
+        sharded_phase(dev, card)
+        passed("sharded phase", t0)
+        log(json.dumps({"phase_s": PHASE_S}))
+        log(card)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     entries, main_path, scheduling = [], None, None
-    fed_entry = flash_entry = ssd_entry = None
+    fed_entry = flash_entry = ssd_entry = dec_entry = bwd_entry = None
     if args.ssm_only:
         t0 = time.perf_counter()
         ssd_entry, ssd_checked = ssd_cases(dev)
@@ -4516,6 +4901,19 @@ def main(argv=None) -> int:
                 ssd_entry["launches"] = ((ssd_entry["launches"] or 0)
                                          + ssm_train["launches"]["ssd_scan"])
         entries += [bwd_entry, ssd_bwd_entry]
+    if not (args.ssm_only or args.scheduling_only or args.serving_only
+            or args.kernel_only):
+        # Phase 20, last as numbered: its launches join each kernel's.
+        free_cycles()
+        t0 = time.perf_counter()
+        sharded = sharded_phase(dev, card)
+        passed("sharded phase", t0)
+        for e, key in ((fed_entry, "fed_reduce"),
+                       (dec_entry, "decode_attention"),
+                       (flash_entry, "flash_attention_wgmma"),
+                       (bwd_entry, "flash_attention_bwd")):
+            if e is not None:
+                e["launches"] = (e["launches"] or 0) + sharded["launches"][key]
     for e in entries:
         if ptxas.get(e["name"]):
             e["ptxas"] = ptxas[e["name"]]

@@ -3,8 +3,9 @@
 Production layout: one directory per step; each host writes its local shards
 (``shard-<host>.npz``); a ``manifest.json`` committed by atomic rename is the
 durability barrier (a step without a manifest is garbage-collected on
-restart).  On one card host-count is 1, but the layout, commit protocol and
-restore path are the multi-host ones.
+restart).  Here host-count is 1 (a sharded state is gathered and rank 0
+writes it; every rank restores its own blocks), but the layout, commit
+protocol and restore path are the multi-host ones.
 
 The format is the JAX package's, so each package reads the other's
 checkpoints: leaves are named by their path in the tree — dict keys in
@@ -119,11 +120,62 @@ def _like(arr: np.ndarray, leaf: Any) -> Any:
     """The stored array as ``leaf``'s kind: a tensor of its dtype on its
     device, or a numpy array of its dtype."""
     if isinstance(leaf, torch.Tensor):
+        if arr.dtype.itemsize == 2 and arr.dtype.kind == "V" or \
+                arr.dtype.name == "bfloat16":
+            # The reference stores bf16 as its raw 16 bits (numpy has no
+            # bf16: a void or an ml_dtypes array): the same bits as torch's.
+            t = torch.from_numpy(np.array(arr).view(np.uint16)).view(
+                torch.bfloat16)
+            return t.to(device=leaf.device, dtype=leaf.dtype)
         return torch.from_numpy(np.array(arr)).to(  # a copy; keeps 0-d
             device=leaf.device, dtype=leaf.dtype)
     if hasattr(leaf, "dtype") and arr.dtype != leaf.dtype:
         return arr.astype(leaf.dtype)
     return arr
+
+
+def _gather_sharded(tree: Any) -> "tuple[Any, bool]":
+    """``tree`` with each ``DTensor`` leaf gathered to its full tensor (a
+    collective: every rank saves), and whether this rank writes (rank 0 of
+    the process group when any leaf was sharded)."""
+    from torch.distributed.tensor import DTensor
+
+    sharded = False
+
+    def full(t):
+        nonlocal sharded
+        if isinstance(t, DTensor):
+            sharded = True
+            return t.full_tensor()
+        return t
+
+    out = _rebuild(tree, [full(leaf) for _, leaf in _with_paths(tree)])
+    if not sharded:
+        return tree, True
+    import torch.distributed as dist
+    return out, dist.get_rank() == 0
+
+
+def _placed(full: torch.Tensor, like: Any, sharding: Any) -> Any:
+    """A restored full tensor placed as ``sharding`` (a
+    ``distribution.sharding.Sharding``) says, else as the ``like`` leaf's
+    DTensor placements; a plain ``like`` leaf keeps it whole."""
+    if sharding is not None and isinstance(full, torch.Tensor):
+        return sharding.distribute(full)
+    from torch.distributed.tensor import DTensor
+    if not isinstance(like, DTensor):
+        return full
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+    shape, offset = compute_local_shape_and_global_offset(
+        full.shape, like.device_mesh, like.placements)
+    local = full
+    for d, (n, o) in enumerate(zip(shape, offset)):
+        local = local.narrow(d, o, n)
+    return DTensor.from_local(local.contiguous(), like.device_mesh,
+                              like.placements, run_check=False,
+                              shape=full.shape, stride=full.stride())
 
 
 def _rebuild(tree: Any, leaves: list) -> Any:
@@ -166,6 +218,9 @@ class Checkpointer:
         (``runtime_sections``).  Restore it with
         :meth:`restore_runtime_state`.
         """
+        tree, writes = _gather_sharded(tree)
+        if not writes:
+            return
         leaves = _flatten(materialize_handles(tree))
         tmp = pathlib.Path(tempfile.mkdtemp(dir=self.dir, prefix=".tmp_"))
         try:
@@ -206,6 +261,9 @@ class Checkpointer:
         raised by the next :meth:`wait`.
         """
         self.wait()
+        tree, writes = _gather_sharded(tree)
+        if not writes:
+            return
         host_tree = _host_runtime_view(materialize_handles(tree))
         host_runtime = (None if runtime_state is None
                         else _host_runtime_view(runtime_state))
@@ -237,21 +295,30 @@ class Checkpointer:
                 shutil.rmtree(d, ignore_errors=True)
         return max(steps) if steps else None
 
-    def restore(self, like: Any, step: "int | None" = None
-                ) -> tuple[Any, dict]:
+    def restore(self, like: Any, step: "int | None" = None, *,
+                shardings: Any = None) -> tuple[Any, dict]:
         """Restore into the structure of ``like``: each tensor leaf comes
         back as a tensor of its dtype on its device, each numpy leaf as an
-        array of its dtype.  Returns ``(tree, extra)``.  (The reference's
-        ``shardings=`` places leaves on a mesh; one card has none.)"""
+        array of its dtype.  Returns ``(tree, extra)``.
+
+        ``shardings`` (a matching tree of ``distribution.sharding.Sharding``,
+        e.g. ``train_state_shardings``) places each restored leaf on its
+        mesh as a ``DTensor``; without it a ``DTensor`` leaf of ``like``
+        comes back with that leaf's placements.  Every rank reads the whole
+        checkpoint and keeps its blocks.  (Sharded saves gather each
+        ``DTensor`` to its full tensor and rank 0 writes.)"""
         if step is None:
             step = self.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no checkpoints in {self.dir}")
         d = self._step_dir(step)
         manifest = json.loads((d / "manifest.json").read_text())
+        shs = ([sh for _, sh in _with_paths(shardings)]
+               if shardings is not None else None)
         with np.load(d / f"shard-{self.host_id}.npz") as data:
-            out = [_like(data[_key(path)], leaf)
-                   for path, leaf in _with_paths(like)]
+            out = [_placed(_like(data[_key(path)], leaf), leaf,
+                           None if shs is None else shs[i])
+                   for i, (path, leaf) in enumerate(_with_paths(like))]
         return _rebuild(like, out), manifest.get("extra", {})
 
     def restore_runtime_state(self, step: "int | None" = None) -> Any:

@@ -122,18 +122,20 @@ def _f32(v: float) -> float:
 def _fused_reduce_apply(global_params: Params, buf_leaves: tuple,
                         buf_scales: tuple, wvecs: tuple, inv_total: float,
                         lr: float, *, impl: str, in_place: bool,
-                        extra: "list | None" = None) -> Params:
+                        extra: "list | None" = None, mesh=None) -> Params:
     # buf_leaves: one tuple of (rows, size) matrices per buffer, leaf order
     # matching sorted(global_params).  ``buf_scales``: per buffer, either
     # None (f32 wire) or one (rows,) f32 scale column per leaf (int8 wire) —
     # fed_reduce folds the scales into the weights, so quantized buffers
     # reduce without a dense f32 copy of the stack.  ``extra``: the host
     # payloads' weighted sum (one flat tensor per leaf), added last.
+    # ``mesh`` (a fleet mesh with a ``dp`` axis, or None) splits every
+    # reduction's rows over the fleet shards.
     weighted_sum = None  # list of (size,) f32 unnormalized weighted sums
     for leaves2d, scales, w in zip(buf_leaves, buf_scales, wvecs):
         parts = [fed_reduce(leaf, w,
                             scales=None if scales is None else scales[k],
-                            impl=impl)
+                            impl=impl, mesh=mesh)
                  for k, leaf in enumerate(leaves2d)]
         weighted_sum = parts if weighted_sum is None else [
             a + b for a, b in zip(weighted_sum, parts)]
@@ -146,14 +148,14 @@ def _fused_reduce_apply(global_params: Params, buf_leaves: tuple,
 
 @hot_path
 def _partial_reduce(buf_leaves: tuple, buf_scales, wvec: torch.Tensor,
-                    *, impl: str) -> tuple:
+                    *, impl: str, mesh=None) -> tuple:
     # One chunk's streaming partial: the weighted row-sum of every leaf of
     # one UpdateBuffer.  Launched the moment the chunk fully lands, so the
     # reduction runs (async) while later chunks are still computing.
     return tuple(
         fed_reduce(leaf, wvec,
                    scales=None if buf_scales is None else buf_scales[k],
-                   impl=impl)
+                   impl=impl, mesh=mesh)
         for k, leaf in enumerate(buf_leaves))
 
 
@@ -194,7 +196,7 @@ def _host_sum(global_params: Params, updates: list,
 def _fused_update(global_params: Params, batches: list, bvecs: list,
                   handles: list, weights: list[float], total: float, *,
                   server_lr: float, impl: str, donate: bool,
-                  extra: "list | None" = None) -> Params:
+                  extra: "list | None" = None, mesh=None) -> Params:
     """One fused reduction over columnar batches *and* scalar handles: both
     scatter into the same per-buffer weight vectors (a batch is just the
     vectorized form of its rows' handles), then one ``fed_reduce`` per
@@ -216,7 +218,8 @@ def _fused_update(global_params: Params, batches: list, bvecs: list,
     wvecs = tuple(_weights_to(buf, v) for buf, v in groups.values())
     return _fused_reduce_apply(global_params, buf_leaves, buf_scales, wvecs,
                                _f32(1.0 / total), _f32(server_lr),
-                               impl=impl, in_place=donate, extra=extra)
+                               impl=impl, in_place=donate, extra=extra,
+                               mesh=mesh)
 
 
 @dataclasses.dataclass
@@ -270,6 +273,7 @@ def fused_fedavg_delta(
     server_lr: float = 1.0,
     impl: str = "auto",
     donate: bool = False,
+    mesh=None,
 ) -> Params:
     """``fedavg_delta`` over device-resident handle payloads, fused.
 
@@ -280,6 +284,8 @@ def fused_fedavg_delta(
     without ever materializing a per-device host dict.
 
     ``donate=True`` writes the new params into the old params tensors.
+    ``mesh`` (a fleet mesh, ``make_fleet_mesh``) splits each reduction's
+    rows over its ``dp`` shards.
     """
     if not handles:
         raise ValueError("no updates to aggregate")
@@ -291,7 +297,8 @@ def fused_fedavg_delta(
     if total <= 0:
         raise ValueError("weights must sum to a positive value")
     return _fused_update(global_params, [], [], handles, weights, total,
-                         server_lr=server_lr, impl=impl, donate=donate)
+                         server_lr=server_lr, impl=impl, donate=donate,
+                         mesh=mesh)
 
 
 @dataclasses.dataclass
@@ -322,6 +329,7 @@ class AggregationService:
         reduce_impl: str = "auto",
         donate_params: bool = False,
         streaming: bool = False,
+        mesh=None,
     ):
         self.global_params = global_params
         self.trigger = trigger
@@ -334,6 +342,9 @@ class AggregationService:
         # updates the global params in place each aggregation.
         self.reduce_impl = reduce_impl
         self.donate_params = donate_params
+        # ``mesh`` (a fleet mesh with a ``dp`` axis, or None) shards the
+        # fused aggregation's fed_reduce rows over the fleet shards.
+        self.mesh = mesh
         # Streaming chunk aggregation (module docstring): aligned handle
         # payloads accumulate per-buffer weight vectors; each chunk's
         # fed_reduce partial launches as soon as its buffer is fully
@@ -457,7 +468,7 @@ class AggregationService:
         leaves = _partial_reduce(tuple(ch.buffer.leaves2d),
                                  _scales_of(ch.buffer),
                                  _weights_to(ch.buffer, ch.weights),
-                                 impl=self.reduce_impl)
+                                 impl=self.reduce_impl, mesh=self.mesh)
         self._partials.append((leaves, float(ch.weights.sum())))
         self._fired.append(ch)
 
@@ -525,7 +536,7 @@ class AggregationService:
                 self.global_params = _fused_update(
                     self.global_params, aligned, bvecs, handles, hweights,
                     total, server_lr=self.server_lr, impl=self.reduce_impl,
-                    donate=self.donate_params,
+                    donate=self.donate_params, mesh=self.mesh,
                     extra=(_host_sum(self.global_params, updates, weights)
                            if updates else None))
             else:
@@ -577,7 +588,7 @@ class AggregationService:
                 (_partial_reduce(tuple(ch.buffer.leaves2d),
                                  _scales_of(ch.buffer),
                                  _weights_to(ch.buffer, ch.hits),
-                                 impl=self.reduce_impl),
+                                 impl=self.reduce_impl, mesh=self.mesh),
                  float(ch.hits.sum()))
                 for ch in self._fired]
             host_weights = [1.0] * len(host_updates)

@@ -203,6 +203,43 @@ class _ZeroCopyCohortMixin:
         return buf, metrics, (tuple(res) if error_feedback else None)
 
 
+def _rows_block(x: torch.Tensor, mesh, data_axis: str) -> torch.Tensor:
+    """This rank's block of the rows (dim 0) over the mesh's data axis."""
+    dim = mesh.mesh_dim_names.index(data_axis)
+    shards, r = mesh.size(dim), int(mesh.get_coordinate()[dim])
+    n = x.shape[0]
+    if n % shards:
+        raise ValueError(f"{n} cohort rows do not split over {shards} "
+                         f"{data_axis!r} shards")
+    return x[r * (n // shards):(r + 1) * (n // shards)]
+
+
+def _gather_rows(tree, mesh, data_axis: str):
+    """Every rank's row block of each leaf, all-gathered in row order."""
+    from repro_torch.distribution.collectives import all_gather
+
+    group = mesh.get_group(data_axis)
+    if isinstance(tree, dict):
+        return {k: all_gather(v, group, 0) for k, v in tree.items()}
+    return all_gather(tree, group, 0)
+
+
+def _shard_over_data(fn, mesh, data_axis: str):
+    """``fn(params, batches, rngs)`` on this rank's block of the cohort's
+    rows, its outputs all-gathered in row order: the reference's
+    ``shard_map`` over the mesh's data axis."""
+
+    def sharded(global_params, batches, rngs):
+        batches = {k: _rows_block(v, mesh, data_axis)
+                   for k, v in batches.items()}
+        params, metrics = fn(global_params, batches,
+                             _rows_block(rngs, mesh, data_axis))
+        return (_gather_rows(params, mesh, data_axis),
+                _gather_rows(metrics, mesh, data_axis))
+
+    return sharded
+
+
 def _cast_back(new_p: Params, global_params: Params,
                out: "dict | None" = None) -> Params:
     """Each float leaf of ``new_p`` cast back to its global dtype; a cast
@@ -231,11 +268,18 @@ class LogicalTier(_ZeroCopyCohortMixin):
         self,
         local_train: LocalTrainFn,
         *,
+        mesh=None,
+        data_axis: str = "data",
         cohort_size: int = 64,
         dtype: torch.dtype = torch.float32,
         device="cuda",
     ):
         self.local_train = local_train
+        # ``mesh`` (a DeviceMesh with a ``data_axis`` dim, e.g.
+        # ``make_fleet_mesh``'s "dp"): each rank runs its block of a
+        # cohort's rows and the outputs are all-gathered in row order.
+        self.mesh = mesh
+        self.data_axis = data_axis
         self.cohort_size = cohort_size
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -249,7 +293,8 @@ class LogicalTier(_ZeroCopyCohortMixin):
                  for k, v in global_params.items()}
             return vmapped(p, batches, rngs)
 
-        self._cohort_fn = cohort
+        self._cohort_fn = (cohort if mesh is None
+                           else _shard_over_data(cohort, mesh, data_axis))
 
     def _update_dtype(self, leaf: torch.Tensor) -> torch.dtype:
         # The cohort runs in the tier's dtype and keeps its output there.
@@ -294,9 +339,17 @@ class DeviceTier(_ZeroCopyCohortMixin):
         train_cost_scale: float = 1.0,
         cohort_size: int = 256,
         jitter: float = 0.08,
+        mesh=None,
+        data_axis: str = "data",
         device="cuda",
     ):
         self.grade = grade
+        # ``mesh``: the cohort's rows split over the mesh's ``data_axis``,
+        # as ``LogicalTier``'s (a sharded chunk casts into fresh storage).
+        self.mesh = mesh
+        self.data_axis = data_axis
+        if mesh is not None:
+            self.takes_out = False
         self.dtype = dtype
         self.seed = seed
         self.train_cost_scale = train_cost_scale
@@ -323,6 +376,13 @@ class DeviceTier(_ZeroCopyCohortMixin):
                    rngs: torch.Tensor, out: "dict | None" = None):
         """One vmapped chunk, its params cast back after the vmap: into
         ``out[k]`` where given and of the same size and dtype."""
+        if self.mesh is not None:
+            return _shard_over_data(
+                lambda g, b, r: self._cohort_fn_local(g, b, r, None),
+                self.mesh, self.data_axis)(global_params, batches, rngs)
+        return self._cohort_fn_local(global_params, batches, rngs, out)
+
+    def _cohort_fn_local(self, global_params, batches, rngs, out):
         new_p, metrics = self._backend_fn(global_params, batches, rngs)
         return _cast_back(new_p, global_params, out), metrics
 

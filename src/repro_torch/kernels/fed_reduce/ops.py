@@ -196,14 +196,25 @@ def _fed_reduce_cuda(stack2d: torch.Tensor, weights: torch.Tensor,
 @hot_path
 def fed_reduce(stack: torch.Tensor, weights: torch.Tensor, *,
                scales: "torch.Tensor | None" = None,
-               impl: str = "auto") -> torch.Tensor:
+               impl: str = "auto", mesh=None, axis: str = "dp"
+               ) -> torch.Tensor:
     """Weighted row-sum ``sum_i weights[i] * stack[i]`` -> f32 of
     ``stack[0]``'s shape.  ``stack``: (n, ...); ``weights``: (n,).
 
     ``scales`` (f32 ``(n,)``, a quantized ``UpdateBuffer`` scale column)
     selects the fused dequantize-and-reduce variant:
     ``sum_i weights[i] * scales[i] * stack[i]`` over an int8 stack.
+
+    ``mesh`` (a ``DeviceMesh`` with an ``axis`` dimension, e.g.
+    ``make_fleet_mesh``) splits the rows over the fleet shards: the stack
+    is padded with zero-weight rows to a multiple of the shard count (the
+    scales folded into the weights first, so a pad row contributes exactly
+    0), each rank reduces its block of rows (the kernel on the card), and
+    the partial sums are all-reduced over the ``axis`` group.  Every rank
+    passes the whole stack; ``None`` keeps the single-device path.
     """
+    if mesh is not None:
+        return _fed_reduce_mesh(stack, weights, scales, impl, mesh, axis)
     if not isinstance(stack, torch.Tensor):
         stack = torch.as_tensor(stack)
     if not isinstance(weights, torch.Tensor):
@@ -235,3 +246,37 @@ def fed_reduce(stack: torch.Tensor, weights: torch.Tensor, *,
 
 fed_reduce.launches = 0
 fed_reduce.shapes = None
+
+
+def _fed_reduce_mesh(stack, weights, scales, impl, mesh, axis):
+    import torch.distributed as dist
+
+    names = mesh.mesh_dim_names or ()
+    if axis not in names:
+        raise ValueError(f"mesh has no {axis!r} axis: {names}")
+    if stack.ndim < 1 or weights.shape != (stack.shape[0],):
+        raise ValueError(
+            f"stack rows {tuple(stack.shape)} must match weights "
+            f"{tuple(weights.shape)}")
+    if scales is not None:
+        if scales.shape != weights.shape:
+            raise ValueError(
+                f"scales {tuple(scales.shape)} must match weights "
+                f"{tuple(weights.shape)}")
+        # Per-row dequantization is linear: it folds into the weights, and
+        # a zero weight still zeroes the whole row.
+        weights = weights.to(torch.float32) * scales.to(torch.float32)
+    dim = names.index(axis)
+    shards = mesh.size(dim)
+    n = stack.shape[0]
+    pad = (-n) % shards
+    if pad:
+        # Built where the stack lives: no host-to-card copy on the hot path.
+        stack = torch.cat([stack, stack.new_zeros((pad,) + stack.shape[1:])])
+        weights = torch.cat([weights, weights.new_zeros((pad,))])
+    rows = (n + pad) // shards
+    r = int(mesh.get_coordinate()[dim])
+    out = fed_reduce(stack[r * rows:(r + 1) * rows].contiguous(),
+                     weights[r * rows:(r + 1) * rows].contiguous(), impl=impl)
+    dist.all_reduce(out, group=mesh.get_group(axis))
+    return out

@@ -17,10 +17,17 @@ Run on the card (the default) or, with ``--device cpu``, on the CPU::
     python -m repro_torch.launch.train --mode cloud --smoke --device cpu
     python -m repro_torch.launch.train --smoke --traffic curve --device cpu
 
-On one card there is no mesh: ``--fleet-shards`` and ``--multi-pod`` raise
-(they come with the distribution slice), and the cloud step is
-``distribution.steps.build_train_step(cfg, None, shape)``.  Without
-``--smoke`` the cloud step runs the published config at ``--shape``.
+In one process the cloud step is ``build_train_step(cfg, None, shape)``.
+Under ``torchrun`` with more than one rank (or with ``--multi-pod``) cloud
+mode builds the reference's mesh — a ``(world, 1)`` host mesh with
+``--smoke``, else the production mesh, which needs 256 ranks (512 with
+``--multi-pod``; any other world size raises) — and runs
+``build_train_step(cfg, lmesh, shape)`` on the state placed over it.
+``--fleet-shards N`` runs the federated rounds over ``make_fleet_mesh(N)``:
+the aggregation's ``fed_reduce`` rows and both tiers' cohort rows split
+over its ``dp`` shards (one rank's process group is started when none
+runs).  Without ``--smoke`` the cloud step runs the published config at
+``--shape``.
 
 Federated clients are ``torch.func.vmap`` over ``grad`` of the model's
 ``loss_fn`` on flat param dicts (the port's simulation moves flat
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -45,7 +53,7 @@ import torch
 from torch.func import grad_and_value
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.configs.base import SHAPES, ShapeConfig
+from repro_torch.configs.base import SHAPES, ShapeConfig, choose_mesh_plan
 from repro_torch.configs.registry import get_config
 from repro_torch.core.allocation import solve_allocation
 from repro_torch.core.calibration import RuntimeCalibrator
@@ -70,7 +78,16 @@ from repro_torch.core.traffic_curves import right_tailed_normal
 from repro_torch.core.updates import UpdateBuffer, UpdateHandle
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
-from repro_torch.distribution.steps import build_train_step, init_train_state
+from repro_torch.distribution.sharding import (
+    derive_logical_mesh,
+    make_fleet_mesh,
+)
+from repro_torch.distribution.steps import (
+    build_train_step,
+    init_train_state,
+    place_train_state,
+)
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.registry import get_model
 from repro_torch.optim.compression import (
     topk_compress,
@@ -79,9 +96,6 @@ from repro_torch.optim.compression import (
 )
 from repro_torch.optim.optimizers import AdamWConfig
 from repro_torch.runtime.fault_tolerance import TrainingSupervisor
-
-_ONE_CARD = ("{flag} needs a device mesh; the port runs on one card and "
-             "sharded runs come with the distribution slice (ROADMAP Step 5)")
 
 
 def make_small_shape(cfg, *, seq_len=128, global_batch=8, microbatches=2):
@@ -168,14 +182,16 @@ def _init_params(api, cfg, seed, device, init_params):
 # Cloud training
 # --------------------------------------------------------------------------- #
 def make_cloud_step(cfg, shape: ShapeConfig, pipe: TokenPipeline, *,
-                    opt_cfg: AdamWConfig = AdamWConfig(), device="cuda"):
+                    opt_cfg: AdamWConfig = AdamWConfig(), device="cuda",
+                    lmesh=None):
     """``step(state) -> (state, metrics)``: the next batch from ``pipe``,
     cut into ``shape.microbatches`` microbatches on ``device``, through
-    ``build_train_step(cfg, None, shape, opt_cfg)`` — what
+    ``build_train_step(cfg, lmesh, shape, opt_cfg)`` — what
     :func:`cloud_training` runs each step, reachable without the
-    supervisor."""
+    supervisor.  With a mesh every rank draws the same batch and the step
+    keeps its block."""
     dev = resolve_device(device)
-    train_step, _, _ = build_train_step(cfg, None, shape, opt_cfg)
+    train_step, _, _ = build_train_step(cfg, lmesh, shape, opt_cfg)
     n, mb = shape.microbatches, shape.global_batch // shape.microbatches
 
     def step(state):
@@ -188,19 +204,41 @@ def make_cloud_step(cfg, shape: ShapeConfig, pipe: TokenPipeline, *,
     return step
 
 
+def _cloud_mesh(args, cfg):
+    """``(logical mesh or None, device)`` for cloud mode: no mesh in one
+    process; under ``torchrun`` (``WORLD_SIZE`` > 1) or with
+    ``--multi-pod`` the reference's mesh over the process group."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if not args.multi_pod and world <= 1:
+        return None, resolve_device(args.device)
+    import torch.distributed as dist
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and world > 1:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized() and world > 1:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    if args.smoke and not args.multi_pod:
+        mesh = make_host_mesh(world, 1, device=dev)
+    else:
+        mesh = make_production_mesh(multi_pod=args.multi_pod, device=dev)
+    plan = choose_mesh_plan(cfg, model_axis=mesh.mesh.shape[-1])
+    return derive_logical_mesh(mesh, plan), dev
+
+
 def cloud_training(args, *, init_state=None) -> dict:
     """Datacenter pretraining loop with checkpoint/restart.
     ``init_state(cfg, seed, device)`` replaces the seeded initial state."""
-    if args.multi_pod:
-        raise NotImplementedError(_ONE_CARD.format(flag="--multi-pod"))
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    lmesh, dev = _cloud_mesh(args, cfg)
     shape = make_small_shape(cfg) if args.smoke else SHAPES[args.shape]
     state = (init_state(cfg, args.seed, dev) if init_state is not None
              else init_train_state(cfg, seed=args.seed, device=dev))
+    if lmesh is not None:
+        state = place_train_state(state, cfg, lmesh)
     pipe = TokenPipeline(cfg.vocab_size, shape.seq_len, shape.global_batch,
                          seed=args.seed)
-    step = make_cloud_step(cfg, shape, pipe, device=dev)
+    step = make_cloud_step(cfg, shape, pipe, device=dev, lmesh=lmesh)
     ckpt = Checkpointer(args.checkpoint_dir)
     losses = []
 
@@ -283,8 +321,11 @@ def federated_training(args, *, init_params=None) -> dict:
     """SimDC federated loop: grade-partitioned rounds -> DeviceFlow ->
     FedAvg, with the allocation re-solved every round on fleet-calibrated
     runtimes (as the reference's ``federated_training``)."""
-    if args.fleet_shards:
-        raise NotImplementedError(_ONE_CARD.format(flag="--fleet-shards"))
+    if args.workers and args.fleet_shards:
+        raise SystemExit(
+            "--workers is incompatible with --fleet-shards: process "
+            "sharding and fleet-mesh sharding are alternative scale-out "
+            "axes")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=True)  # clients train the reduced model
     api = get_model(cfg)
@@ -294,7 +335,12 @@ def federated_training(args, *, init_params=None) -> dict:
     trigger = (SampleThresholdTrigger(args.sample_threshold)
                if args.trigger == "samples"
                else ScheduledTrigger(args.trigger_period))
-    svc = AggregationService(global_params, trigger=trigger)
+    # --fleet-shards N shards cohort execution and the fused fed_reduce over
+    # an explicit ("dp", "mp") fleet mesh (redco-style data parallelism
+    # across fleet shards).
+    fleet_mesh = (make_fleet_mesh(args.fleet_shards, device=dev)
+                  if args.fleet_shards else None)
+    svc = AggregationService(global_params, trigger=trigger, mesh=fleet_mesh)
     flow = DeviceFlow(svc, seed=args.seed)
     task_id = 0
     if args.traffic == "realtime":
@@ -327,9 +373,10 @@ def federated_training(args, *, init_params=None) -> dict:
                             seed=args.seed, client_lr=args.client_lr,
                             cohort=cohort, device=str(dev))))
     sim = HybridSimulation(
-        LogicalTier(local_train, cohort_size=cohort, device=dev),
+        LogicalTier(local_train, cohort_size=cohort, device=dev,
+                    mesh=fleet_mesh, data_axis="dp"),
         tiers={g: DeviceTier(local_train, GRADES[g], seed=args.seed,
-                             device=dev)
+                             device=dev, mesh=fleet_mesh, data_axis="dp")
                for g in grade_names},
         deviceflow=flow,
         wire=args.wire_format,
@@ -527,8 +574,8 @@ def parser() -> argparse.ArgumentParser:
                          "(shared-memory columnar transport; 0 = in-process); "
                          "federated single-task mode only")
     ap.add_argument("--fleet-shards", type=int, default=0,
-                    help="a fleet mesh of this many data shards; needs the "
-                         "distribution slice (raises on one card)")
+                    help="shard cohort execution and fed_reduce over a "
+                         "fleet mesh with this many data shards (0 = off)")
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--compress-fraction", type=float, default=0.01)
     ap.add_argument("--wire-format", choices=("f32", "int8"), default="f32",
@@ -552,6 +599,11 @@ def run(argv=None, **init) -> dict:
     """Parses ``argv`` and runs the chosen mode; returns its result dict
     (``init`` passes ``init_state=`` or ``init_params=`` through)."""
     args = parser().parse_args(argv)
+    if args.multi_pod and args.mode != "cloud":
+        # The reference ignores the flag outside cloud mode; a run on one
+        # rank that was asked for 512 is refused instead.
+        raise ValueError("--multi-pod shards the cloud step (--mode cloud); "
+                         "the federated modes take --fleet-shards")
     if args.mode == "cloud":
         out = cloud_training(args, **init)
     elif args.tasks > 1:

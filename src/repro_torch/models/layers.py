@@ -13,8 +13,16 @@ Attention routes to the port's kernels: ``_attend`` to ``flash_attention``
 (the CUDA kernel on a card; :class:`FlashAttention`, with the backward
 kernel, when gradients flow) and ``attention_decode`` to
 ``decode_attention``.  ``cfg.attention_impl="einsum"`` (or ``"ref"``) asks
-for the plain versions of both, on any device.  There is no sharding on one
-card, so the reference's ``constrain`` calls have no counterpart.
+for the plain versions of both, on any device.
+
+The reference's ``constrain`` calls stand at its places
+(``distribution/ctx.py``); they are no-ops outside a sharding context.
+Inside one, the sharded steps (``distribution/steps.py``) run each layer on
+the rank's shards and the calls do the tensor-parallel collectives:
+``tp_in`` before a column-parallel product, ``tp_out`` after a row-parallel
+one, ``act_kv`` gathers the sequence of k and v, ``kv_heads`` picks the kv
+heads of the rank's q heads; the kernels always take the rank's plain
+tensors.
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distribution import ctx as shard_ctx
+from repro_torch.distribution.ctx import constrain
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import (
     FlashAttention,
@@ -115,6 +125,7 @@ def attention_init(generator, cfg: ModelConfig, dtype, device) -> Params:
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = constrain(x, "tp_in")
     if cfg.fuse_qkv:
         qkv = x @ p["wqkv"]
         if cfg.qkv_bias:
@@ -171,8 +182,15 @@ def attention_apply(
         q = rope(q, positions, cfg.rope_theta)
         if kv_override is None:
             k = rope(k, positions, cfg.rope_theta)
-    o = _attend(q, k, v, cfg, causal=causal)
-    return o.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    # Context parallelism: q stays sequence-sharded; k/v are gathered to the
+    # whole sequence (the reference's constrain to sequence-replicated).
+    q = constrain(q, "act_q")
+    k = constrain(k, "act_kv")
+    v = constrain(v, "act_kv")
+    o = _attend(q, constrain(k, "kv_heads"), constrain(v, "kv_heads"), cfg,
+                causal=causal, q_offset=shard_ctx.seq_offset())
+    out = o.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    return constrain(out, "tp_out")
 
 
 def attention_decode(
@@ -195,14 +213,25 @@ def attention_decode(
         pos2d = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = rope(q, pos2d, cfg.rope_theta)
         k = rope(k, pos2d, cfg.rope_theta)
-    k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
-    lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    k_cache = constrain(cache["k"], "cache_kv")
+    v_cache = constrain(cache["v"], "cache_kv")
     impl = "ref" if cfg.attention_impl in _PLAIN else "auto"
-    o = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths,
-                         impl=impl)
-    out = o.reshape(b, 1, H * hd) @ p["wo"]
+    write = shard_ctx.override("cache_write")
+    attend = shard_ctx.override("decode_attention")
+    if write is not None:  # the cache's sequence split over ranks
+        write(k_cache, k[:, 0], pos)
+        write(v_cache, v[:, 0], pos)
+    else:
+        k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    if attend is not None:
+        o = attend(q[:, 0].contiguous(), k_cache, v_cache, pos, impl)
+    else:
+        lengths = torch.full((b,), pos + 1, dtype=torch.int32,
+                             device=x.device)
+        o = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths,
+                             impl=impl)
+    out = constrain(o.reshape(b, 1, H * hd) @ p["wo"], "tp_out")
     return out, {"k": k_cache, "v": v_cache, "pos": pos + 1}
 
 
@@ -226,6 +255,7 @@ def mlp_init(generator, cfg: ModelConfig, dtype, device) -> Params:
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = constrain(x, "tp_in")
     if cfg.mlp_activation == "swiglu":
         if "w_gate_up" in p:
             gate, up = torch.chunk(x @ p["w_gate_up"], 2, dim=-1)
@@ -239,7 +269,7 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.gelu(x @ p["w_up"], approximate="tanh")
     else:
         raise ValueError(f"unknown activation {cfg.mlp_activation}")
-    return h @ p["w_down"]
+    return constrain(h @ p["w_down"], "tp_out")
 
 
 # --------------------------------------------------------------------------- #
@@ -260,6 +290,9 @@ def embed_apply(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    fn = shard_ctx.override("unembed")
+    if fn is not None:  # tp-sharded vocab or features
+        return fn(p, x)
     w = p["lm_head"] if "lm_head" in p else p["embedding"].T
     return (x @ w).float()
 
@@ -267,6 +300,9 @@ def unembed_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """Token-mean CE in f32; padded vocab tail columns are masked out."""
+    fn = shard_ctx.override("cross_entropy")
+    if fn is not None:  # vocab-sharded logits, tokens over ranks
+        return fn(logits, targets, mask, vocab_size)
     logits = logits.float()
     if logits.shape[-1] > vocab_size:
         col = torch.arange(logits.shape[-1], device=logits.device)

@@ -9,8 +9,8 @@ init/apply in the reference's style, with the layers as a Python list of
 per-layer param dicts and the decode cache as a list of per-layer dicts
 ``{"conv_x", "conv_BC", "ssm"}`` (the reference stacks both for
 ``lax.scan`` when ``cfg.scan_layers``; :func:`params_from_numpy` unstacks
-its params).  There is no sharding on one card, so the reference's
-``constrain`` calls have no counterpart.  ``loss_fn`` trains through the
+its params).  The reference's ``constrain`` calls stand at its places
+(``distribution/ctx.py``; no-ops outside a sharding context).  ``loss_fn`` trains through the
 scan's backward (``kernels/ssd_scan/ops.py::SsdScan``: the hand-written
 backward on a card), each block rematerialized under ``remat``
 (``torch.utils.checkpoint``, non-reentrant, as ``transformer.loss_fn``).
@@ -29,6 +29,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.device import resolve_device
+from repro_torch.distribution import ctx as shard_ctx
+from repro_torch.distribution.ctx import constrain
 from repro_torch.kernels.ssd_scan.ops import ssd_decode_step, ssd_scan
 from repro_torch.models.layers import (
     _PLAIN,
@@ -152,11 +154,14 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 *, impl: str = "auto") -> torch.Tensor:
     hn = rmsnorm(x, p["ln"], cfg.norm_eps)
     z, xp, BC_raw, dt_raw = _project(p, hn)
+    z, xp = constrain(z, "ssm_inner"), constrain(xp, "ssm_inner")
+    BC_raw = constrain(BC_raw, "ssm_bc")
     xs = _causal_conv(xp, p["conv_x_w"], p["conv_x_b"])
     BC = _causal_conv(BC_raw, p["conv_BC_w"], p["conv_BC_b"])
     y, _ = _scan(p, x, xs, BC, dt_raw, cfg, impl)
-    y = rmsnorm_gated(y, z, p["norm_w"], cfg.norm_eps)
-    return x + y @ p["out_proj"]
+    y = rmsnorm_gated(constrain(y, "ssm_inner"), z, p["norm_w"],
+                      cfg.norm_eps)
+    return constrain(x + y @ p["out_proj"], "act_btd")
 
 
 def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -230,18 +235,19 @@ def rematerialized(f, remat: bool):
     wraps a block in ``jax.checkpoint``; else ``f``."""
     if not remat:
         return f
+    f = shard_ctx.bind(f)
     return lambda *a, **kw: checkpoint(f, *a, use_reentrant=False, **kw)
 
 
 def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
           remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (b, s, padded_vocab) f32, aux_loss = 0)."""
-    x = embed_apply(params["embed"], tokens)
+    x = constrain(embed_apply(params["embed"], tokens), "act_btd")
     block = rematerialized(block_apply, remat)
     for lp in params["layers"]:
         x = block(lp, x, cfg, impl=scan_impl(cfg))
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    return (unembed_apply(params["embed"], x),
+    return (constrain(unembed_apply(params["embed"], x), "logits"),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 

@@ -27,6 +27,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.device import resolve_device
+from repro_torch.distribution import ctx as shard_ctx
+from repro_torch.distribution.ctx import constrain
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     _attend,
@@ -80,7 +82,8 @@ def ffn_apply(p: Params, hn: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The layer's MLP or MoE block with its auxiliary loss dropped (the
     serving paths; ``layer_apply`` keeps it)."""
     if cfg.num_experts:
-        return moe_lib.moe_apply(p["moe"], hn, cfg)[0]
+        impl = shard_ctx.moe_impl() or moe_lib.moe_apply
+        return impl(p["moe"], hn, cfg)[0]
     return mlp_apply(p["mlp"], hn, cfg)
 
 
@@ -106,10 +109,12 @@ def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     x = x + h
     hn = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.num_experts:
-        h, aux = moe_lib.moe_apply(p["moe"], hn, cfg)
-        return x + h, aux
-    return (x + mlp_apply(p["mlp"], hn, cfg),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+        impl = shard_ctx.moe_impl() or moe_lib.moe_apply
+        h, aux = impl(p["moe"], hn, cfg)
+    else:
+        h = mlp_apply(p["mlp"], hn, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return constrain(x + h, "act_btd"), aux
 
 
 def layer_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -121,10 +126,18 @@ def layer_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _embed(params, tokens, prefix_embeds):
-    x = embed_apply(params["embed"], tokens)
+    x = constrain(embed_apply(params["embed"], tokens), "act_btd")
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    return x
+    return constrain(x, "act_btd")
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    """Global positions of the rank's ``s`` rows (offset under sequence
+    parallelism)."""
+    off = shard_ctx.seq_offset()
+    return torch.arange(off, off + s, dtype=torch.int32,
+                        device=device).expand(b, s)
 
 
 def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -133,18 +146,18 @@ def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     """Returns (logits (b, s_total, padded_vocab) f32, aux_loss)."""
     x = _embed(params, tokens, prefix_embeds)
     b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
+    positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer = shard_ctx.bind(layer_apply)
     for lp in params["layers"]:
         if remat:
-            x, a = checkpoint(layer_apply, lp, x, cfg, positions,
+            x, a = checkpoint(layer, lp, x, cfg, positions,
                               use_reentrant=False)
         else:
             x, a = layer_apply(lp, x, cfg, positions)
         aux = aux + a
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    return unembed_apply(params["embed"], x), aux
+    return constrain(unembed_apply(params["embed"], x), "logits"), aux
 
 
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
@@ -188,23 +201,32 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens does not fit max_len "
                          f"{max_len}")
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
-    cache = init_cache(cfg, b, max_len, device=x.device)
+    positions = _positions(b, s, x.device)
+    make_cache = shard_ctx.override("init_cache") or init_cache
+    cache = make_cache(cfg, b, max_len, device=x.device)
+    fill = shard_ctx.override("cache_fill")
     for i, lp in enumerate(params["layers"]):
         hn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(lp["attn"], hn, cfg)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        o = _attend(q, k, v, cfg, causal=True)
-        x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
+        q = constrain(rope(q, positions, cfg.rope_theta), "act_q")
+        k = constrain(rope(k, positions, cfg.rope_theta), "act_kv")
+        v = constrain(v, "act_kv")
+        o = _attend(q, constrain(k, "kv_heads"), constrain(v, "kv_heads"),
+                    cfg, causal=True, q_offset=shard_ctx.seq_offset())
+        x = x + constrain(o.reshape(b, s, -1) @ lp["attn"]["wo"], "tp_out")
         hn = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
-        x = x + ffn_apply(lp, hn, cfg)
-    cache["pos"] = s
+        if fill is not None:  # the cache's sequence split over ranks
+            fill(cache["k"][i], k)
+            fill(cache["v"][i], v)
+        else:
+            cache["k"][i, :, :k.shape[1]] = k
+            cache["v"][i, :, :v.shape[1]] = v
+        x = constrain(x + ffn_apply(lp, hn, cfg), "act_btd")
+    cache["pos"] = k.shape[1]
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    return unembed_apply(params["embed"], x[:, -1]), cache
+    last = shard_ctx.override("last_position")
+    x = last(x) if last is not None else x[:, -1]
+    return unembed_apply(params["embed"], x), cache
 
 
 def decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
@@ -213,9 +235,11 @@ def decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
     the token's K/V into ``cache`` in place; the returned cache shares its
     tensors and carries ``pos + 1``."""
     pos = int(cache["pos"])
-    if pos >= cache["k"].shape[2]:
-        raise ValueError(f"cache of {cache['k'].shape[2]} positions is full")
-    x = embed_apply(params["embed"], token[:, None])
+    cache_len = shard_ctx.override("cache_len")
+    max_len = cache_len() if cache_len is not None else cache["k"].shape[2]
+    if pos >= max_len:
+        raise ValueError(f"cache of {max_len} positions is full")
+    x = constrain(embed_apply(params["embed"], token[:, None]), "act_btd")
     for i, lp in enumerate(params["layers"]):
         x, _ = layer_decode(lp, x, cfg, {"k": cache["k"][i],
                                           "v": cache["v"][i], "pos": pos})

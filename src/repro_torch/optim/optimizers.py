@@ -96,14 +96,17 @@ def global_norm(tree: Params) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Params, opt_state: dict,
-                 params: Params) -> tuple[Params, dict, dict]:
+                 params: Params, *, grad_norm: "torch.Tensor | None" = None
+                 ) -> tuple[Params, dict, dict]:
     """One AdamW step, in place (see the module docstring): returns
     ``(params, opt_state, {"lr", "grad_norm"})`` with ``params`` and
     ``opt_state`` the updated inputs.  ``grads`` must be f32 leaves the
-    caller gives up (they are overwritten)."""
+    caller gives up (they are overwritten).  ``grad_norm`` replaces the
+    norm of ``grads`` (a sharded step passes its blocks and the whole
+    gradient's norm)."""
     step = opt_state["step"] + 1
     lr = lr_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
                         max=1.0)
     stepf = step.to(torch.float32)

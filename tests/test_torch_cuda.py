@@ -1330,3 +1330,120 @@ def test_ssm_train_step_kernel_path_matches_plain_path_on_card(
         err = float((a.float() - b.float()).norm()
                     / b.float().norm().clamp_min(1e-30))
         assert err <= tol
+
+
+# --------------------------------------------------------------------------- #
+# The sharded paths on one NCCL rank (chip_smoke.py's phase 20, small)
+# --------------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def nccl_rank():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (NCCL has no CPU mode)")
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    yield torch.device("cuda")
+    if started:
+        dist.destroy_process_group()
+
+
+def _one_by_one(cfg):
+    from repro_torch.configs.base import choose_mesh_plan
+    from repro_torch.distribution.sharding import derive_logical_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return derive_logical_mesh(make_host_mesh(1, 1, device="cuda"),
+                               choose_mesh_plan(cfg, model_axis=1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_fed_reduce_on_a_fleet_mesh_equals_no_mesh(nccl_rank, dtype):
+    from repro_torch.distribution.sharding import make_fleet_mesh
+
+    dev = nccl_rank
+    g = torch.Generator(device=dev).manual_seed(4)
+    n, d = 1000, 256
+    w = torch.rand(n, generator=g, device=dev)
+    if dtype == "int8":
+        stack = torch.randint(-127, 128, (n, d), generator=g, device=dev,
+                              dtype=torch.int8)
+        scales = torch.rand(n, generator=g, device=dev) / 127
+    else:
+        stack, scales = torch.randn((n, d), generator=g, device=dev), None
+    want = fed_reduce(stack, w, scales=scales)
+    fed_reduce.launches = 0
+    got = fed_reduce(stack, w, scales=scales,
+                     mesh=make_fleet_mesh(1, device=dev))
+    assert fed_reduce.launches == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "granite_moe_3b_a800m"])
+def test_sharded_train_step_on_one_rank_equals_unsharded(nccl_rank, arch):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distribution.steps import (build_train_step, gather,
+                                                init_train_state,
+                                                place_train_state)
+    from repro_torch.optim.optimizers import tree_leaves
+
+    dev = nccl_rank
+    cfg = get_config(arch, smoke=True)
+    shape = ShapeConfig("x", 128, 4, "train", microbatches=2)
+    g = torch.Generator(device=dev).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2, 128),
+                                     generator=g, device=dev,
+                                     dtype=torch.int32),
+             "targets": torch.randint(0, cfg.vocab_size, (2, 2, 128),
+                                      generator=g, device=dev,
+                                      dtype=torch.int32),
+             "mask": torch.ones((2, 2, 128), device=dev)}
+    runs = []
+    for lmesh in (None, _one_by_one(cfg)):
+        state = init_train_state(cfg, seed=0, device=dev)
+        if lmesh is not None:
+            state = place_train_state(state, cfg, lmesh)
+        step = build_train_step(cfg, lmesh, shape)[0]
+        flash_attention.launches = flash_attention.bwd_launches = 0
+        metrics = [step(state, batch)[1] for _ in range(2)]
+        runs.append(([(float(m["loss"]), float(m["grad_norm"]))
+                      for m in metrics],
+                     [t.float() for t in tree_leaves(
+                         gather(state["params"]))],
+                     (flash_attention.launches, flash_attention.bwd_launches)))
+    (m0, p0, l0), (m1, p1, l1) = runs
+    assert m1 == m0 and l1 == l0 and l1[0] > 0 and l1[1] > 0
+    for a, b in zip(p1, p0):
+        assert torch.equal(a, b)
+
+
+def test_sharded_serving_on_one_rank_equals_unsharded(nccl_rank):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distribution.steps import (build_prefill_step,
+                                                build_serve_step,
+                                                place_params)
+    from repro_torch.models import transformer
+
+    dev = nccl_rank
+    cfg = get_config("llama3_2_3b", smoke=True)
+    params = transformer.init(0, cfg, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), device=dev,
+                            dtype=torch.int32,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(6))
+    with torch.no_grad():
+        want, cache = transformer.prefill(params, prompts, cfg, 72)
+        tok = want[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        want2, _ = transformer.decode_step(params, tok, cfg, cache)
+    lmesh = _one_by_one(cfg)
+    shape = ShapeConfig("s", 72, 4, "decode")
+    placed = place_params(params, cfg, lmesh)
+    decode_attention.launches = 0
+    got, cache = build_prefill_step(cfg, lmesh, shape)[0](placed, prompts)
+    got2, _ = build_serve_step(cfg, lmesh, shape)[0](placed, cache, tok)
+    assert decode_attention.launches == cfg.num_layers
+    assert torch.equal(got.full_tensor(), want)
+    assert torch.equal(got2.full_tensor(), want2)

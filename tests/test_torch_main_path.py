@@ -637,6 +637,29 @@ def test_federated_ctr_matches_the_reference_example(capsys, monkeypatch):
     assert abs(rows[-1]["test_acc"] - env["acc"]) <= 1e-4
 
 
+def test_serve_traffic_matches_the_reference_example(capsys, monkeypatch):
+    """The reference's ``examples/serve_traffic.py`` and the port's print
+    the same lines (the smoke config's serving report)."""
+    from repro_torch.examples import serve_traffic
+    from repro_torch.launch import serve as tserve
+
+    ref, _ = _run_reference_exit("examples/serve_traffic.py", [], capsys,
+                                 monkeypatch)
+    assert serve_traffic.argv(["--device", "cpu"])[-2:] == ["--device", "cpu"]
+    assert tserve.main(serve_traffic.argv(["--device", "cpu"])) in (0, None)
+    got = capsys.readouterr().out.splitlines()
+    assert got == ref and len(ref) >= 4
+
+
+def _run_reference_exit(path, argv, capsys, monkeypatch):
+    """:func:`_run_reference` for a script that ends in ``sys.exit``."""
+    monkeypatch.setattr(sys, "argv", [path] + argv)
+    with pytest.raises(SystemExit) as e:
+        runpy.run_path(path)
+    assert e.value.code in (0, None)
+    return capsys.readouterr().out.splitlines(), None
+
+
 def test_examples_default_to_the_card_and_take_cpu_when_asked(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device works")

@@ -745,6 +745,12 @@ def test_supervisor_restarts_from_checkpoint(P, tmp_path):
         steps.append(step)
         if step == 5 and not crashed["done"]:
             crashed["done"] = True
+            if P is REF:
+                # The reference restores without waiting for the save in
+                # flight (it reads latest_step(), then restores the newest
+                # step); fail only once the step-4 save has landed, so both
+                # read step 4.
+                ck.wait()
             raise RuntimeError("injected node failure")
         return {"params": state["params"], "step": state["step"] + 1}
 
@@ -753,14 +759,9 @@ def test_supervisor_restarts_from_checkpoint(P, tmp_path):
     state, step = sup.run(_state_tree(P, 0.0), step_fn, 8,
                           state_like=_state_tree(P))
     assert step == 8 and int(state["step"]) == 8 and crashed["done"]
-    # The failed step ran again from the last checkpoint.  The port waits
-    # for the step-4 save in flight before it restores, so it restarts from
-    # 4; the reference restores without waiting, from 2 or 4.
-    if P is PORT:
-        assert steps == [0, 1, 2, 3, 4, 5, 4, 5, 6, 7]
-    else:
-        assert steps[:6] == [0, 1, 2, 3, 4, 5] and steps[6] in (2, 4)
-    assert steps[-3:] == [5, 6, 7] and ck.latest_step() == 8
+    # The failed step ran again from the last checkpoint, step 4.
+    assert steps == [0, 1, 2, 3, 4, 5, 4, 5, 6, 7]
+    assert ck.latest_step() == 8
 
 
 def test_fault_tolerance_helpers_match_reference():

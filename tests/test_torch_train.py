@@ -301,10 +301,14 @@ def _train_step_parity(jcfg, tcfg, tol, hold=("params", "master", "m")):
 
 
 def test_train_step_takes_one_card_only():
+    """``lmesh=None`` is the one-card step (no shardings); a mesh must be a
+    ``LogicalMesh`` (the sharded step: ``tests/test_torch_distribution.py``)."""
     _, tcfg = _cfgs("dense")
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        tsteps.build_train_step(tcfg, object(), tbase.ShapeConfig("t",
-                                                                  **SHAPE))
+    shape = tbase.ShapeConfig("t", **SHAPE)
+    step, _, _ = tsteps.build_train_step(tcfg, None, shape)
+    assert not hasattr(step, "shardings")
+    with pytest.raises(TypeError, match="LogicalMesh"):
+        tsteps.build_train_step(tcfg, object(), shape)
 
 
 def _cloud_argv(tmp, steps):
@@ -325,9 +329,11 @@ def test_supervisor_resume_gives_the_uninterrupted_losses_bitwise(tmp_path):
 
 
 def test_one_card_cli_refuses_mesh_flags_and_a_missing_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    """One process is a world of one rank: a fleet mesh of 2 shards and the
+    512-rank multi-pod mesh are refused, never run on one rank."""
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         ttrain.run(["--smoke", "--fleet-shards", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(ValueError, match="512 ranks"):
         ttrain.run(_cloud_argv(tmp_path, 1) + ["--multi-pod"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
