@@ -7,6 +7,7 @@
     python3 chip_smoke.py --scheduling-only  # phases 1, 2, 13 and 14 only
     python3 chip_smoke.py --ssm-only      # the SSD kernel and SSM serving only
     python3 chip_smoke.py --training-only # phases 1, 4 and 15-19 only
+    python3 chip_smoke.py --tooling-only  # phase 16 and the tooling (21)
 
 All four kernels (``fed_reduce``, ``decode_attention``, ``flash_attention``
 with its backward, and ``ssd_scan`` with its backward, the last three with
@@ -264,8 +265,29 @@ each path's wall s per step); and granite-moe's sharded prefill.  Its K1,
 K2, K3 and K3b launches join the kernels line.  One rank shows the
 sharded paths equal to the unsharded ones and nothing more.
 
-``--training-only`` runs phases 1, 4 and 15-19; ``--sharded-only`` runs
-the build and phase 20.
+Phase 21 holds the port's tooling on the card.  (a) After phase 16's timed
+steps one more llama3.2-3b step (full width and depth, 8 x 4096 tokens:
+448 flash forward and 224 K3b launches, equal to the audit) runs under
+``repro_torch.roofline.op_analysis.analyze``, untimed; the same unsharded
+step is traced once on the meta device in a process of its own (its first
+call allocates the f32 accumulator, which the memory tracker sees, and
+runs the same ops as any later call), and flops, bytes and per-kernel work
+must be exactly equal to the card's.  The step's roofline terms are printed
+against phase 16's wall (the counted-flops share of 989 TFLOP/s beside the
+6 N share, the memory term, the dominant term), and the meta tracker's
+arguments + temp against ``torch.cuda.max_memory_allocated`` of the
+analyzed step.  (b) Phase 3b's recycled f32 rounds at 2 000 devices with
+the use-after-recycle sanitizer armed are bitwise equal to unarmed ones,
+and a round-0 handle read after round 1 raises ``UseAfterRecycleError``.
+(c) ``python -m repro_torch.launch.dryrun`` runs llama3.2-3b's
+``train_4k`` and ``decode_32k`` at 16x16 (a fake process group of 256
+ranks on the host's CPU), one process each, started with the phase; both
+must PASS.  The phase's seconds (the analyzed card step's included) should
+stay within 60.
+
+``--training-only`` runs phases 1, 4 and 15-21; ``--sharded-only`` runs
+the build and phase 20; ``--tooling-only`` the build, phase 16 and phase
+21.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``, before that one JSON
@@ -302,7 +324,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at the 700 W limit
+# H100 SXM data-sheet rates, as ``repro_torch.roofline.op_analysis`` names
+# them (HBM_BW, F32_FLOPS, PEAK_FLOPS), which holds the kernels' work
+# formulas and bounds.
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 L2_BYTES = 50 * 2**20
 RECORDS = 20  # paper: 2 M records over 100 000 devices
@@ -448,6 +472,7 @@ def kernel_phase(dev, rows: list[int]) -> tuple[dict, set]:
     import torch
 
     from repro_torch.kernels.fed_reduce.ops import fed_reduce
+    from repro_torch.roofline import op_analysis as oa
 
     cases = [(n, d, dt) for n in rows for d in LEAF_WIDTHS
              for dt in (torch.float32, torch.int8)]
@@ -468,14 +493,11 @@ def kernel_phase(dev, rows: list[int]) -> tuple[dict, set]:
                                                 impl="ref"))
         library_ms = (time_ms(lambda i: torch.mv(Us[i % copies].t(), w))
                       if dtype == torch.float32 else None)
-        moved = nbytes + 4 * n * (2 if scaled else 1) + 4 * d
-        ops = 2 * n * d + (n if scaled else 0)
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_FLOPS * 1e3
+        bd = oa.bound(oa.fed_reduce_work(n, d, U.element_size(), scaled),
+                      F32_FLOPS)
         row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   bytes=moved)
+                   bound_ms=bd["bound_ms"], bound_by=bd["bound_by"],
+                   bytes=bd["bytes"])
         row["bound_share"] = row["bound_ms"] / ms
         results.append(row)
         checked.add((n, d, row["dtype"]))
@@ -1072,6 +1094,7 @@ def decode_timing(q, kc, vc, lens, case) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.roofline import op_analysis as oa
 
     b, s, h, kv, d = case
     n = _copies(2 * kc.numel() * kc.element_size())
@@ -1091,25 +1114,11 @@ def decode_timing(q, kc, vc, lens, case) -> dict:
         lambda i: F.scaled_dot_product_attention(
             q4, kts[i % n], vts[i % n], attn_mask=mask, enable_gqa=True),
         iters=100)
-    rows_read = int(lens.clamp(0, s).sum())
-    moved = (2 * rows_read * kv * d * kc.element_size()
-             + 2 * q.numel() * q.element_size() + 4 * b)
-    ops = 4 * rows_read * h * d
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / BF16_FLOPS * 1e3
-    row.update(bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               bytes=moved, flops=ops)
+    row.update(oa.bound(oa.decode_attention_work(
+        b, h, kv, d, kc.element_size(), oa.decode_rows(lens, s)),
+        BF16_FLOPS))
     row["bound_share"] = row["bound_ms"] / row["ms"]
     return row
-
-
-def causal_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
-    """(query, key) pairs attention must score: the causal triangle with
-    its offset, cut at the key length."""
-    if not causal:
-        return sq * sk
-    return sum(min(sk, q_offset + i + 1) for i in range(sq))
 
 
 def flash_cases(dev, cases=FLASH_CASES) -> tuple[dict, set]:
@@ -1157,6 +1166,7 @@ def flash_timing(q, k, v, case) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.roofline import op_analysis as oa
 
     b, sq, sk, h, kv, d, causal, off = case
     kw = dict(causal=causal, q_offset=off)
@@ -1174,14 +1184,9 @@ def flash_timing(q, k, v, case) -> dict:
     row["library_ms"] = time_ms(
         lambda i: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), iters=40)
-    moved = 2 * (q.numel() + k.numel()) * q.element_size()
-    ops_n = 4 * d * h * b * causal_pairs(sq, sk, causal, off)
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops_n / BF16_FLOPS * 1e3
-    row.update(bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               bytes=moved, flops=ops_n)
-    row["tflops"] = ops_n / (row["ms"] * 1e9)
+    row.update(oa.bound(oa.flash_attention_work(
+        b, sq, sk, h, kv, d, q.element_size(), causal, off), BF16_FLOPS))
+    row["tflops"] = row["flops"] / (row["ms"] * 1e9)
     row["bound_share"] = row["bound_ms"] / row["ms"]
     return row
 
@@ -2663,22 +2668,6 @@ def ssd_inputs(gen, case, dtype, dev, *, overflow: bool = False):
     return [t.to(dev) for t in (x, dt, A, B, C)]
 
 
-def ssd_bound(case, itemsize: int, flops_per_s: float) -> dict:
-    """Bytes the scan must move (x, dt, A, B, C read once; y and the f32
-    state written once) and the operations it must do: per head and chunk,
-    C.B and M.x over the causal triangle, C.S^T and the state update."""
-    b, l, h, p, g, n, q = case
-    moved = (2 * b * l * h * p * itemsize + 4 * b * l * h + 4 * h
-             + 2 * b * l * g * n * itemsize + 4 * b * h * p * n)
-    chunks = -(-l // q)
-    ops = 2 * b * h * chunks * (q * (q + 1) // 2 * (n + p) + 2 * q * p * n)
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / flops_per_s * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": moved, "flops": ops}
-
-
 def ssd_cases(dev) -> tuple[dict, set]:
     """``ssd_scan`` on the card against its chunked plain version and the
     sequential oracle on the card: y and the state within 3e-4 absolute in
@@ -2688,6 +2677,7 @@ def ssd_cases(dev) -> tuple[dict, set]:
 
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ops import kernel_for, ssd_scan
+    from repro_torch.roofline import op_analysis as oa
 
     gen = torch.Generator().manual_seed(3)
     cases = [(c, False) for c in SSD_CASES + [SSD_MAMBA, SSD_ZAMBA,
@@ -2749,7 +2739,7 @@ def ssd_cases(dev) -> tuple[dict, set]:
                 row["plain_ms"] = time_ms(lambda i: ssd_scan(
                     *sets[i % n], chunk=q, impl="chunked"), iters=5)
                 row["library_ms"] = None  # no PyTorch op computes the scan
-                row.update(ssd_bound(case, 2, BF16_FLOPS))
+                row.update(oa.bound(oa.ssd_scan_work(*case, 2), BF16_FLOPS))
                 row["bound_share"] = row["bound_ms"] / row["ms"]
                 if case == SSD_MAMBA:
                     main_row = row
@@ -3145,6 +3135,7 @@ def bwd_timing(tensors, case) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.roofline import op_analysis as oa
 
     q, k, v, o, lse, do = tensors
     b, sq, sk, h, kv, d, causal, off = case
@@ -3174,19 +3165,13 @@ def bwd_timing(tensors, case) -> dict:
                 qt, kt, vt, is_causal=causal, enable_gqa=True),
             iters=10 if big else 40)
     del out
-    pairs = causal_pairs(sq, sk, causal, off) * b * h
     size = q.element_size()
-    moved = (4 * b * sq * h + 4 * b * sk * kv) * d * size + 2 * b * h * sq * 4
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = 10 * d * pairs / peak * 1e3
-    row.update(bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               bytes=moved, flops=10 * d * pairs)
-    fwd_bytes = (2 * b * sq * h + 2 * b * sk * kv) * d * size + b * h * sq * 4
-    row["fwd_bound_ms"] = max(fwd_bytes / HBM_BYTES_PER_S,
-                              4 * d * pairs / peak) * 1e3
-    row["tflops"] = 10 * d * pairs / (row["ms"] * 1e9)
+    row.update(oa.bound(oa.flash_attention_bwd_work(
+        b, sq, sk, h, kv, d, size, causal, off), peak))
+    row["fwd_bound_ms"] = oa.bound(oa.flash_attention_work(
+        b, sq, sk, h, kv, d, size, causal, off, lse=True), peak)["bound_ms"]
+    row["tflops"] = row["flops"] / (row["ms"] * 1e9)
     row["bound_share"] = row["bound_ms"] / row["ms"]
     return row
 
@@ -3360,12 +3345,15 @@ def _audit(cfg) -> tuple[dict, tuple, dict]:
     return expected, match, want
 
 
-def training_phase(dev, card: str, arch: str = TRAIN_ARCH) -> dict:
+def training_phase(dev, card: str, arch: str = TRAIN_ARCH,
+                   analyze_step: bool = False) -> dict:
     """Phase 16 (llama3.2-3b) and phase 19 (mamba2-1.3b):
     ``cloud_training``'s own step function (``make_cloud_step``) on
     ``arch`` at full width and depth, seeded random bf16 weights, one
     warm-up step then ``TRAIN_STEPS`` timed ones, then one profiled step;
-    the launch counts per step must equal the audit's (:func:`_audit`)."""
+    the launch counts per step must equal the audit's (:func:`_audit`).
+    With ``analyze_step`` one more step runs under the analyzer (phase 21a,
+    :func:`card_step_analysis`), its seconds kept apart."""
     import math
 
     import torch
@@ -3447,16 +3435,19 @@ def training_phase(dev, card: str, arch: str = TRAIN_ARCH) -> dict:
     res["tokens_per_s"] = tokens / res["wall_s_per_step"]
     res["peak_share"] = 6 * n_params * tokens / res["wall_s_per_step"] \
         / BF16_FLOPS
+    card_step = (card_step_analysis(step, state, expected) if analyze_step
+                 else None)
     log(json.dumps({"training": res}))
     log(f"{cfg.name} training: {res['wall_s_per_step']:.3f} s/step, "
         f"{res['tokens_per_s']:.0f} tok/s, 6N share {res['peak_share']:.3f}, "
         f"peak {res['peak_memory_gib']:.2f} GiB; profiled step "
         f"{prof['device_idle_share']:.3f} idle, kernels {prof['matched']} "
         f"= audit, device ms {prof['matched_ms']}")
-    total = {k: v * (2 + TRAIN_STEPS) for k, v in expected.items()}
+    steps = 2 + TRAIN_STEPS + (card_step is not None)
+    total = {k: v * steps for k, v in expected.items()}
     del state, step
     free_cycles()
-    return {"launches": total, "summary": res}
+    return {"launches": total, "summary": res, "card_step": card_step}
 
 
 def free_cycles() -> None:
@@ -3814,31 +3805,6 @@ def _rel_to_max(got, want) -> float:
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-def ssd_bwd_bound(case, itemsize: int, dstate: bool, flops_per_s: float
-                  ) -> dict:
-    """Bytes the backward must move (x, dy, B, C, dt, A and the state's
-    cotangent read once; dx, dB, dC, ddt and dA written once) and the
-    operations it must do given only those inputs, over the causal
-    triangles, in multiply-adds: per (batch, group, chunk) C B^T (q(q+1)/2
-    n); per (batch, head, chunk) the state entering the chunk and the
-    cotangent leaving it, dS_out B, S_in^T dy and dS_out^T x (q p n each),
-    dy x^T and M^T dy (q(q+1)/2 p each) and the two q(q+1)/2 n products of
-    dB and dC; two flops per multiply-add."""
-    b, l, h, p, g, n, q = case
-    nc = -(-l // q)
-    tri = q * (q + 1) // 2
-    moved = (3 * b * l * h * p * itemsize + 4 * b * l * g * n * itemsize
-             + 8 * b * l * h + 8 * h + (4 * b * h * p * n if dstate else 0))
-    fma = (b * g * nc * tri * n
-           + b * h * nc * (2 * tri * p + 2 * tri * n + 5 * q * p * n))
-    ops = 2 * fma
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / flops_per_s * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": moved, "flops": ops}
-
-
 def ssd_bwd_case(dev, gen, case, dtype: str, *, overflow=False,
                  dstate=True) -> tuple[dict, tuple]:
     """The forward kernel at ``case`` against ``ssd_chunked`` on the card
@@ -3914,6 +3880,7 @@ def ssd_bwd_timing(tensors, case) -> dict:
     import torch
 
     from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.roofline import op_analysis as oa
 
     args, dy, ds = tensors
     q = case[-1]
@@ -3937,9 +3904,9 @@ def ssd_bwd_timing(tensors, case) -> dict:
     row["library_ms"] = None  # no PyTorch call computes the scan backward
     row["fwd_ms"] = time_ms(lambda i: ops._ssd_scan(
         *sets[i % n][0], q, "cuda"), iters=20)
-    row.update(ssd_bwd_bound(case, args[0].element_size(), ds is not None,
-                             BF16_FLOPS if args[0].dtype == torch.bfloat16
-                             else F32_FLOPS))
+    row.update(oa.bound(
+        oa.ssd_scan_bwd_work(*case, args[0].element_size(), ds is not None),
+        BF16_FLOPS if args[0].dtype == torch.bfloat16 else F32_FLOPS))
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["gflops_per_s"] = row["flops"] / (row["ms"] * 1e6)
     if "simt_ms" in row:
@@ -4644,6 +4611,253 @@ def sharded_phase(dev, card: str) -> dict:
     return {"launches": launches}
 
 
+# --------------------------------------------------------------------------
+# phase 21: the tooling on the card
+
+DRYRUN_CELLS = (("llama3_2_3b", "train_4k"), ("llama3_2_3b", "decode_32k"))
+
+
+def card_step_analysis(step, state, expected: dict) -> dict:
+    """Phase 21a on the card, inside phase 16: one more step of phase 16's
+    train step (``make_cloud_step``'s ``train_step`` on the pipeline's next
+    batch) under ``op_analysis.analyze``, not timed.  Its launches are
+    zeroed before and read after, and must equal the audit's."""
+    import torch
+
+    from repro_torch.roofline.op_analysis import analyze
+
+    batch = step.next_batch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    t0 = time.perf_counter()
+    _, an = analyze(step.train_step, state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in _counters().items() if k in expected}
+    if launches != expected:
+        raise AssertionError(f"analyzed training step: launches {launches}, "
+                             f"expected {expected}")
+    return {"analysis": an, "launches": launches, "seconds": seconds,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "batch": {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}}
+
+
+def meta_step_analysis(batch_specs: dict) -> tuple[dict, int]:
+    """The unsharded llama3.2-3b step of phase 16 on the meta device under
+    the analyzer, once: its first call allocates the step's f32
+    accumulator (as phase 16's warm-up did; the memory tracker sees it)
+    and runs the same ops as every later call.  Returns the analysis and
+    the bytes of the step's arguments.  Runs in a process of its own, on
+    the host's CPU, beside the rest of phase 21."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distribution.steps import (build_train_step,
+                                                init_train_state)
+    from repro_torch.roofline.op_analysis import analyze
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_MICRO, "train",
+                        microbatches=TRAIN_MICRO)
+    meta = torch.device("meta")
+    train_step, _, _ = build_train_step(cfg, None, shape)
+    state = init_train_state(cfg, seed=0, device=meta)
+    batch = {k: torch.empty(sh, dtype=dt, device=meta)
+             for k, (sh, dt) in batch_specs.items()}
+    args = sum(t.numel() * t.element_size()
+               for t in (*_leaves(state), *_leaves(batch))
+               if isinstance(t, torch.Tensor))
+    t0 = time.perf_counter()
+    _, an = analyze(train_step, state, batch)
+    an["seconds"] = time.perf_counter() - t0
+    return an, args
+
+
+def recycle_sanitizer_check(dev, n_devices: int) -> dict:
+    """Phase 21b: phase 3b's recycled f32 rounds at ``n_devices`` with the
+    use-after-recycle sanitizer armed, against the same rounds unarmed:
+    params, arrivals and bytes bitwise equal; a handle of a round-0 buffer,
+    taken before round 1 and read after it, must raise
+    ``UseAfterRecycleError``.  Each run's launches are zeroed before it and
+    read after it."""
+    import numpy as np
+
+    from repro_torch.analysis import sanitizers
+    from repro_torch.configs.avazu_lr import CONFIG
+
+    stale = {}
+
+    def on_round(sim, rnd):
+        if rnd == 1:  # round 0's buffers, about to be recycled
+            buf = next(b for bufs in sim._retired.values() for b in bufs)
+            stale["handle"] = buf.handle(0)
+        if rnd == 2:
+            try:
+                stale["handle"].materialize()
+                stale["raised"] = False
+            except sanitizers.UseAfterRecycleError:
+                stale["raised"] = True
+
+    runs, launches = {}, {}
+    for armed in (True, False):
+        start_audit()
+        with sanitizers.override(armed):
+            runs[armed] = run_slice(
+                dev, n_devices, dim=CONFIG.dim, cohort=COHORT, rounds=3,
+                wires=("f32",), verbose=False, recycle=True,
+                on_round=on_round if armed else None)["wires"]["f32"]
+        launches[armed] = read_audit()["fed_reduce"]
+    a, b = runs[True], runs[False]
+    same = (all(np.array_equal(x[k], y[k]) for x, y in
+                zip(a["params"], b["params"]) for k in x)
+            and all(np.array_equal(x, y) for x, y in
+                    zip(a["arrivals"], b["arrivals"]))
+            and (a["aggregations"], a["bytes"]) == (b["aggregations"],
+                                                    b["bytes"]))
+    log(f"recycled rounds [f32, {n_devices} devices x 3] with the "
+        f"use-after-recycle sanitizer armed: params, arrivals and bytes "
+        f"bitwise equal to unarmed {same}; a round-0 handle read after "
+        f"round 1 raises UseAfterRecycleError {stale.get('raised')}; "
+        f"fed_reduce launches {launches[True]} armed, {launches[False]} "
+        f"unarmed (expected {a['audit'].expected} each)")
+    if not (same and stale.get("raised")):
+        raise AssertionError("the recycle sanitizer changed the rounds or "
+                             "let a stale handle read")
+    if not launches[True] == launches[False] == a["audit"].expected > 0:
+        raise AssertionError("recycled rounds' fed_reduce launches")
+    return {"bitwise_equal": same, "stale_handle_raises": True,
+            "fed_reduce_launches": launches[True] + launches[False]}
+
+
+def _start_dryruns(out_dir: str) -> list:
+    """Phase 21c's dry runs, one process per cell, all started at once on
+    the host's CPU (no card: ``CUDA_VISIBLE_DEVICES`` empty)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--out", out_dir], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cell in DRYRUN_CELLS]
+
+
+def _finish_dryruns(procs: list, out_dir: str) -> dict:
+    out = {}
+    for (arch, shape), proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=240)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        lines = [x for x in text.splitlines()
+                 if x.startswith(("PASS", "FAIL", "SKIP"))]
+        log("\n".join(lines) or text[-2000:])
+        path = os.path.join(out_dir, f"{arch}__{shape}__16_16.json")
+        if proc.returncode != 0 or not lines or not lines[-1].startswith(
+                "PASS") or not os.path.exists(path):
+            raise AssertionError(f"dry run of {arch} x {shape} failed "
+                                 f"(exit {proc.returncode}): {text[-2000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        out[f"{arch} x {shape}"] = {
+            "plan": rec["plan"], "seconds": rec["seconds"],
+            "memory": rec["memory"], "cost_analysis": rec["cost_analysis"],
+            "collective_op_counts": rec["collective_op_counts"],
+            "kernels": rec["kernels"]}
+    return out
+
+
+def tooling_phase(dev, card: str, train: dict) -> dict:
+    """Phase 21: the card step's analysis (taken in phase 16) against the
+    same step traced on the meta device (flops, bytes and per-kernel work
+    exactly equal), its roofline terms against phase 16's wall, the meta
+    tracker's memory against the card's peak; the recycle sanitizer on the
+    card (21b); the dry run of two llama3.2-3b cells at 16x16 in
+    subprocesses, started first (21c)."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    from repro_torch.roofline import op_analysis as oa
+
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="dryrun_torch_", dir=PROFILE_DIR)
+    summary, cs = train["summary"], train["card_step"]
+    card_an = cs["analysis"]
+    procs = _start_dryruns(out_dir)
+    meta_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        meta_run = meta_pool.submit(meta_step_analysis, cs["batch"])
+        recycled = recycle_sanitizer_check(dev, 2_000)
+        meta_an, args = meta_run.result(timeout=300)
+        meta_s = meta_an.pop("seconds")
+        keys = ("flops", "bytes", "kernels", "collective_bytes",
+                "collective_count")
+        equal = {k: card_an[k] == meta_an[k] for k in keys}
+        kern = card_an["kernels"]
+        log(f"analyzed llama3.2-3b step: card {card_an['flops']} flops, "
+            f"{card_an['bytes']} bytes, kernels {kern}; meta {meta_an['flops']}"
+            f" flops, {meta_an['bytes']} bytes, kernels {meta_an['kernels']} "
+            f"(traced in {meta_s:.1f}s); equal {equal}")
+        if not all(equal.values()):
+            raise AssertionError(f"card and meta counts differ: {equal}")
+        calls = {k: v["calls"] for k, v in kern.items()}
+        if calls != {"flash_attention": 448, "flash_attention_bwd": 224}:
+            raise AssertionError(f"analyzed kernel calls {calls}")
+        wall = summary["wall_s_per_step"]
+        terms = oa.roofline_terms(card_an)
+        roof = {"wall_s": wall, **terms,
+                "dominant": oa.dominant_term(terms),
+                "flops_share": card_an["flops"] / wall / oa.PEAK_FLOPS,
+                "six_n_share": summary["peak_share"],
+                "memory_share": terms["memory_s"] / wall}
+        log(f"roofline of the llama3.2-3b step against phase 16's "
+            f"{wall:.3f} s: counted flops {card_an['flops'] / 1e12:.1f} T = "
+            f"{roof['flops_share']:.3f} of 989 TFLOP/s (6N share "
+            f"{roof['six_n_share']:.3f}); compute term "
+            f"{terms['compute_s']:.3f} s, memory term {terms['memory_s']:.3f}"
+            f" s ({card_an['bytes'] / 1e12:.2f} TB at 3.35 TB/s), "
+            f"collective {terms['collective_s']:.3f} s; dominant "
+            f"{roof['dominant']}")
+        mem = {"meta_argument_bytes": args, "meta_temp_bytes":
+               meta_an["temp_bytes"], "meta_total_bytes": args
+               + meta_an["temp_bytes"], "card_peak_bytes": cs["peak_bytes"]}
+        log(f"memory of the step: meta tracker arguments {args / 2**30:.2f} "
+            f"GiB + temp {meta_an['temp_bytes'] / 2**30:.2f} GiB = "
+            f"{mem['meta_total_bytes'] / 2**30:.2f} GiB against the card's "
+            f"max_memory_allocated {cs['peak_bytes'] / 2**30:.2f} GiB")
+        dry = _finish_dryruns(procs, out_dir)
+    finally:
+        meta_pool.shutdown(cancel_futures=True)
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    res = {"card_step_s": cs["seconds"], "meta_trace_s": meta_s,
+           "counts_equal": equal, "kernels": kern, "roofline": roof,
+           "memory": mem, "recycle_sanitizer": recycled, "dryrun": dry,
+           "card": card}
+    log(json.dumps({"tooling": res}))
+    return {"launches": {"fed_reduce": recycled["fed_reduce_launches"]}}
+
+
+def _tooling(dev, card: str, train: dict) -> dict:
+    """Runs phase 21; its seconds are the card step's, taken inside phase
+    16 (and taken out of phase 16's), and the rest's."""
+    step_s = train["card_step"]["seconds"]
+    PHASE_S["training phase"] -= step_s
+    t0 = time.perf_counter() - step_s
+    res = tooling_phase(dev, card, train)
+    passed("tooling phase", t0)
+    if PHASE_S["tooling phase"] > 60:
+        log(f"tooling phase took {PHASE_S['tooling phase']:.1f}s, more than "
+            f"its 60 s")
+    return res
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4676,6 +4890,9 @@ def main(argv=None) -> int:
                         "attention shapes and the SSM phases (8-9) only")
     p.add_argument("--sharded-only", action="store_true",
                    help="build, then run the sharded phase (20) only")
+    p.add_argument("--tooling-only", action="store_true",
+                   help="build, then run phase 16 with its analyzed step "
+                        "and the tooling phase (21) only")
     p.add_argument("--profile", action="store_true",
                    help="profile the federated slice's rounds 1 and 2 "
                         "instead")
@@ -4727,10 +4944,15 @@ def main(argv=None) -> int:
         log(card)
         return 0
 
-    if args.sharded_only:
+    if args.sharded_only or args.tooling_only:
         t0 = time.perf_counter()
-        sharded_phase(dev, card)
-        passed("sharded phase", t0)
+        if args.sharded_only:
+            sharded_phase(dev, card)
+            passed("sharded phase", t0)
+        else:
+            train = training_phase(dev, card, analyze_step=True)
+            passed("training phase", t0)
+            _tooling(dev, card, train)
         log(json.dumps({"phase_s": PHASE_S}))
         log(card)
         log(json.dumps({"ok": True, "device": {
@@ -4856,7 +5078,7 @@ def main(argv=None) -> int:
         if not args.kernel_only:
             start_training_audit()
             t0 = time.perf_counter()
-            train = training_phase(dev, card)
+            train = training_phase(dev, card, analyze_step=True)
             passed("training phase", t0)
             t0 = time.perf_counter()
             training_cross_check(dev)
@@ -4914,6 +5136,10 @@ def main(argv=None) -> int:
                        (bwd_entry, "flash_attention_bwd")):
             if e is not None:
                 e["launches"] = (e["launches"] or 0) + sharded["launches"][key]
+        # Phase 21, last as numbered (its card step ran inside phase 16).
+        tooling = _tooling(dev, card, train)
+        fed_entry["launches"] = ((fed_entry["launches"] or 0)
+                                 + tooling["launches"]["fed_reduce"])
     for e in entries:
         if ptxas.get(e["name"]):
             e["ptxas"] = ptxas[e["name"]]

@@ -10,7 +10,17 @@ the ported paths are hand-written CUDA kernels under ``csrc/``, built with
 ``nvcc`` at first use: ``fed_reduce`` on the federated round,
 ``decode_attention`` and ``flash_attention`` on LM serving, ``ssd_scan``
 on the Mamba2 and hybrid models.
-"""
-from repro_torch.device import resolve_device
 
+``resolve_device`` is re-exported lazily, so that importing the package
+(for the stdlib-only lint CLI, ``python -m repro_torch.analysis.lint``)
+does not import torch.
+"""
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from repro_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -15,6 +15,14 @@ no-op when disabled, so the hot paths pay only a truthiness check per call.
   (materializing benchmarking rows, uploading host weight vectors).  As in
   the reference, where ``transfer_guard("disallow")`` rejects only implicit
   transfers, an explicit copy stays legal inside a hot path.
+* :func:`poison_recycled` — ``HybridSimulation(recycle_buffers=True)``
+  writes round k+1's chunk update into round k's retired ``UpdateBuffer``
+  leaves (``out=`` targets), so a round-k handle read after round k+1
+  silently reads the next round's rows.  Under sanitize the retired buffer
+  is poisoned as its leaves are handed out: its class is swapped so any
+  leaf access raises :class:`UseAfterRecycleError` (the twin of the
+  reference's ``poison_donated``).  Probe with ``__simdc_recycled__``
+  (class attr) without touching the leaves.
 * :class:`ClockMonotonicityError` — ``VirtualClock.schedule`` normally
   clamps past timestamps to ``now``; under sanitize it raises.
 * :class:`SegmentLeakError` — ``FleetWorkerPool.close()`` raises it under
@@ -31,7 +39,8 @@ import torch
 
 __all__ = [
     "enabled", "force", "override", "hot_path", "exempt",
-    "SanitizerError", "ClockMonotonicityError", "SegmentLeakError",
+    "SanitizerError", "UseAfterRecycleError", "ClockMonotonicityError",
+    "SegmentLeakError", "poison_recycled",
 ]
 
 _ENV = "SIMDC_SANITIZE"
@@ -65,6 +74,11 @@ def override(value: bool):
 
 class SanitizerError(RuntimeError):
     """Base class for every runtime sanitizer failure."""
+
+
+class UseAfterRecycleError(SanitizerError):
+    """A recycled ``UpdateBuffer``'s leaves were read after they were handed
+    to the next round as ``out=`` targets."""
 
 
 class ClockMonotonicityError(SanitizerError):
@@ -117,3 +131,43 @@ def exempt(fn):
             return fn(*args, **kwargs)
 
     return wrapper
+
+
+# --------------------------------------------------------------------------
+# use-after-recycle poisoning
+
+_POISONED: dict[type, type] = {}
+
+
+def _poisoned_class(cls: type) -> type:
+    def _dead(self, *_args, **_kwargs):
+        raise UseAfterRecycleError(
+            f"{cls.__name__} was recycled (its 2-D leaves now hold the next "
+            "round's rows); consume a round's handles before the next round "
+            "runs, or turn recycle_buffers off")
+
+    # An empty-__slots__ subclass keeps the instance layout identical, so
+    # __class__ assignment is legal; the property shadows the parent's
+    # leaves2d slot descriptor, so every leaf access (materialize,
+    # state_dict, handle, ...) raises at the attribute read.
+    return type(f"_Recycled{cls.__name__}", (cls,), {
+        "__slots__": (),
+        "__simdc_recycled__": True,
+        "leaves2d": property(_dead, _dead, _dead),
+    })
+
+
+def poison_recycled(buf):
+    """Swap ``buf``'s class so leaf access raises UseAfterRecycleError.
+
+    Idempotent; returns ``buf``.  Only called on the recycle path when
+    :func:`enabled`, so production runs never pay for it.
+    """
+    cls = type(buf)
+    if getattr(cls, "__simdc_recycled__", False):
+        return buf
+    poisoned = _POISONED.get(cls)
+    if poisoned is None:
+        poisoned = _POISONED[cls] = _poisoned_class(cls)
+    buf.__class__ = poisoned
+    return buf

@@ -147,9 +147,14 @@ class _ZeroCopyCohortMixin:
         such a cast, gets fresh storage."""
         if (recycle is not None and self.takes_out and recycle.wire == "f32"
                 and recycle.num_rows == int(rngs.shape[0])):
-            params, metrics = self._cohort_fn(
-                global_params, batches, rngs,
-                out=dict(zip(recycle.keys, recycle.leaves2d)))
+            out = dict(zip(recycle.keys, recycle.leaves2d))
+            if sanitizers.enabled():
+                # The retired buffer's leaves are about to hold this
+                # chunk's rows; poison the object so a late handle read
+                # raises UseAfterRecycleError instead of reading them.
+                sanitizers.poison_recycled(recycle)
+            params, metrics = self._cohort_fn(global_params, batches, rngs,
+                                              out=out)
         else:
             params, metrics = self._cohort_fn(global_params, batches, rngs)
         return UpdateBuffer(flatten_rows(params), *stacked_spec(params)), metrics
@@ -612,8 +617,10 @@ class HybridSimulation:
     takes from freed blocks).  Only enable it when every handle of round k
     is consumed before round k+1 runs (realtime dispatch with an in-round
     trigger, as in the quickstart); a handle that outlives its round would
-    read the next round's rows.  It applies to the f32 wire only (int8
-    leaves have another layout), as in the reference.
+    read the next round's rows (under ``SIMDC_SANITIZE=1`` the retired
+    buffer is poisoned and such a read raises ``UseAfterRecycleError``).
+    It applies to the f32 wire only (int8 leaves have another layout), as
+    in the reference.
 
     ``workers=N`` (with ``worker_spec=WorkerSpec(factory, ...)``) shards
     cohort-chunk execution across N spawned worker processes

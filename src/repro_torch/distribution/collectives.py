@@ -51,13 +51,13 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = size(group)
     if n == 1:
         return x
-    if dist.get_backend(group) == "nccl":
+    if dist.get_backend(group) != "gloo":
         xm = x.movedim(dim, 0).contiguous()
         out = torch.empty((xm.shape[0] // n,) + xm.shape[1:], dtype=x.dtype,
                           device=x.device)
         dist.reduce_scatter_tensor(out, xm, group=group)
         return out.movedim(0, dim).contiguous()
-    # gloo has no reduce-scatter: all-reduce, then the rank's chunk.
+    # gloo alone has no reduce-scatter: all-reduce, then the rank's chunk.
     x = x.contiguous().clone()
     dist.all_reduce(x, group=group)
     return x.chunk(n, dim=dim)[rank(group)].contiguous()

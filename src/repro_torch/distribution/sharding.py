@@ -100,14 +100,22 @@ class Sharding:
     def place(self, local: torch.Tensor, shape) -> DTensor:
         """``local`` (this rank's block) as a DTensor of global ``shape``."""
         shape = torch.Size(shape)
-        stride = torch.empty(shape, device="meta").stride()
+        stride, step = [], 1
+        for n in reversed(shape):  # contiguous strides, nothing allocated
+            stride.insert(0, step)
+            step *= max(n, 1)
         return DTensor.from_local(local, self.mesh, self.placements,
-                                  run_check=False, shape=shape, stride=stride)
+                                  run_check=False, shape=shape,
+                                  stride=tuple(stride))
 
     def distribute(self, full: torch.Tensor) -> DTensor:
         """The full tensor (the same on every rank) cut to this rank's
-        block and wrapped; no communication."""
-        return self.place(self.local(full).contiguous(), full.shape)
+        block, in storage of its own (a view would keep the whole tensor
+        alive on every rank), and wrapped; no communication."""
+        block = self.local(full)
+        block = (block.contiguous() if block is full
+                 else block.clone(memory_format=torch.contiguous_format))
+        return self.place(block, full.shape)
 
 
 @dataclasses.dataclass(frozen=True)

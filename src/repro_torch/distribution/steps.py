@@ -536,11 +536,10 @@ def build_train_step(cfg: ModelConfig, lmesh, shape: ShapeConfig,
         if acc is None or any(a.shape != p.shape or a.device != p.device
                               for a, p in zip(tree_leaves(acc), leaves)):
             acc = train_step.accumulator = tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                lambda p: torch.empty(p.shape, dtype=torch.float32,
                                       device=p.device), params)
-        else:
-            for a in tree_leaves(acc):
-                a.zero_()
+        for a in tree_leaves(acc):  # every step runs the same ops
+            a.zero_()
 
         def fold(p, a):
             def hook(t):
@@ -598,7 +597,7 @@ def _sharded_train_step(cfg, lmesh: LogicalMesh, shape: ShapeConfig,
                                        else p).shape
                 for a, p in zip(tree_leaves(acc), p_leaves)):
             acc = train_step.accumulator = tree_map(
-                lambda p, s: s.place(torch.zeros(
+                lambda p, s: s.place(torch.empty(
                     _local(p, s).shape, dtype=torch.float32,
                     device=_local(p, s).device), p.shape),
                 state["params"], pshard)

@@ -23,10 +23,9 @@ Sections, numbered as in the JAX package's ``examples/quickstart.py``:
 10. continuous-batching serving under diurnal traffic;
 11. multi-process fleet execution: the shared-memory segment layout of one
     chunk (``HybridSimulation(workers=N, worker_spec=...)`` runs pooled
-    rounds bit-identical to in-process ones).
-
-Section 12 (the simcheck linter and sanitizers catalog) waits for the
-port's tooling (ROADMAP P14) and is left out.
+    rounds bit-identical to in-process ones);
+12. invariants and sanitizers: the port's simcheck lint over ``src/`` and
+    a recycled buffer fenced by the use-after-recycle sanitizer.
 
 Run on the card (the default) or on the CPU::
 
@@ -35,10 +34,12 @@ Run on the card (the default) or on the CPU::
 from __future__ import annotations
 
 import argparse
+import pathlib
 
 import numpy as np
 import torch
 
+from repro_torch.analysis import lint, sanitizers
 from repro_torch.configs.registry import get_config
 from repro_torch.core import (
     AccumulatedStrategy,
@@ -334,6 +335,54 @@ def run(device="cuda") -> dict:
                                         rows=8, wire="int8")
     say(f"worker transport segment: {nbytes11} bytes: "
         f"{[(off, shape, str(dt)) for off, shape, dt in layout11]}")
+
+    # 12. Invariants & sanitizers: the platform's performance story rests
+    #     on a handful of easy-to-break invariants.  ``repro_torch.analysis``
+    #     enforces them twice — statically (an AST linter, rules R002-R005)
+    #     and dynamically (opt-in runtime sanitizers):
+    #
+    #         PYTHONPATH=src python -m repro_torch.analysis.lint src tests
+    #         SIMDC_SANITIZE=1 python -m pytest -q tests/test_torch_*.py
+    #
+    #     The catalog of footguns, each with its rule ID:
+    #       * R002 — wall-clock reads (``time.time`` etc.) in
+    #         simulation-domain (``core/``) modules: simulated components
+    #         must stamp time from the ``VirtualClock`` or replays stop
+    #         being deterministic.
+    #       * R003 — host syncs (``int()``/``.item()``/``.cpu()``/
+    #         ``.tolist()``/``torch.cuda.synchronize()``) inside ``@hot_path``
+    #         functions: one stray sync in the decode loop serializes the
+    #         whole launch stream.
+    #       * R004 — ``state_dict``/``load_state_dict`` key asymmetry: a
+    #         written key the reader ignores is state that silently fails
+    #         to restore.
+    #       * R005 — shared-memory segments without a close/unlink/finalize
+    #         path (or ``resource_tracker.unregister`` calls): segments
+    #         outlive their creators and leak in /dev/shm.
+    #     (The reference's R001 and R006 are about ``jax.jit`` donation and
+    #     cohort jits, which the port does not have.)
+    #
+    #     With ``SIMDC_SANITIZE=1`` the runtime half arms itself: the
+    #     ``@hot_path`` functions run with CUDA sync debugging set to
+    #     "error", a recycled ``UpdateBuffer`` (``recycle_buffers=True``) is
+    #     poisoned as its leaves are handed to the next round so a stale
+    #     handle raises ``UseAfterRecycleError`` instead of reading the next
+    #     round's rows, ``FleetWorkerPool.close()`` audits for pinned
+    #     segments, and ``VirtualClock.schedule`` rejects events in the
+    #     virtual past.  All of it is one truthiness check per call when
+    #     disabled.
+    findings12 = lint.lint_paths([pathlib.Path(__file__).resolve().parents[2]])
+    say(f"simcheck lint over src/: {len(findings12)} finding(s)")
+    buf12 = UpdateBuffer.from_stacked(
+        {"w": torch.ones((4, DIM), device=dev)})
+    with sanitizers.override(True):
+        sanitizers.poison_recycled(buf12)
+        try:
+            buf12.leaves2d
+        except sanitizers.UseAfterRecycleError:
+            say("use-after-recycle fenced: a recycled buffer's access raises "
+                "UseAfterRecycleError instead of reading the next round's "
+                "rows")
     return {"lines": lines, "test_acc": accs, "test_acc_int8": acc9,
             "token_identical": same_tokens}
 

@@ -8,9 +8,11 @@ a ``(b, s, kv, d)`` cache.  Implementations (``impl``):
   built with ``nvcc`` at first use and launched through ``ctypes`` on the
   current stream;
 * ``"ref"`` — the plain PyTorch version (:mod:`.ref`);
+* ``"meta"`` — shapes only, for ``meta`` tensors (the dry run): the
+  output's shape and dtype, no arithmetic;
 * ``"auto"`` — chosen by where the tensor lies: a CPU tensor takes the
-  plain version, a CUDA tensor the kernel.  There is no fallback: a CUDA
-  tensor the kernel does not take raises.
+  plain version, a CUDA tensor the kernel, a meta tensor ``"meta"``.
+  There is no fallback: a CUDA tensor the kernel does not take raises.
 
 The kernel (one launch per call) splits each sequence's cache over
 several thread blocks (flash-decoding) and folds the split partials in
@@ -30,6 +32,10 @@ explicitly: every index is clamped into range and the dropped writes put
 back what was there.  Unlike the reference's functional updates they write
 the cache *in place* (and return it), so an arena is never copied.
 
+Under :func:`repro_torch.roofline.op_analysis.analyze` each call records
+its work (``op_analysis.decode_attention_work`` over the rows its lengths
+select) whichever route runs it.
+
 ``decode_attention.launches`` counts kernel launches (one per call that
 reaches the kernel, one kernel per launch); nothing else touches it.  When
 a caller sets ``decode_attention.shapes`` to a set, each launch also adds
@@ -47,6 +53,7 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_partial,
     decode_attention_ref,
 )
+from repro_torch.roofline import op_analysis
 
 __all__ = [
     "decode_attention",
@@ -292,17 +299,34 @@ def decode_attention(
         raise ValueError(f"lengths {tuple(lengths.shape)} must be ({b},)")
     scale = (d ** -0.5) if scale is None else scale
     if impl == "auto":
-        impl = "cuda" if q.device.type == "cuda" else "ref"
+        impl = {"cuda": "cuda", "meta": "meta"}.get(q.device.type, "ref")
+    if op_analysis.ARMED:
+        kvh = k_cache.shape[2]
+        work = op_analysis.decode_attention_work(
+            b, h, kvh, d, k_cache.element_size(),
+            op_analysis.decode_rows(lengths, k_cache.shape[1]))
+        return op_analysis.kernel_call("decode_attention", work, _route, q,
+                                       k_cache, v_cache, lengths, scale,
+                                       block_k, impl)
+    return _route(q, k_cache, v_cache, lengths, scale, block_k, impl)
+
+
+decode_attention.launches = 0
+decode_attention.shapes = None
+
+
+def _route(q, k_cache, v_cache, lengths, scale, block_k, impl: str):
     if impl == "ref":
         return decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
     if impl == "cuda":
         return _decode_attention_cuda(q, k_cache, v_cache, lengths, scale,
                                       block_k)
+    if impl == "meta":
+        if q.device.type != "meta":
+            raise ValueError(f"impl='meta' needs meta tensors, q is on "
+                             f"{q.device}")
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     raise ValueError(f"unknown impl {impl!r}")
-
-
-decode_attention.launches = 0
-decode_attention.shapes = None
 
 
 # --------------------------------------------------------------------------- #

@@ -14,9 +14,11 @@ Implementations (``impl``):
   folds the row splits' partials (an integer ticket per tile, no float
   atomics);
 * ``"ref"`` — the plain PyTorch version (:mod:`.ref`);
+* ``"meta"`` — shapes only, for a ``meta`` stack (the dry run): the f32
+  sum's shape, no arithmetic;
 * ``"auto"`` — chosen by where the tensor lies: a CPU tensor takes the
-  plain version, a CUDA tensor the kernel.  There is no fallback: a CUDA
-  tensor the kernel does not take raises.
+  plain version, a CUDA tensor the kernel, a meta tensor ``"meta"``.
+  There is no fallback: a CUDA tensor the kernel does not take raises.
 
 **Fused dequantize-and-reduce.**  ``fed_reduce(stack, weights,
 scales=...)`` consumes a *quantized* int8 stack (``UpdateBuffer(wire=
@@ -26,6 +28,9 @@ the row weights — in the kernel's registers on the card, as one f32
 multiply before the reduction in the plain version — and no dense f32 copy
 of the stack is ever built.
 
+Under :func:`repro_torch.roofline.op_analysis.analyze` each call records
+its work (``op_analysis.fed_reduce_work``) whichever route runs it.
+
 ``fed_reduce.launches`` counts kernel launches (one per call that reaches
 the kernel); nothing else touches it.  When a caller sets
 ``fed_reduce.shapes`` to a set, each launch also adds its ``(rows, width,
@@ -34,12 +39,14 @@ dtype name)`` to it (an audit of the shapes a path launched at).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.analysis.sanitizers import hot_path
 from repro_torch.kernels.fed_reduce.ref import fed_reduce_ref
+from repro_torch.roofline import op_analysis
 
 __all__ = ["fed_reduce", "fed_reduce_ref", "plan", "Plan"]
 
@@ -230,7 +237,21 @@ def fed_reduce(stack: torch.Tensor, weights: torch.Tensor, *,
             f"scales {tuple(scales.shape)} must match weights "
             f"{tuple(weights.shape)}")
     if impl == "auto":
-        impl = "cuda" if stack.device.type == "cuda" else "ref"
+        impl = {"cuda": "cuda", "meta": "meta"}.get(stack.device.type, "ref")
+    if op_analysis.ARMED:
+        work = op_analysis.fed_reduce_work(
+            stack.shape[0], math.prod(stack.shape[1:]), stack.element_size(),
+            scales is not None)
+        return op_analysis.kernel_call("fed_reduce", work, _route, stack,
+                                       weights, scales, impl)
+    return _route(stack, weights, scales, impl)
+
+
+fed_reduce.launches = 0
+fed_reduce.shapes = None
+
+
+def _route(stack, weights, scales, impl: str) -> torch.Tensor:
     if impl == "ref":
         if scales is not None:
             # Per-row dequantization is linear, so it folds into the weight
@@ -241,11 +262,13 @@ def fed_reduce(stack: torch.Tensor, weights: torch.Tensor, *,
         n = stack.shape[0]
         out = _fed_reduce_cuda(stack.reshape(n, -1), weights, scales)
         return out.reshape(stack.shape[1:])
+    if impl == "meta":
+        if stack.device.type != "meta":
+            raise ValueError(f"impl='meta' needs meta tensors, the stack is "
+                             f"on {stack.device}")
+        return torch.empty(stack.shape[1:], dtype=torch.float32,
+                           device=stack.device)
     raise ValueError(f"unknown impl {impl!r}")
-
-
-fed_reduce.launches = 0
-fed_reduce.shapes = None
 
 
 def _fed_reduce_mesh(stack, weights, scales, impl, mesh, axis):

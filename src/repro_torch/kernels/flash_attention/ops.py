@@ -18,20 +18,28 @@ Implementations (``impl``):
   ``block_q x block_k`` chunks (default: all of sq x 1024 keys, the
   reference's lowerable path);
 * ``"ref"`` — the plain O(S^2) oracle;
+* ``"meta"`` — shapes only, for ``meta`` tensors (the dry run): the
+  output's shape and dtype, no arithmetic;
 * ``"auto"`` — chosen by where the tensor lies: a CPU tensor takes
-  ``"chunked"``, a CUDA tensor the kernel.  There is no fallback: a CUDA
-  tensor the kernel does not take raises.
+  ``"chunked"``, a CUDA tensor the kernel, a meta tensor ``"meta"``.
+  There is no fallback: a CUDA tensor the kernel does not take raises.
 
 Training goes through :class:`FlashAttention`, a ``torch.autograd.Function``
 (``setup_context`` style, with a ``vmap`` rule, so ``torch.func``'s
 ``vmap(grad(...))`` of a model runs it).  Its forward is the kernel above
 asked also for each row's log-sum-exp; its backward is the hand-written
 backward (``csrc/flash_attention.cu``) for CUDA tensors, chosen by
-:func:`kernel_for_bwd`, and ``attention_bwd_ref`` for CPU tensors.  There
-is no fallback between them.  bf16 at d = 64, 128 runs on ``wgmma`` with
+:func:`kernel_for_bwd`, ``attention_bwd_ref`` for CPU tensors and empty
+gradients of the right shapes for meta tensors.  There is no fallback
+between them.  bf16 at d = 64, 128 runs on ``wgmma`` with
 TMA: a prep pass, one kernel for dK, dV and dQ (dQ's partials summed
 across key tiles in a fixed order) and a pass that casts dQ; everything
 else runs a dK/dV kernel and a dQ kernel on plain FMAs.
+
+Under :func:`repro_torch.roofline.op_analysis.analyze` each forward
+(``"flash_attention"``) and backward (``"flash_attention_bwd"``) call
+records its work (``op_analysis.flash_attention_work``,
+``flash_attention_bwd_work``) whichever route runs it.
 
 ``flash_attention.launches`` counts kernel launches of either forward
 kernel (one per call that reaches a kernel),
@@ -55,6 +63,7 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_fwd_lse,
     attention_ref,
 )
+from repro_torch.roofline import op_analysis
 
 __all__ = ["flash_attention", "FlashAttention", "attention_chunked",
            "attention_ref", "attention_fwd_lse", "attention_bwd_ref",
@@ -276,6 +285,49 @@ def _unfold(x, batch):
     return x.reshape(batch, x.shape[0] // batch, *x.shape[1:])
 
 
+def _work(q, k, causal, q_offset, *, lse=False) -> "op_analysis.Work":
+    b, sq, h, d = q.shape
+    return op_analysis.flash_attention_work(
+        b, sq, k.shape[1], h, k.shape[2], d, q.element_size(), causal,
+        q_offset, lse)
+
+
+def _contiguous(tensors):
+    """The plain versions' outputs in the kernels' layout (contiguous), so
+    that what follows a call runs the same ops on every device."""
+    return tuple(t.contiguous() for t in tensors)
+
+
+def _forward_lse(q, k, v, causal, q_offset, scale):
+    """``(o, lse)`` on the route of q's device: the kernel (CUDA), empty
+    tensors of the right shapes (meta) or the plain version (CPU)."""
+    if q.device.type == "cuda":
+        return _flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal, q_offset,
+                                     scale, with_lse=True)
+    if q.device.type == "meta":
+        b, sq, h, _ = q.shape
+        return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+                torch.empty((b, h, sq), dtype=torch.float32,
+                            device=q.device))
+    return _contiguous(attention_fwd_lse(q, k, v, causal=causal,
+                                         q_offset=q_offset, scale=scale))
+
+
+def _backward(q, k, v, o, lse, do, causal, q_offset, scale):
+    """``(dq, dk, dv)`` on the route of q's device, as :func:`_forward_lse`
+    picks it."""
+    if q.device.type == "cuda":
+        return _flash_attention_bwd_cuda(
+            *(t.contiguous() for t in (q, k, v, o, lse, do)), causal,
+            q_offset, scale)
+    if q.device.type == "meta":
+        return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                     for t in (q, k, v))
+    return _contiguous(attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                         q_offset=q_offset, scale=scale))
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: ``FlashAttention.apply(q, k, v,
     causal, q_offset, scale)`` -> ``(o, lse)`` (lse ``(b, h, sq)`` f32, not
@@ -286,12 +338,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, causal, q_offset, scale):
-        if q.device.type == "cuda":
-            return _flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                         v.contiguous(), causal, q_offset,
-                                         scale, with_lse=True)
-        return attention_fwd_lse(q, k, v, causal=causal, q_offset=q_offset,
-                                 scale=scale)
+        if op_analysis.ARMED:
+            return op_analysis.kernel_call(
+                "flash_attention", _work(q, k, causal, q_offset, lse=True),
+                _forward_lse, q, k, v, causal, q_offset, scale)
+        return _forward_lse(q, k, v, causal, q_offset, scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -324,12 +375,15 @@ class _FlashAttentionBackward(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, o, lse, do, causal, q_offset, scale):
-        if q.device.type == "cuda":
-            return _flash_attention_bwd_cuda(
-                *(t.contiguous() for t in (q, k, v, o, lse, do)), causal,
-                q_offset, scale)
-        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                 q_offset=q_offset, scale=scale)
+        if op_analysis.ARMED:
+            b, sq, h, d = q.shape
+            work = op_analysis.flash_attention_bwd_work(
+                b, sq, k.shape[1], h, k.shape[2], d, q.element_size(),
+                causal, q_offset)
+            return op_analysis.kernel_call(
+                "flash_attention_bwd", work, _backward, q, k, v, o, lse, do,
+                causal, q_offset, scale)
+        return _backward(q, k, v, o, lse, do, causal, q_offset, scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -370,7 +424,16 @@ def flash_attention(
         raise ValueError("q heads must be a multiple of kv heads")
     scale = (d ** -0.5) if scale is None else scale
     if impl == "auto":
-        impl = "cuda" if q.device.type == "cuda" else "chunked"
+        impl = {"cuda": "cuda", "meta": "meta"}.get(q.device.type, "chunked")
+    if op_analysis.ARMED:
+        return op_analysis.kernel_call(
+            "flash_attention", _work(q, k, causal, q_offset), _route, q, k,
+            v, causal, q_offset, scale, block_q, block_k, impl)
+    return _route(q, k, v, causal, q_offset, scale, block_q, block_k, impl)
+
+
+def _route(q, k, v, causal, q_offset, scale, block_q, block_k, impl: str):
+    sq = q.shape[1]
     if impl == "cuda":
         if block_q is not None or block_k is not None:
             raise ValueError(f"the kernel's tile is fixed at {TILE}; "
@@ -383,6 +446,11 @@ def flash_attention(
     if impl == "ref":
         return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                              scale=scale)
+    if impl == "meta":
+        if q.device.type != "meta":
+            raise ValueError(f"impl='meta' needs meta tensors, q is on "
+                             f"{q.device}")
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     raise ValueError(f"unknown impl {impl!r}")
 
 

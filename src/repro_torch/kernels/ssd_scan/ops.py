@@ -14,9 +14,12 @@ final_state (b, h, p, n) f32)``.  Implementations (``impl``):
   shared-memory footprint, :func:`smem_bytes`); anything else raises;
 * ``"chunked"`` — the plain chunked version (:mod:`.ref`);
 * ``"ref"`` — the plain sequential oracle;
+* ``"meta"`` — shapes only, for ``meta`` tensors (the dry run): y and
+  the state (and in the backward the gradients) of the right shapes and
+  dtypes, no arithmetic;
 * ``"auto"`` — chosen by where the tensor lies: a CPU tensor takes
-  ``"chunked"``, a CUDA tensor the kernel.  There is no fallback: a CUDA
-  tensor the kernel does not take raises.
+  ``"chunked"``, a CUDA tensor the kernel, a meta tensor ``"meta"``.
+  There is no fallback: a CUDA tensor the kernel does not take raises.
 
 A length that is not a multiple of the chunk is padded with ``dt = 0``
 identity steps (decay exp(0) = 1, no input), and y is cut back, as the
@@ -36,6 +39,11 @@ cross-chunk recurrences elementwise), the rest on plain f32 FMAs
 (``"simt"``: five kernels).  It takes the final state's cotangent too, and
 a length that is not a multiple of the chunk is padded as the forward pads
 it, the pad's gradients cut away.
+
+Under :func:`repro_torch.roofline.op_analysis.analyze` each forward
+(``"ssd_scan"``) and backward (``"ssd_scan_bwd"``) call of
+:class:`SsdScan` records its work (``op_analysis.ssd_scan_work``,
+``ssd_scan_bwd_work``) whichever route runs it.
 
 ``ssd_scan.launches`` counts kernel launches of either forward kernel (one
 per call that reaches a kernel), ``ssd_scan.tc_launches`` those of the
@@ -59,6 +67,7 @@ from repro_torch.kernels.ssd_scan.ref import (
     ssd_decode_step,
     ssd_ref,
 )
+from repro_torch.roofline import op_analysis
 
 __all__ = ["ssd_scan", "SsdScan", "ssd_decode_step", "ssd_ref",
            "ssd_chunked", "ssd_bwd_ref", "smem_bytes", "tc_smem_bytes",
@@ -367,11 +376,18 @@ def _ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dstate, chunk, kernel=None):
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
     if impl == "auto":
-        return "cuda" if x.device.type == "cuda" else "chunked"
-    if impl not in ("cuda", "chunked"):
-        raise ValueError(f"SsdScan takes impl 'auto', 'cuda' or 'chunked', "
-                         f"got {impl!r}")
+        return {"cuda": "cuda", "meta": "meta"}.get(x.device.type, "chunked")
+    if impl not in ("cuda", "chunked", "meta"):
+        raise ValueError(f"SsdScan takes impl 'auto', 'cuda', 'chunked' or "
+                         f"'meta', got {impl!r}")
+    if impl == "meta" and x.device.type != "meta":
+        raise ValueError(f"impl='meta' needs meta tensors, x is on {x.device}")
     return impl
+
+
+def _dims(x, B, chunk) -> tuple:
+    """The work formulas' ``(b, l, h, p, g, n, chunk, itemsize)``."""
+    return (*x.shape, *B.shape[2:], chunk, x.element_size())
 
 
 def _fold(t, dim, batch, axis):
@@ -404,8 +420,12 @@ class SsdScan(torch.autograd.Function):
 
     @staticmethod
     def forward(x, dt, A, B, C, chunk, impl):
-        return _ssd_scan(x, dt, A, B, C, min(chunk, x.shape[1]),
-                         _resolve(impl, x))
+        chunk, impl = min(chunk, x.shape[1]), _resolve(impl, x)
+        if op_analysis.ARMED:
+            return op_analysis.kernel_call(
+                "ssd_scan", op_analysis.ssd_scan_work(*_dims(x, B, chunk)),
+                _ssd_scan, x, dt, A, B, C, chunk, impl)
+        return _ssd_scan(x, dt, A, B, C, chunk, impl)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -436,11 +456,13 @@ class _SsdScanBackward(torch.autograd.Function):
 
     @staticmethod
     def forward(x, dt, A, B, C, dy, dstate, chunk, impl):
-        args = (x, dt, A, B, C, dy.contiguous(),
-                None if dstate is None else dstate.contiguous())
-        if impl == "cuda":
-            return _ssd_scan_bwd_cuda(*args, chunk)
-        return ssd_bwd_ref(*args, chunk=chunk)
+        if op_analysis.ARMED:
+            work = op_analysis.ssd_scan_bwd_work(*_dims(x, B, chunk),
+                                                 dstate is not None)
+            return op_analysis.kernel_call(
+                "ssd_scan_bwd", work, _ssd_scan_bwd, x, dt, A, B, C, dy,
+                dstate, chunk, impl)
+        return _ssd_scan_bwd(x, dt, A, B, C, dy, dstate, chunk, impl)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -486,13 +508,32 @@ def ssd_scan(
             f"C {tuple(C.shape)} do not fit x {tuple(x.shape)}")
     if impl == "ref":
         return ssd_ref(x, dt, A, B, C)
-    if impl not in ("auto", "cuda", "chunked"):
+    if impl not in ("auto", "cuda", "chunked", "meta"):
         raise ValueError(f"unknown impl {impl!r}")
     return SsdScan.apply(x, dt, A, B, C, chunk, impl)
 
 
+def _ssd_scan_bwd(x, dt, A, B, C, dy, dstate, chunk, impl):
+    """The backward of ``impl`` ("cuda", "chunked" or "meta")."""
+    if impl == "meta":  # shaped as the kernel's: padded steps cut away
+        pad = -x.shape[1] % chunk
+
+        def grad(t, steps=True):
+            shape = ((t.shape[0], t.shape[1] + pad, *t.shape[2:]) if steps
+                     else t.shape)
+            g = torch.empty(shape, dtype=t.dtype, device=t.device)
+            return g[:, :x.shape[1]] if steps and pad else g
+        return (grad(x), grad(dt), grad(A, False), grad(B), grad(C))
+    args = (x, dt, A, B, C, dy.contiguous(),
+            None if dstate is None else dstate.contiguous())
+    if impl == "cuda":
+        return _ssd_scan_bwd_cuda(*args, chunk)
+    return ssd_bwd_ref(*args, chunk=chunk)
+
+
 def _ssd_scan(x, dt, A, B, C, chunk, impl):
-    """The forward of ``impl`` ("cuda" or "chunked") at ``chunk`` (<= l)."""
+    """The forward of ``impl`` ("cuda", "chunked" or "meta") at ``chunk``
+    (<= l)."""
     l = x.shape[1]
     if impl == "cuda":
         _check_cuda(x, dt, A, B, C, chunk)  # before any padding copies
@@ -505,6 +546,11 @@ def _ssd_scan(x, dt, A, B, C, chunk, impl):
         return y[:, :l], s
     if impl == "cuda":
         return _ssd_scan_cuda(x, dt, A, B, C, chunk)
+    if impl == "meta":
+        b, _, h, p = x.shape
+        return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+                torch.empty((b, h, p, B.shape[3]), dtype=torch.float32,
+                            device=x.device))
     return ssd_chunked(x, dt, A, B, C, chunk=chunk)
 
 

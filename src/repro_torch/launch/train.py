@@ -189,18 +189,23 @@ def make_cloud_step(cfg, shape: ShapeConfig, pipe: TokenPipeline, *,
     ``build_train_step(cfg, lmesh, shape, opt_cfg)`` — what
     :func:`cloud_training` runs each step, reachable without the
     supervisor.  With a mesh every rank draws the same batch and the step
-    keeps its block."""
+    keeps its block.  ``step.next_batch()`` and ``step.train_step`` are
+    its two halves (to run the same step on a batch of one's own, as the
+    analyzer does)."""
     dev = resolve_device(device)
     train_step, _, _ = build_train_step(cfg, lmesh, shape, opt_cfg)
     n, mb = shape.microbatches, shape.global_batch // shape.microbatches
 
-    def step(state):
+    def next_batch():
         b = next(pipe)
-        batch = {k: torch.from_numpy(np.ascontiguousarray(
+        return {k: torch.from_numpy(np.ascontiguousarray(
             getattr(b, k).reshape(n, mb, -1))).to(dev)
             for k in ("tokens", "targets", "mask")}
-        return train_step(state, batch)
 
+    def step(state):
+        return train_step(state, next_batch())
+
+    step.next_batch, step.train_step = next_batch, train_step
     return step
 
 

@@ -106,7 +106,7 @@ def encode(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig, *,
     for lp in params["encoder"]:
         if remat:
             x = checkpoint(_enc_layer, lp, x, cfg, positions,
-                           use_reentrant=False)
+                           use_reentrant=False, preserve_rng_state=False)
         else:
             x = _enc_layer(lp, x, cfg, positions)
     return rmsnorm(x, params["ln_enc"], cfg.norm_eps)
@@ -153,7 +153,7 @@ def decode_train(params: Params, tokens: torch.Tensor, memory: torch.Tensor,
     for lp in params["decoder"]:
         if remat:
             x = checkpoint(_dec_layer_x, lp, x, memory, cfg, positions,
-                           use_reentrant=False)
+                           use_reentrant=False, preserve_rng_state=False)
         else:
             x = _dec_layer_x(lp, x, memory, cfg, positions)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)

@@ -10,10 +10,13 @@ Conventions, as in the reference package:
   code serves prefill and decode.
 
 Attention routes to the port's kernels: ``_attend`` to ``flash_attention``
-(the CUDA kernel on a card; :class:`FlashAttention`, with the backward
-kernel, when gradients flow) and ``attention_decode`` to
-``decode_attention``.  ``cfg.attention_impl="einsum"`` (or ``"ref"``) asks
-for the plain versions of both, on any device.
+(the CUDA kernel on a card, the shapes-only route on the meta device;
+:class:`FlashAttention`, with the backward kernel, when gradients flow)
+and ``attention_decode`` to ``decode_attention``.
+``cfg.attention_impl="einsum"`` (or ``"ref"``) asks for the plain versions
+of both, on any device; ``"pallas"`` for the kernels' wrappers on any
+device, on the CPU too, where they run their plain versions (as the
+reference's ``"pallas"`` runs its kernel in interpret mode).
 
 The reference's ``constrain`` calls stand at its places
 (``distribution/ctx.py``); they are no-ops outside a sharding context.
@@ -140,22 +143,24 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0):
-    """Full-sequence attention.  On a card every impl but the plain ones
-    launches the flash kernel, through :class:`FlashAttention` (forward and
-    backward kernels) when a gradient flows; on the CPU the reference's
-    rule holds (``"auto"``: the oracle for short sequences, chunked above
-    2048^2), differentiated by autograd through the plain ops, as the
-    reference differentiates its lowerable paths."""
+    """Full-sequence attention.  On a card (and on the meta device) every
+    impl but the plain ones goes through the flash kernel's wrapper, through
+    :class:`FlashAttention` (forward and backward kernels) when a gradient
+    flows; so does ``"pallas"`` on the CPU, where the wrapper runs its plain
+    versions.  Otherwise on the CPU the reference's rule holds (``"auto"``:
+    the oracle for short sequences, chunked above 2048^2), differentiated
+    by autograd through the plain ops, as the reference differentiates its
+    lowerable paths."""
     impl = cfg.attention_impl
     if impl in _PLAIN:
         return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
-    if q.device.type == "cuda":
+    if q.device.type != "cpu" or impl == "pallas":
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return FlashAttention.apply(q, k, v, causal, q_offset,
                                         q.shape[-1] ** -0.5)[0]
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, q_offset=q_offset, impl="cuda")
+                               causal=causal, q_offset=q_offset, impl="auto")
     if impl == "auto":
         if q.shape[1] * k.shape[1] <= 2048 * 2048:
             return attention_ref(q, k, v, causal=causal, q_offset=q_offset)

@@ -236,7 +236,8 @@ def rematerialized(f, remat: bool):
     if not remat:
         return f
     f = shard_ctx.bind(f)
-    return lambda *a, **kw: checkpoint(f, *a, use_reentrant=False, **kw)
+    return lambda *a, **kw: checkpoint(f, *a, use_reentrant=False,
+                                       preserve_rng_state=False, **kw)
 
 
 def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,

@@ -13,9 +13,12 @@ of ``p["mlp"]``; ``apply`` returns the summed Switch auxiliary loss.
 weighted auxiliary loss); with ``remat`` each layer is checkpointed
 (``torch.utils.checkpoint``, non-reentrant), as the reference wraps
 ``layer_apply`` in ``jax.checkpoint``: the backward reruns each layer's
-forward, flash kernel included.  ``torch.utils.checkpoint`` does not run
-under ``torch.func`` transforms, so callers there pass ``remat=False``
-(the same numbers).
+forward, flash kernel included.  The layers draw no random numbers, so
+the checkpoint does not stash and restore the RNG state
+(``preserve_rng_state=False``): the recompute runs the same aten ops on
+every device, and an analyzer counts the same step on each.
+``torch.utils.checkpoint`` does not run under ``torch.func`` transforms,
+so callers there pass ``remat=False`` (the same numbers).
 """
 from __future__ import annotations
 
@@ -152,7 +155,7 @@ def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
     for lp in params["layers"]:
         if remat:
             x, a = checkpoint(layer, lp, x, cfg, positions,
-                              use_reentrant=False)
+                              use_reentrant=False, preserve_rng_state=False)
         else:
             x, a = layer_apply(lp, x, cfg, positions)
         aux = aux + a

@@ -595,9 +595,11 @@ def _run_reference(path, argv, capsys, monkeypatch):
 
 def test_quickstart_matches_the_reference_example(capsys, monkeypatch):
     """The reference's ``examples/quickstart.py`` and the port's sections
-    1-11 but 12: every line the port prints is the reference's, with the
-    test accuracy within 1e-4.  Task ids come from each package's own
-    counter, so the section 6 lines compare with their ids masked."""
+    1-12: every line the port prints is the reference's (section 12's
+    ``simcheck`` lint line too), with the test accuracy within 1e-4, but
+    the port's own fenced line (the reference poisons a donated buffer, the
+    port a recycled one).  Task ids come from each package's own counter,
+    so the section 6 lines compare with their ids masked."""
     ref, env = _run_reference("examples/quickstart.py", [], capsys,
                               monkeypatch)
     got = quickstart.run("cpu")
@@ -607,13 +609,19 @@ def test_quickstart_matches_the_reference_example(capsys, monkeypatch):
                 "allocation", "estimated", "round", "deviceflow",
                 "re-measured", "benchmark-device", "task", "interleaved",
                 "non-preemptive", "preemptive", "monte-carlo", "columnar",
-                "quantized", "serving", "worker")]
-    assert len(got["lines"]) == len(want) == 21
+                "quantized", "serving", "worker", "simcheck")]
+    fenced = [line for line in got["lines"]
+              if line.startswith("use-after-recycle fenced:")]
+    assert len(fenced) == 1 and got["lines"][-1] == fenced[0]
+    assert "use-after-donate fenced:" in ref[-1]
+    lines = got["lines"][:-1]
+    assert len(lines) == len(want) == 22
+    assert lines[-1] == want[-1] == "simcheck lint over src/: 0 finding(s)"
 
     def strip_acc(line):
         line = re.sub(r"^task [0-9]+:", "task #:", line)
         return re.sub(r"(test_acc=|run above: )[0-9.]+", r"\1#", line)
-    for a, b in zip(got["lines"], want):
+    for a, b in zip(lines, want):
         assert strip_acc(a) == strip_acc(b)
     assert abs(got["test_acc"][-1] - env["acc"]) <= 1e-4
     assert abs(got["test_acc_int8"] - env["acc9"]) <= 1e-4
