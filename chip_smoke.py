@@ -261,9 +261,22 @@ one 16 x 512 prefill and 8 greedy decode steps (logits within 2e-2,
 tokens equal); ``build_train_step(cfg, lmesh)`` for llama3.2-3b and
 granite-moe (the expert-parallel block), 2 steps each at full width and 2
 layers against ``build_train_step(cfg, None)`` (2e-2, bitwise expected;
-each path's wall s per step); and granite-moe's sharded prefill.  Its K1,
-K2, K3 and K3b launches join the kernels line.  One rank shows the
-sharded paths equal to the unsharded ones and nothing more.
+each path's wall s per step); and granite-moe's sharded prefill.  Before
+those it holds K2p (the decode kernel's partial output) on 2 and 4 blocks
+of llama3.2-3b's decode cache against its plain version (each block's o,
+m and l within 3e-5 / 2e-2 of their largest entry, empty blocks exactly
+(0, NEG_INF, 0), the blocks combined against K2; timed on one of 2
+blocks), and the forward scan and K4b on the 4 and 2 heads of a
+tensor-parallel rank; after them mamba2-1.3b, zamba2-1.2b and
+seamless-m4t-medium at full width and 2 layers go through the
+tensor-parallel steps on the (1, 1) mesh (a prefill, 8 decode steps, 2
+train steps; bitwise equal to unsharded, held), while two processes on the
+card (a gloo group) decode llama3.2-3b at 2 layers with the cache's
+sequence split over sp = 2: K2p on each rank's block and the combine's
+all-reduces, within 2e-2 (bf16) and 1e-4 (f32) of the unsharded decode.
+Its K1, K2, K2p, K3, K3b, K4 and K4b launches join the kernels line (K2p's
+from the two-rank decode).  One rank shows the sharded paths equal to the
+unsharded ones and nothing more.
 
 Phase 21 holds the port's tooling on the card.  (a) After phase 16's timed
 steps one more llama3.2-3b step (full width and depth, 8 x 4096 tokens:
@@ -4584,31 +4597,471 @@ def sharded_moe_prefill(dev, card: str) -> dict:
     return row
 
 
+# Phase 20's tensor-parallel checks: K2p (the decode kernel's partial output) on
+# rank blocks of llama3.2-3b's decode cache, the scan kernels on the heads
+# one tensor-parallel rank holds, the SSM, hybrid and audio families through
+# the tensor-parallel steps, and a sequence-split decode across two ranks.
+K2P_CASE = DECODE_SERVE  # 16 sequences x 24 heads of 128, 577 x 8 x 128
+K2P_BLOCKS = (2, 4)
+K2P_REPLACES = "src/repro/kernels/decode_attention/decode_attention.py:31"
+# (b, l, h, p, g, n, chunk): mamba2-1.3b's and zamba2-1.2b's scans on the
+# 4 and 2 of their 64 heads a rank holds at tp = 16 and 32.
+SSD_TP_CASES = [(2, 512, h, 64, 1, n, 128) for n in (128, 64) for h in (4, 2)]
+SHARD_FAMILIES = ("mamba2_1_3b", "zamba2_1_2b", "seamless_m4t_medium")
+SHARD_FAMILY_BATCH = 4
+SHARD_FAMILY_PROMPT = 256
+SHARD_FAMILY_SEQ = 1024  # the 2 train steps' sequence
+# The sequence-split decode: llama3.2-3b at full width and 2 layers, the
+# cache's 576 rows split over sp = 2 ranks (two processes on the card, a
+# gloo group: its collectives here are the combine's two all-reduces).  The
+# prompt stops 4 rows short of rank 1's block, so its first 4 decode steps
+# find that block empty.
+SEQ_SPLIT_RANKS = 2
+SEQ_SPLIT_LEN = 576
+SEQ_SPLIT_PROMPT = SEQ_SPLIT_LEN // SEQ_SPLIT_RANKS - 4
+
+
+def _blocks(s: int, n: int) -> list:
+    """``(start, size)`` of n contiguous blocks covering s rows (the first
+    ``s % n`` one row longer)."""
+    base, extra = divmod(s, n)
+    out, start = [], 0
+    for r in range(n):
+        size = base + (r < extra)
+        out.append((start, size))
+        start += size
+    return out
+
+
+def k2p_cases(dev, card: str) -> dict:
+    """K2p against its plain version at llama3.2-3b's decode shape, f32 and
+    bf16, the cache cut into 2 and 4 rank blocks: each block's o, m and l
+    (rows with keys) within 3e-5 (f32) or 2e-2 (bf16) of the plain
+    version's largest entry (o is an unnormalised sum: the kernel's bf16
+    rounding of q * scale, which the plain partial leaves out, moves it by
+    ~0.5 % of its scale, not of each entry), blocks past a sequence's
+    length exactly (0, NEG_INF, 0), two launches bitwise equal, one launch
+    counted per call; the blocks' states combined (``combine_partials``)
+    against the whole-cache decode kernel (|err| <= tol (1 + |whole|)).  Timed at bf16 on one of 2 blocks against the
+    whole-cache kernel, the plain version and SDPA on that block."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ref
+    from repro_torch.kernels.decode_attention.ops import (
+        combine_partials, decode_attention, decode_attention_partial)
+    from repro_torch.roofline import op_analysis as oa
+
+    b, s, h, kv, d = K2P_CASE
+    gen = torch.Generator().manual_seed(24)
+    errs, rows, timed = [], [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((b, h, d), generator=gen).to(dtype).to(dev)
+        kc = torch.randn((b, s, kv, d), generator=gen).to(dtype).to(dev)
+        vc = torch.randn((b, s, kv, d), generator=gen).to(dtype).to(dev)
+        lens = torch.randint(1, s + 1, (b,), generator=gen, dtype=torch.int32)
+        lens[0], lens[1], lens[-1] = 0, 100, s  # empty, one block, full
+        lens = lens.to(dev)
+        whole = decode_attention(q, kc, vc, lens, impl="cuda")
+        tol = _attn_tol(dtype)
+        for n in K2P_BLOCKS:
+            parts, empty_rows, block_rel = [], 0, 0.0
+            for r, (start, size) in enumerate(_blocks(s, n)):
+                kb = kc[:, start:start + size].contiguous()
+                vb = vc[:, start:start + size].contiguous()
+                lb = (lens - start).clamp(0, size).to(torch.int32)
+                name = f"K2p{K2P_CASE} {_dtype_name(dtype)} block {r}/{n}"
+                l0 = decode_attention_partial.launches
+                got = decode_attention_partial(q, kb, vb, lb, impl="cuda")
+                again = decode_attention_partial(q, kb, vb, lb, impl="cuda")
+                plain = ref.decode_attention_partial(q, kb, vb, lb)
+                torch.cuda.synchronize()
+                if decode_attention_partial.launches - l0 != 2:
+                    raise AssertionError(f"{name}: 2 calls counted "
+                                         f"{decode_attention_partial.launches - l0}")
+                if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                    raise AssertionError(f"{name} is not repeatable")
+                full = lb > 0
+                for part, a, w in zip("oml", got, plain):
+                    rel = _rel_to_max(a[full], w[full])
+                    if not rel <= tol:
+                        raise AssertionError(f"{name} {part} disagrees with "
+                                             f"its plain version: {rel:.3e} "
+                                             f"of its largest entry")
+                    block_rel = max(block_rel, rel)
+                o, m, l = (t[~full] for t in got)
+                empty_rows += int((~full).sum())
+                if o.any() or l.any() or not bool((m == ref.NEG_INF).all()):
+                    raise AssertionError(f"{name}: an empty block is not "
+                                         f"(0, NEG_INF, 0)")
+                parts.append(got)
+            out = combine_partials(*(torch.stack(x) for x in zip(*parts)),
+                                   out_dtype=dtype)
+            err = _check_close(f"K2p combined over {n} blocks "
+                               f"{_dtype_name(dtype)}", out, whole, dtype)
+            errs.append(err)
+            row = {"case": list(K2P_CASE), "dtype": _dtype_name(dtype),
+                   "blocks": n, "combined_vs_whole_max_abs_err": err,
+                   "block_max_rel_err": block_rel,
+                   "limit": tol, "empty_block_rows": empty_rows,
+                   "bitwise_repeatable": True, "card": card}
+            if dtype == torch.bfloat16 and n == 2:
+                start, size = _blocks(s, n)[0]
+                kb = kc[:, start:start + size].contiguous()
+                vb = vc[:, start:start + size].contiguous()
+                lb = (lens - start).clamp(0, size).to(torch.int32)
+                nc = _copies(2 * kb.numel() * kb.element_size())
+                ks = [kb.clone() for _ in range(nc)]
+                vs = [vb.clone() for _ in range(nc)]
+                kts = [k.transpose(1, 2).contiguous() for k in ks]
+                vts = [v.transpose(1, 2).contiguous() for v in vs]
+                mask = (torch.arange(size, device=dev)[None] < lb[:, None])[
+                    :, None, None, :]
+                t = {"ms": time_ms(lambda i: decode_attention_partial(
+                        q, ks[i % nc], vs[i % nc], lb, impl="cuda"), 100),
+                     "whole_cache_ms": time_ms(lambda i: decode_attention(
+                         q, kc, vc, lens, impl="cuda"), 100),
+                     "plain_ms": time_ms(lambda i: ref.decode_attention_partial(
+                         q, ks[i % nc], vs[i % nc], lb), 10),
+                     # SDPA on the block: the same attention, normalised
+                     # (no PyTorch call returns the (m, l) state).
+                     "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(
+                         q[:, :, None], kts[i % nc], vts[i % nc],
+                         attn_mask=mask, enable_gqa=True), 100)}
+                t.update(oa.bound(oa.decode_attention_work(
+                    b, h, kv, d, 2, oa.decode_rows(lb, size), partial=True),
+                    BF16_FLOPS))
+                t["bound_share"] = t["bound_ms"] / t["ms"]
+                t["block_rows"] = size
+                row.update(t)
+                timed = row
+                del ks, vs, kts, vts
+            rows.append(row)
+            log(json.dumps({"decode_attention_partial_case": row}))
+    entry = _timed_entry("decode_attention_partial", DECODE_SOURCE,
+                         K2P_REPLACES, errs, timed)
+    entry["kernel"] = DECODE_KERNEL + ", partial output"
+    return entry
+
+
+def ssd_tp_cases(dev) -> float:
+    """The forward scan kernel and K4b on the 4 and 2 SSM heads a
+    tensor-parallel rank holds (mamba2-1.3b's and zamba2-1.2b's n), bf16
+    and f32, each against its plain version (``ssd_bwd_case``: phase 7's
+    and 18's limits); returns the largest relative error."""
+    import torch
+
+    gen = torch.Generator().manual_seed(25)
+    worst = 0.0
+    for case in SSD_TP_CASES:
+        for dtype in ("bfloat16", "float32"):
+            row, _ = ssd_bwd_case(dev, gen, case, dtype)
+            row["tensor_parallel_heads"] = case[2]
+            log(json.dumps({"ssd_scan_tp_case": row}))
+            worst = max(worst, row["max_rel_err"])
+    return worst
+
+
+SEQ_SPLIT_CODE = r"""
+import datetime, json, os, sys
+root, rank, world, store, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+sys.path.insert(0, os.path.join(root, "src"))
+import dataclasses
+import torch
+import torch.distributed as dist
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                        world_size=world, timeout=datetime.timedelta(seconds=300))
+from repro_torch.configs.base import MeshPlan, ShapeConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.distribution.sharding import derive_logical_mesh
+from repro_torch.distribution.steps import build_serve_step, place, place_params
+from repro_torch.kernels.decode_attention.ops import decode_attention, decode_attention_partial
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import transformer
+arch, layers, seed, b, prompt, max_len, steps = json.loads(sys.argv[6])
+dev = torch.device("cuda")
+lmesh = derive_logical_mesh(make_host_mesh(1, world, device="cuda"),
+                            MeshPlan(tp=1, sp=world))
+res = {"rank": rank, "rows": {}, "launches": 0}
+for dtype in ("bfloat16", "float32"):
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
+    params = transformer.init(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (b, prompt), device=dev, dtype=torch.int32,
+                            generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    with torch.no_grad():
+        logits, cache = transformer.prefill(params, prompts, cfg, max_len)
+        placed_cache = place({"k": cache["k"].clone(), "v": cache["v"].clone(),
+                              "pos": cache["pos"]},
+                             build_serve_step(cfg, lmesh, ShapeConfig(
+                                 "d", max_len, b, "decode"))[1][1])
+        toks, want = [], []
+        for _ in range(steps):
+            tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+            toks.append(tok)
+            logits, cache = transformer.decode_step(params, tok, cfg, cache)
+            want.append(logits.float())
+    del cache
+    step = build_serve_step(cfg, lmesh, ShapeConfig("d", max_len, b, "decode"))[0]
+    placed = place_params(params, cfg, lmesh)
+    decode_attention.launches = decode_attention_partial.launches = 0
+    torch.cuda.synchronize()
+    import time
+    t0 = time.perf_counter()
+    cache, got = placed_cache, []
+    for tok in toks:  # the unsharded path's tokens, teacher-forced
+        logits, cache = step(placed, cache, tok)
+        got.append(logits.to_local().float())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+    same = [bool(torch.equal(g[:, :cfg.vocab_size].argmax(-1), w[:, :cfg.vocab_size].argmax(-1)))
+            for g, w in zip(got, want)]
+    res["rows"][dtype] = {"max_rel_err": err, "limit": 2e-2 if dtype == "bfloat16" else 1e-4,
+                          "greedy_tokens_equal_per_step": same,
+                          "k2p_launches": decode_attention_partial.launches,
+                          "k2_launches": decode_attention.launches, "wall_s": wall}
+    res["launches"] += decode_attention_partial.launches
+    del params, placed, placed_cache, cache
+    torch.cuda.empty_cache()
+with open(out, "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def start_seq_split(tmp: str) -> list:
+    """The sequence-split decode's ranks, one process each on the card,
+    started together (each ~8 s to reach the card)."""
+    store = os.path.join(tmp, "seq_split_store")
+    spec = json.dumps([SERVE_ARCH, SHARD_TRAIN_LAYERS, SERVE_SEED,
+                       SERVE_SLOTS, SEQ_SPLIT_PROMPT, SEQ_SPLIT_LEN,
+                       SHARD_DECODE_STEPS])
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return [subprocess.Popen(
+        [sys.executable, "-c", SEQ_SPLIT_CODE, ROOT, str(r),
+         str(SEQ_SPLIT_RANKS), store, os.path.join(tmp, f"seq_split_{r}.json"),
+         spec], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(SEQ_SPLIT_RANKS)]
+
+
+def finish_seq_split(procs: list, tmp: str, card: str) -> dict:
+    """Waits for the ranks (killing them past 300 s); each rank's 8 decode
+    steps through ``build_serve_step`` at sp = 2 must match the unsharded
+    decode (teacher-forced with its tokens) within 2e-2 (bf16) and 1e-4
+    (f32) relative, and launch K2p once per layer and step and K2 never."""
+    texts = []
+    for proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            text, _ = proc.communicate()
+        texts.append(text)
+    ranks = []
+    for r, (proc, text) in enumerate(zip(procs, texts)):
+        path = os.path.join(tmp, f"seq_split_{r}.json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            raise AssertionError(f"sequence-split decode rank {r} failed "
+                                 f"(exit {proc.returncode}): {text[-3000:]}")
+        with open(path) as f:
+            ranks.append(json.load(f))
+    want = SHARD_TRAIN_LAYERS * SHARD_DECODE_STEPS
+    for res in ranks:
+        for dtype, row in res["rows"].items():
+            if not (row["max_rel_err"] <= row["limit"]
+                    and row["k2p_launches"] == want
+                    and row["k2_launches"] == 0):
+                raise AssertionError(f"sequence-split decode rank "
+                                     f"{res['rank']} [{dtype}] off: {row}")
+    out = {"arch": SERVE_ARCH, "layers": SHARD_TRAIN_LAYERS,
+           "ranks": SEQ_SPLIT_RANKS, "plan": "tp 1, sp 2 (gloo, one card)",
+           "batch": SERVE_SLOTS, "cache_rows": SEQ_SPLIT_LEN,
+           "prompt": SEQ_SPLIT_PROMPT, "decode_steps": SHARD_DECODE_STEPS,
+           "per_rank": ranks, "launches": sum(r["launches"] for r in ranks),
+           "card": card}
+    log(json.dumps({"sequence_split_decode": out}))
+    return out
+
+
+def sharded_family(dev, arch: str, card: str) -> dict:
+    """``arch`` at its published width and 2 layers (seamless: 2 encoder
+    layers too) through the tensor-parallel steps on a (1, 1) mesh against
+    the unsharded functions from the same weights and inputs: a prefill of
+    4 x 256, 8 decode steps fed the unsharded path's greedy tokens, and 2
+    train steps of 2 x 1024 tokens; logits, loss, grad norm and updated
+    leaves must be bitwise equal."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distribution.steps import (
+        build_prefill_step, build_serve_step, build_train_step, gather,
+        init_train_state, place_params, place_train_state)
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.optimizers import tree_leaves
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, num_layers=SHARD_TRAIN_LAYERS, **(
+        {"num_encoder_layers": SHARD_TRAIN_LAYERS}
+        if base.family == "audio" else {}))
+    api = get_model(cfg)
+    b, s, steps = SHARD_FAMILY_BATCH, SHARD_FAMILY_PROMPT, SHARD_DECODE_STEPS
+    max_len = s + steps
+    gen = torch.Generator(device=dev).manual_seed(26)
+    params = api.init(torch.Generator(device=dev).manual_seed(SERVE_SEED),
+                      cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev, dtype=torch.int32)
+    # The audio source fills its cross cache (max_len frames).
+    args = ((torch.randn((b, max_len, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16), toks)
+            if cfg.family == "audio" else (toks,))
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    def zero():
+        _zero_counters()
+        decode_attention.launches = 0
+
+    def counters():
+        return {**_counters(), "decode_attention": decode_attention.launches}
+
+    lmesh = _logical_mesh(cfg, dev)
+    zero()
+    with torch.no_grad():
+        logits, cache = api.prefill(params, *args, cfg, max_len)
+        want, tokens = [logits], []
+        for _ in range(steps):
+            tokens.append(logits[:, :cfg.vocab_size].argmax(-1).to(
+                torch.int32))
+            logits, cache = api.decode_step(params, tokens[-1], cfg, cache)
+            want.append(logits)
+    plain_launches = counters()
+    del cache
+    shape = ShapeConfig("serve", max_len, b, "decode")
+    placed = place_params(params, cfg, lmesh)
+    zero()
+    logits, cache = build_prefill_step(cfg, lmesh, shape)[0](placed, *args)
+    got = [logits.full_tensor()]
+    serve = build_serve_step(cfg, lmesh, shape)[0]
+    for tok in tokens:
+        logits, cache = serve(placed, cache, tok)
+        got.append(logits.full_tensor())
+    torch.cuda.synchronize()
+    serve_launches = counters()
+    serve_equal = all(torch.equal(a, c) for a, c in zip(got, want))
+    serve_err = max(_rel(a, c) for a, c in zip(got, want))
+    del placed, params, cache, got, want
+    free_cycles()
+    tshape = ShapeConfig("train_x", SHARD_FAMILY_SEQ, 2, "train",
+                         microbatches=2)
+    batch = _train_batch(cfg, tshape, dev)
+    if cfg.family == "audio":
+        batch["src_embeds"] = torch.randn(
+            (2, 1, SHARD_FAMILY_SEQ, cfg.d_model), generator=gen,
+            device=dev).to(torch.bfloat16)
+    runs = {}
+    for path in ("plain", "sharded"):
+        state = init_train_state(cfg, seed=0, device=dev)
+        lm = lmesh if path == "sharded" else None
+        if lm is not None:
+            state = place_train_state(state, cfg, lm)
+        step = build_train_step(cfg, lm, tshape)[0]
+        zero()
+        metrics = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        leaves = [t.float().cpu() for t in tree_leaves(
+            gather(state["params"]) if lm is not None else state["params"])]
+        runs[path] = (metrics, leaves, counters())
+        del state, step
+        free_cycles()
+    (mp_, lp, _), (ms_, ls, train_launches) = runs["plain"], runs["sharded"]
+    train_equal = mp_ == ms_ and all(torch.equal(a, c)
+                                     for a, c in zip(ls, lp))
+    row = {"arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+           "plan": str(lmesh.plan), "batch": b, "prompt": s,
+           "decode_steps": steps, "serve_bitwise_equal": serve_equal,
+           "serve_max_rel_err": serve_err, "train_seq": SHARD_FAMILY_SEQ,
+           "loss_grad_norm": {"sharded": ms_, "plain": mp_},
+           "train_bitwise_equal": train_equal,
+           "launches": {"serve": serve_launches, "serve_plain": plain_launches,
+                        "train": train_launches}, "card": card}
+    log(json.dumps({"sharded_family": row}))
+    if not (serve_equal and train_equal):
+        raise AssertionError(f"sharded {arch} is not bitwise equal to "
+                             f"unsharded: {row}")
+    if serve_launches != plain_launches:
+        raise AssertionError(f"sharded {arch} serving launched "
+                             f"{serve_launches}, unsharded {plain_launches}")
+    return row
+
+
 def sharded_phase(dev, card: str) -> dict:
     """Phase 20: the sharded paths (fleet-sharded ``fed_reduce`` and
-    rounds, DTensor-placed serving and training, the expert-parallel MoE)
-    on a one-rank NCCL group, each against its unsharded path.  One rank
-    shows these paths equal to the unsharded ones and nothing more: no
-    communication between cards, no sharded scaling."""
+    rounds, DTensor-placed serving and training, the expert-parallel MoE,
+    and the SSM, hybrid and audio families through the tensor-parallel
+    steps) on a one-rank NCCL group, each against its unsharded path; K2p
+    and the scan kernels at a tensor-parallel rank's shapes against their
+    plain versions; and the sequence-split decode on two ranks, the only
+    path here with communication between ranks (two processes sharing the
+    card).  One rank shows the sharded paths equal to the unsharded ones
+    and nothing more: no communication between cards, no sharded
+    scaling."""
+    import tempfile
+
     _one_rank_group()
+    k2p = k2p_cases(dev, card)
+    ssd_tp = ssd_tp_cases(dev)
     fed = sharded_fed_reduce(dev, card)
     fleet = sharded_fleet_rounds(dev)
     serve = sharded_serving(dev, card)
     train = sharded_training(dev, TRAIN_ARCH, card)
     moe_train = sharded_training(dev, MOE_ARCH, card)
     moe = sharded_moe_prefill(dev, card)
+    free_cycles()
+    tmp = tempfile.mkdtemp(prefix="seq_split_")
+    # The two ranks run while the families' (untimed) checks do.
+    procs = start_seq_split(tmp)
+    try:
+        fams = {arch: sharded_family(dev, arch, card)
+                for arch in SHARD_FAMILIES}
+    finally:
+        split = finish_seq_split(procs, tmp, card)
+    k2p["launches"] = split["launches"]
+    fam_flash = sum(r["launches"][k]["flash_attention_wgmma"]
+                    for r in fams.values() for k in ("serve", "train"))
+    fam_dec = sum(r["launches"]["serve"]["decode_attention"]
+                  for r in fams.values())
+    fam_ssd = sum(r["launches"][k]["ssd_scan"] for r in fams.values()
+                  for k in ("serve", "train"))
     launches = {
         "fed_reduce": fed["launches"] + fleet["launches"],
-        "decode_attention": serve["launches"]["decode_attention"],
+        "decode_attention": serve["launches"]["decode_attention"] + fam_dec,
+        "decode_attention_partial": split["launches"],
         "flash_attention_wgmma": (serve["launches"]["flash_attention_wgmma"]
                                   + train["launches"]["flash_attention_wgmma"]
                                   + moe_train["launches"][
                                       "flash_attention_wgmma"]
-                                  + moe["launches"]["flash_attention_wgmma"]),
+                                  + moe["launches"]["flash_attention_wgmma"]
+                                  + fam_flash),
         "flash_attention_bwd": (train["launches"]["flash_attention_bwd"]
-                                + moe_train["launches"]["flash_attention_bwd"])}
-    log(json.dumps({"sharded": {"launches": launches, "card": card}}))
-    return {"launches": launches}
+                                + moe_train["launches"]["flash_attention_bwd"]
+                                + sum(r["launches"]["train"][
+                                    "flash_attention_bwd"]
+                                    for r in fams.values())),
+        "ssd_scan": fam_ssd,
+        "ssd_scan_bwd": sum(r["launches"]["train"]["ssd_scan_bwd"]
+                            for r in fams.values())}
+    log(json.dumps({"sharded": {"launches": launches,
+                                "ssd_tp_max_rel_err": ssd_tp,
+                                "card": card}}))
+    return {"launches": launches, "k2p": k2p}
 
 
 # --------------------------------------------------------------------------
@@ -5133,9 +5586,12 @@ def main(argv=None) -> int:
         for e, key in ((fed_entry, "fed_reduce"),
                        (dec_entry, "decode_attention"),
                        (flash_entry, "flash_attention_wgmma"),
-                       (bwd_entry, "flash_attention_bwd")):
+                       (bwd_entry, "flash_attention_bwd"),
+                       (ssd_entry, "ssd_scan"),
+                       (ssd_bwd_entry, "ssd_scan_bwd")):
             if e is not None:
                 e["launches"] = (e["launches"] or 0) + sharded["launches"][key]
+        entries.append(sharded["k2p"])
         # Phase 21, last as numbered (its card step ran inside phase 16).
         tooling = _tooling(dev, card, train)
         fed_entry["launches"] = ((fed_entry["launches"] or 0)

@@ -63,6 +63,11 @@
 //     4-step tile, and every lane folds p * v into the acc of its chunk.
 //   * At the end the row groups or quads, then the warps (in order), then
 //     the splits fold.
+//   * K2p (decode_attention_partial_launch) is the same launch with the
+//     fold's state as its output: the unnormalised acc and each head's
+//     (m, l), in f32, for a combine across ranks that each hold one block
+//     of the cache's sequence (distribution/steps.py).  An empty block
+//     gives acc = 0, m = NEG_INF, l = 0 exactly.
 //
 // Plain C interface, loaded through ctypes; the launch goes on the caller's
 // stream and the function returns its cudaError_t.
@@ -440,9 +445,10 @@ __device__ __forceinline__ void mma_stream(const __nv_bfloat16* __restrict__ q,
 template <typename T, int D, int G, bool MMA>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ lengths, T* __restrict__ out, float* part_o,
+              const int* __restrict__ lengths, void* __restrict__ out_raw,
+              float* __restrict__ out_m, float* __restrict__ out_l, float* part_o,
               float* part_ml, int* tickets, int s_len, int kvh, int g, int splits,
-              int fixed_rows, int cluster, float scale) {
+              int fixed_rows, int cluster, int partial, float scale) {
   using GE = Geo<T, D>;
   constexpr int VEC = GE::VEC, CPR = GE::CPR, LPR = GE::LPR, CPL = GE::CPL;
   constexpr int RPS = GE::RPS, WR = GE::WR;
@@ -458,10 +464,25 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int warp = tid >> 5;
   const size_t head0 = (static_cast<size_t>(bi) * kvh + hk) * g;
 
+  // Output i (head i / D, column i % D) of the folded state (acc, m, l):
+  // acc / max(l, 1e-37) in T, or (K2p, `partial`) the unnormalised acc and
+  // each head's (m, l) in f32.
+  auto emit = [&](int i, float acc, float m, float l) {
+    if (partial) {
+      static_cast<float*>(out_raw)[head0 * D + i] = acc;
+      if (i % D == 0) {
+        out_m[head0 + i / D] = m;
+        out_l[head0 + i / D] = l;
+      }
+    } else {
+      static_cast<T*>(out_raw)[head0 * D + i] = from_f32<T>(acc / fmaxf(l, 1e-37f));
+    }
+  };
+
   const int len = min(max(lengths[bi], 0), s_len);
-  if (len == 0 && !cluster) {  // exact zeros, written once
+  if (len == 0 && !cluster) {  // exact zeros (K2p: m = NEG_INF, l = 0), written once
     if (split == 0)
-      for (int i = tid; i < g * D; i += THREADS) out[head0 * D + i] = from_f32<T>(0.f);
+      for (int i = tid; i < g * D; i += THREADS) emit(i, 0.f, NEG_INF, 0.f);
     return;
   }
   int lo = 0, hi = 0, eff = 0;
@@ -720,7 +741,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
               rm = m_new;
             }
           }
-          out[head0 * D + i] = from_f32<T>(eff > 0 ? ra / fmaxf(rl, 1e-37f) : 0.f);
+          emit(i, ra, rm, rl);  // eff == 0: (0, NEG_INF, 0)
         }
       }
     }
@@ -732,7 +753,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
     for (int j = 0; j < OUT_PER_THREAD; ++j) {
       const int i = tid + j * THREADS;
-      if (i < g * D) out[head0 * D + i] = from_f32<T>(fo[j] / fmaxf(fl[j], 1e-37f));
+      if (i < g * D) emit(i, fo[j], fm[j], fl[j]);
     }
     return;
   }
@@ -812,15 +833,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
   for (int j = 0; j < OUT_PER_THREAD; ++j) {
     const int i = tid + j * THREADS;
-    if (i < g * D) out[head0 * D + i] = from_f32<T>(ra[j] / fmaxf(rl[j], 1e-37f));
+    if (i < g * D) emit(i, ra[j], rm[j], rl[j]);
   }
   if (tid == 0) tickets[grp_id] = 0;
 }
 
 template <typename T, int D, int G, bool MMA>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                   float* part_o, float* part_ml, int* tickets, int b, int s, int kvh, int g,
-                   int splits, int fixed_rows, float scale, cudaStream_t stream) {
+                   float* out_m, float* out_l, float* part_o, float* part_ml, int* tickets, int b,
+                   int s, int kvh, int g, int splits, int fixed_rows, float scale,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D, MMA>(G);
   static bool smem_set = false;
   if (!smem_set) {
@@ -847,8 +869,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   cfg.numAttrs = cluster ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, decode_kernel<T, D, G, MMA>, static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), part_o, part_ml, tickets, s, kvh,
-      g, splits, fixed_rows, cluster, scale);
+      static_cast<const T*>(v), lengths, out, out_m, out_l, part_o, part_ml, tickets, s, kvh, g,
+      splits, fixed_rows, cluster, out_m != nullptr ? 1 : 0, scale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -859,11 +881,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
 // and 16) and bf16 at the other widths (G = 4 or 16).
 template <typename T, int D>
 cudaError_t dispatch_g(const void* q, const void* k, const void* v, const int* lengths,
-                       void* out, float* part_o, float* part_ml, int* tickets, int b, int s,
-                       int kvh, int g, int splits, int fixed_rows, float scale,
-                       cudaStream_t stream) {
+                       void* out, float* out_m, float* out_l, float* part_o, float* part_ml,
+                       int* tickets, int b, int s, int kvh, int g, int splits, int fixed_rows,
+                       float scale, cudaStream_t stream) {
 #define DECODE_G(GG, MM) \
-  return launch<T, D, GG, MM>(q, k, v, lengths, out, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream)
+  return launch<T, D, GG, MM>(q, k, v, lengths, out, out_m, out_l, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream)
   constexpr bool WIDE = D == 64 || D == 128;
   if constexpr (WIDE && sizeof(T) == 2) {
     if (g <= 4) DECODE_G(4, true);
@@ -884,23 +906,48 @@ cudaError_t dispatch_g(const void* q, const void* k, const void* v, const int* l
 
 template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const int* lengths,
-                       void* out, float* part_o, float* part_ml, int* tickets, int b, int s,
-                       int kvh, int g, int splits, int fixed_rows, float scale,
-                       cudaStream_t stream) {
+                       void* out, float* out_m, float* out_l, float* part_o, float* part_ml,
+                       int* tickets, int b, int s, int kvh, int g, int splits, int fixed_rows,
+                       float scale, cudaStream_t stream) {
   switch (d) {
     case 16:
-      return dispatch_g<T, 16>(q, k, v, lengths, out, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
+      return dispatch_g<T, 16>(q, k, v, lengths, out, out_m, out_l, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
     case 32:
-      return dispatch_g<T, 32>(q, k, v, lengths, out, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
+      return dispatch_g<T, 32>(q, k, v, lengths, out, out_m, out_l, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
     case 64:
-      return dispatch_g<T, 64>(q, k, v, lengths, out, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
+      return dispatch_g<T, 64>(q, k, v, lengths, out, out_m, out_l, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
     case 128:
-      return dispatch_g<T, 128>(q, k, v, lengths, out, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
+      return dispatch_g<T, 128>(q, k, v, lengths, out, out_m, out_l, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
     case 256:
-      return dispatch_g<T, 256>(q, k, v, lengths, out, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
+      return dispatch_g<T, 256>(q, k, v, lengths, out, out_m, out_l, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+namespace {
+
+int launch_any(const void* q, const void* k, const void* v, const int* lengths, void* out,
+               float* out_m, float* out_l, float* part_o, float* part_ml, int* tickets,
+               int dtype, int b, int s, int kvh, int g, int d, int splits, int fixed_rows,
+               float scale, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (b < 1 || s < 1 || kvh < 1 || g < 1 || g > MAX_GROUP || splits < 1 ||
+      splits > 65535 || kvh > 65535 || b > 65535 || fixed_rows < 0 ||
+      (fixed_rows > 0 && static_cast<long long>(fixed_rows) * splits < s) ||
+      (splits > 1 && (part_o == nullptr || part_ml == nullptr || tickets == nullptr)) ||
+      ((out_m == nullptr) != (out_l == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = dispatch_d<float>(d, q, k, v, lengths, out, out_m, out_l, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
+  } else if (dtype == 1) {
+    err = dispatch_d<__nv_bfloat16>(d, q, k, v, lengths, out, out_m, out_l, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -917,18 +964,22 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        float* part_ml, int* tickets, int dtype, int b, int s,
                                        int kvh, int g, int d, int splits, int fixed_rows,
                                        float scale, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (b < 1 || s < 1 || kvh < 1 || g < 1 || g > MAX_GROUP || splits < 1 ||
-      splits > 65535 || kvh > 65535 || b > 65535 || fixed_rows < 0 ||
-      (fixed_rows > 0 && static_cast<long long>(fixed_rows) * splits < s) ||
-      (splits > 1 && (part_o == nullptr || part_ml == nullptr || tickets == nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    err = dispatch_d<float>(d, q, k, v, lengths, out, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
-  } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(d, q, k, v, lengths, out, part_o, part_ml, tickets, b, s, kvh, g, splits, fixed_rows, scale, stream);
-  }
-  return static_cast<int>(err);
+  return launch_any(q, k, v, lengths, out, nullptr, nullptr, part_o, part_ml, tickets, dtype, b,
+                    s, kvh, g, d, splits, fixed_rows, scale, stream_ptr);
+}
+
+// K2p, the same launch with the fold's state as its output: o (b, kv*g, d)
+// the unnormalised sum_s exp(s - m) v_s, m and l (b, kv*g) the running max
+// and sum, all f32 (kernels/decode_attention/ref.py::decode_attention_partial);
+// a row with lengths[b] == 0 gets o = 0, m = NEG_INF, l = 0 exactly.  The
+// other arguments are decode_attention_launch's.
+extern "C" int decode_attention_partial_launch(const void* q, const void* k, const void* v,
+                                               const int* lengths, float* o, float* m,
+                                               float* l, float* part_o, float* part_ml,
+                                               int* tickets, int dtype, int b, int s, int kvh,
+                                               int g, int d, int splits, int fixed_rows,
+                                               float scale, void* stream_ptr) {
+  if (o == nullptr || m == nullptr || l == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_any(q, k, v, lengths, o, m, l, part_o, part_ml, tickets, dtype, b, s, kvh, g, d,
+                    splits, fixed_rows, scale, stream_ptr);
 }

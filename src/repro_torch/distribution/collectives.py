@@ -11,6 +11,10 @@ rank of it, and so does its gradient (DTensor's convention for
   whose ranks each use a different part of it);
 * :func:`reduce_from` — all-reduce; backward identity (rank partials that
   sum to a replicated value);
+* :func:`psum` — all-reduce; backward all-reduce (rank partials that sum
+  to a value each rank then uses for its own part of a sharded tensor, so
+  its gradient comes back in partials too: a norm's sum of squares over a
+  feature dim split across ranks);
 * :func:`gather_rep` — all-gather along ``dim``; backward keeps the
   rank's own chunk (the output is replicated);
 * :func:`gather_rs` — all-gather along ``dim``; backward reduce-scatters
@@ -95,6 +99,21 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class _GatherRep(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -141,6 +160,10 @@ def copy_to(x, group):
 
 def reduce_from(x, group):
     return x if size(group) == 1 else _ReduceFrom.apply(x, group)
+
+
+def psum(x, group):
+    return x if size(group) == 1 else _Psum.apply(x, group)
 
 
 def gather_rep(x, group, dim: int):

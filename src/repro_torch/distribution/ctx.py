@@ -28,10 +28,12 @@ parallel layers:
 
 Callable overrides (``override(name)``), for steps that need more than a
 change of placement: ``moe_impl``, ``unembed``, ``cross_entropy``,
-``seq_offset`` (the global position of the rank's first sequence row),
-and for serving ``init_cache``, ``cache_fill``, ``cache_write``,
-``cache_len``, ``decode_attention`` (a cache whose sequence is split over
-ranks) and ``last_position``.
+``norm_var`` (the gated norm's mean of squares over features split across
+ranks), ``seq_offset`` (the global position of the rank's first sequence
+row), and for serving ``last_position`` and, where a cache's sequence is
+split over ranks, ``cache_rows`` (the rank's rows of a cache of
+``max_len``), ``cache_fill``, ``cache_write``, ``cache_len`` and
+``decode_attention``.
 """
 from __future__ import annotations
 

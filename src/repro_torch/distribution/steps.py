@@ -29,30 +29,40 @@ DTensor holds the placement; the math runs on each rank's local blocks
 with explicit collectives (``distribution/collectives.py``), the way the
 reference's ``shard_map`` regions do: DTensor's own sharding propagation
 (torch 2.13) spent 60-150 s choosing a strategy for one matmul on a
-three-axis mesh.  Two ways through the layers:
+three-axis mesh.  Every family runs tensor parallel, as the reference's
+rules lay it out:
 
-* tensor parallel (the dense, MoE and VLM families; VLM only at sp = 1):
-  Megatron-style column- and row-parallel products over ``tp`` (the
-  models' ``constrain`` calls), the sequence over ``sp`` with the k/v
-  all-gather, the vocabulary over ``tp`` in the logits and the loss, the
-  experts over ``tp`` with an all-to-all (``moe_parallel.py``);
-* data parallel (the SSM, hybrid and audio families, and VLM at sp > 1):
-  each rank gathers its layers' weights whole and runs its batch block;
-  the ``tp`` and ``sp`` ranks of one batch block compute the same thing.
+* Megatron-style column- and row-parallel products over ``tp`` (the
+  models' ``constrain`` calls ``tp_in`` / ``tp_out``): attention on the
+  rank's heads, the MLP on its block of ``d_ff``, the experts over ``tp``
+  with an all-to-all (``moe_parallel.py``), the vocabulary over ``tp`` in
+  the logits and the loss;
+* the Mamba2 block on the rank's ``h / tp`` SSM heads (``in_z``, ``in_x``,
+  ``in_dt``, ``conv_x``, ``A_log``, ``dt_bias``, ``D_skip``, ``norm_w``
+  by heads, ``out_proj`` row-parallel); ``in_BC`` and its conv stay whole
+  (one SSM group), their gradients, which cover the rank's heads only,
+  summed over ``tp``; the gated norm's mean over ``d_inner`` is a sum of
+  squares summed over ``tp`` (``norm_var``);
+* the encoder-decoder's cross-attention column-parallel over a memory
+  replicated over ``tp``;
+* the sequence over ``sp`` with the k/v all-gather for the attention
+  families (dense, MoE, VLM; a VLM rank takes its block of the prefix and
+  the text together); the SSM, hybrid and audio layers run each ``sp``
+  rank on the whole sequence.
 
-Either way, FSDP weight blocks are all-gathered over ``data`` before the
-forward, the gradients are reduce-scattered back to them (and all-reduced
-over the batch axes where a weight is replicated), and AdamW's global norm
-is the norm of the whole gradient.  The hand-written kernels take the
-rank's plain tensors, as in the unsharded path.
+FSDP weight blocks are all-gathered over ``data`` before the forward, the
+gradients are reduce-scattered back to them (and all-reduced over the
+batch axes where a weight is replicated), and AdamW's global norm is the
+norm of the whole gradient.  The hand-written kernels take the rank's
+plain tensors, as in the unsharded path.
 
 ``build_prefill_step`` and ``build_serve_step`` shard every family's
-serving the same two ways, with the caches stored as ``cache_shardings``
-says: the tensor-parallel families keep their cache blocks (a layer's
-blocks are all-gathered to the whole sequence when the cache's sequence is
-split over ranks, then the decode kernel runs), the data-parallel ones
-gather their batch block's cache whole for the step and keep their block
-of the result.
+serving the same way, with the caches stored as ``cache_shardings`` says:
+each rank keeps its cache blocks.  Where the cache's sequence is split over
+ranks (``sp``, ``tp`` when kv heads are duplicated, ``data`` when the batch
+cannot split), decode attention is flash-decoding across ranks: the decode
+kernel's partial output (K2p, ``decode_attention_partial``) over the
+rank's block, an all-reduce of the max and one of the rescaled ``(o, l)``.
 """
 from __future__ import annotations
 
@@ -69,7 +79,7 @@ from repro_torch.distribution import sharding as shlib
 from repro_torch.distribution.ctx import sharding_context
 from repro_torch.distribution.moe_parallel import make_moe_sharded
 from repro_torch.distribution.sharding import LogicalMesh, Sharding
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import decode_attention_partial
 from repro_torch.models import encdec, hybrid, mamba2, transformer
 from repro_torch.models.registry import get_model
 from repro_torch.optim.optimizers import (
@@ -199,11 +209,10 @@ def _local(x, sharding: Sharding):
 # --------------------------------------------------------------------------- #
 # The rank's view of one sharded step
 # --------------------------------------------------------------------------- #
-def tensor_parallel(cfg: ModelConfig, plan) -> bool:
-    """Whether the layers run tensor parallel (else data parallel, see the
-    module docstring)."""
-    return cfg.family in ("dense", "moe") or (cfg.family == "vlm"
-                                              and plan.sp == 1)
+# Families whose layers run on a block of the sequence (the sp ranks hold
+# different tokens, k and v all-gathered); the others' scans and
+# cross-attention run each sp rank on the whole sequence.
+_SEQ_SPLIT = ("dense", "moe", "vlm")
 
 
 class _Shards:
@@ -213,10 +222,10 @@ class _Shards:
                  batch_shardable: bool = True):
         self.cfg, self.lmesh, self.kind = cfg, lmesh, kind
         plan = lmesh.plan
-        self.tp_mode = tensor_parallel(cfg, plan)
         self.batch_shardable = batch_shardable
-        self.tp = plan.tp if self.tp_mode else 1
-        self.sp = plan.sp if (self.tp_mode and kind != "decode") else 1
+        self.tp = plan.tp
+        self.sp = plan.sp if (kind != "decode"
+                              and cfg.family in _SEQ_SPLIT) else 1
         self.tp_group = lmesh.group("tp") if self.tp > 1 else None
         self.sp_group = lmesh.group("sp") if self.sp > 1 else None
         self.kv_shardable = plan.tp > 1 and cfg.num_kv_heads % plan.tp == 0
@@ -225,7 +234,7 @@ class _Shards:
             ("sp",) if self.sp > 1 else ())
         self.seq_start = 0
         H, KV = cfg.num_heads, cfg.num_kv_heads
-        if self.tp_mode and self.tp > 1:
+        if self.tp > 1:
             t = lmesh.coord("tp")
             hl = H // self.tp
             self.q_heads = range(t * hl, (t + 1) * hl)
@@ -233,6 +242,14 @@ class _Shards:
                              if self.kv_shardable else range(KV))
             self.local_cfg = dataclasses.replace(
                 cfg, num_heads=hl, num_kv_heads=len(self.kv_local))
+            if cfg.family in ("ssm", "hybrid") and (
+                    cfg.ssm_heads % self.tp or cfg.ssm_groups > 1):
+                # in_BC stays whole for one group; more would need the
+                # rank's groups picked out of B and C.
+                raise ValueError(
+                    f"{cfg.name}: tp={self.tp} needs ssm_heads "
+                    f"({cfg.ssm_heads}) divisible by tp and one SSM group "
+                    f"(has {cfg.ssm_groups})")
         else:
             self.q_heads, self.kv_local = range(H), range(KV)
             self.local_cfg = cfg
@@ -257,16 +274,19 @@ class _Shards:
                 batch_shardable=self.batch_shardable)
         if self.kind == "train":
             rules["cross_entropy"] = self._cross_entropy
-        if not self.tp_mode:  # the roles' Shardings leave plain tensors be
-            return rules
         D = cfg.d_model
         if self.tp > 1:
-            tpg = self.tp_group
+            tpg, tp = self.tp_group, self.tp
             rules["tp_in"] = lambda x: cc.copy_to(x, tpg)
             rules["tp_out"] = lambda x: cc.reduce_from(x, tpg)
             rules["act_btd"] = lambda x: (cc.gather_rep(x, tpg, -1)
                                           if x.shape[-1] != D else x)
             rules["unembed"] = self._unembed
+            # The gated norm's mean over the whole d_inner: each rank's sum
+            # of squares over its block, summed over tp.
+            rules["norm_var"] = lambda xf: cc.psum(
+                torch.sum(xf * xf, dim=-1, keepdim=True), tpg) / (
+                    xf.shape[-1] * tp)
             if not self.kv_shardable:
                 rules["kv_heads"] = self._kv_heads
         if self.sp > 1:
@@ -298,7 +318,7 @@ class _Shards:
         return cc.reduce_from(xs @ p["embedding"].T, tpg).float()
 
     def _vocab_parallel(self) -> bool:
-        return self.tp_mode and self.tp > 1 and not self.cfg.tie_embeddings
+        return self.tp > 1 and not self.cfg.tie_embeddings
 
     def _cross_entropy(self, logits, targets, mask, vocab_size):
         """Token mean over every rank's tokens: this rank's share (its
@@ -340,13 +360,9 @@ class _Shards:
         def block(max_len):
             return cache_sh.block(2, max_len)
 
-        def init_cache(cfg_, b, max_len, *, device):
-            start, size = block(max_len)
+        def rows(max_len):
             self.max_len = max_len
-            shape = (cfg.num_layers, b, size, len(self.kv_local), cfg.head_dim)
-            dt = transformer.dtype_of(cfg)
-            return {"k": torch.zeros(shape, dtype=dt, device=device),
-                    "v": torch.zeros(shape, dtype=dt, device=device), "pos": 0}
+            return block(max_len)[1]
 
         def fill(cache, k):
             start, size = block(self.max_len)
@@ -364,65 +380,51 @@ class _Shards:
                 return cc.gather_rep(x[:, -1:], self.sp_group, 1)[:, -1]
             return x[:, -1]
 
-        rules = {"init_cache": init_cache, "last_position": last_position}
+        self.block = block
+        rules = {"last_position": last_position}
         if seq_axes:
-            rules.update(cache_fill=fill, cache_write=write,
+            rules.update(cache_rows=rows, cache_fill=fill, cache_write=write,
                          decode_attention=self._decode_attention,
                          cache_len=lambda: self.max_len)
         return rules
 
     def _decode_attention(self, q, k_cache, v_cache, pos, impl):
-        """Attention over a cache whose sequence is split over ranks: the
-        layer's blocks all-gathered to the whole sequence (minor axis
-        first), the rank's q heads' kv heads picked, then the decode
-        kernel (its plain version on the CPU)."""
-        k, v = self.whole_seq(k_cache), self.whole_seq(v_cache)
-        if self.tp > 1 and not self.kv_shardable:
-            k, v = self._kv_heads(k), self._kv_heads(v)
-        lengths = torch.full((q.shape[0],), pos + 1, dtype=torch.int32,
-                             device=q.device)
-        return decode_attention(q, k, v, lengths, impl=impl)
-
-    def whole_seq(self, cache: torch.Tensor) -> torch.Tensor:
-        for a in reversed(self.cache_axes):
-            cache = cc.all_gather(cache, self.lmesh.group(a), 1)
-        return cache
-
-    # ---- data-parallel serving: caches whole over the non-batch axes ----
-    def _non_dp(self, sh: Sharding) -> Sharding:
-        """``sh`` without the batch axes (a block over them is the rank's
-        batch block, which it keeps)."""
-        dp = set(self.lmesh.dp)
-
-        def strip(e):
-            names = tuple(a for a in shlib._names(e) if a not in dp)
-            return None if not names else names[0] if len(names) == 1 \
-                else names
-        return self.lmesh.sharding(*[strip(e) for e in sh.spec])
-
-    def whole(self, local: torch.Tensor, sh: Sharding) -> torch.Tensor:
-        """A block made whole over its non-batch axes."""
-        for dim, e in enumerate(self._non_dp(sh).spec):
-            for a in reversed(shlib._names(e)):
-                local = cc.all_gather(local, self.lmesh.group(a), dim)
-        return local
-
-    def block(self, t: torch.Tensor, sh: Sharding) -> torch.Tensor:
-        """The rank's block, over the non-batch axes, of ``whole``'s."""
-        return self._non_dp(sh).local(t).contiguous()
+        """Attention over a cache whose sequence is split over ranks, the
+        flash-decoding combine across them: K2p over the rank's block, the
+        max of ``m`` all-reduced over the cache's axes (minor first), then
+        one sum of ``l`` and ``o`` rescaled to that max, packed together;
+        the division in f32.  Where kv heads are duplicated the sequence
+        splits over ``tp`` too, and the tp ranks hold different query
+        heads: each rank attends every head's query (all-gathered over
+        ``tp``, ``b * H * d`` values) over its block, and keeps its heads of
+        the combined output."""
+        start, size = self.block(self.max_len)
+        heads_split = "tp" in self.cache_axes
+        if heads_split:
+            q = cc.all_gather(q, self.tp_group, 1)
+        b, d = q.shape[0], q.shape[-1]
+        lengths = torch.full((b,), min(max(pos + 1 - start, 0), size),
+                             dtype=torch.int32, device=q.device)
+        o, m, l = decode_attention_partial(q, k_cache, v_cache, lengths,
+                                           impl=impl)
+        groups = self.groups(reversed(self.cache_axes))
+        top = m.clone()
+        for g in groups:
+            cc.all_reduce_(top, g, dist.ReduceOp.MAX)
+        w = torch.exp(m - top)
+        packed = torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1)
+        for g in groups:
+            cc.all_reduce_(packed, g)
+        out = packed[..., :d] / torch.clamp_min(packed[..., d:], 1e-37)
+        if heads_split:
+            out = cc.chunk_of(out, self.tp_group, 1)
+        return out.to(q.dtype)
 
     # ---- params ----
-    def gathered_axes(self, spec: tuple) -> set:
-        """Mesh axes a param is all-gathered over before the forward: the
-        FSDP ``data`` axis, and every axis in the data-parallel layers."""
-        axes = {a for e in spec for a in shlib._names(e)}
-        if not self.tp_mode:
-            return axes
-        return axes & {"data"}
-
     def local_param(self, leaf: torch.Tensor, sh: Sharding) -> torch.Tensor:
-        """The param the rank's forward reads, made whole over its
-        gathered axes (a fresh tensor, or the DTensor's own block)."""
+        """The param the rank's forward reads: its block, all-gathered over
+        the FSDP ``data`` axis (a fresh tensor, or the DTensor's own
+        block)."""
         local = leaf.to_local() if isinstance(leaf, DTensor) else sh.local(leaf)
         for a in sorted(self.gathered_axes(sh.spec)):
             dim = next(i for i, e in enumerate(sh.spec)
@@ -431,11 +433,17 @@ class _Shards:
                 if self.lmesh.size(a) > 1 else local
         return local.detach()
 
+    @staticmethod
+    def gathered_axes(spec: tuple) -> set:
+        """Mesh axes a param is all-gathered over before the forward."""
+        return {a for e in spec for a in shlib._names(e)} & {"data"}
+
     def layout(self, params: Any) -> Any:
-        """The tree the forward reads: kv_dup weights with their tp
-        partials summed in the backward, fused projections cut to the
-        rank's heads."""
-        if not (self.tp_mode and self.tp > 1):
+        """The tree the forward reads: fused projections cut to the rank's
+        heads; weights replicated over tp whose gradients come back in tp
+        partials (kv_dup's k and v, the SSM's in_BC and its conv, whose
+        gradients cover the rank's heads only) summed in the backward."""
+        if self.tp == 1:
             return params
         tpg, cfg = self.tp_group, self.cfg
         hd, H, KV = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
@@ -470,14 +478,24 @@ class _Shards:
                     [cc.chunk_of(gate, tpg, 1), cc.chunk_of(up, tpg, 1)], 1)
             return p
 
-        out = dict(params)
-        out["layers"] = []
-        for lp in params["layers"]:
+        def layer(lp):
             lp = dict(lp)
-            lp["attn"] = attn(lp["attn"])
+            for k in ("attn", "cross"):
+                if k in lp:
+                    lp[k] = attn(lp[k])
             if "mlp" in lp:
                 lp["mlp"] = mlp(lp["mlp"])
-            out["layers"].append(lp)
+            for k in ("in_BC", "conv_BC_w", "conv_BC_b"):
+                if k in lp:
+                    lp[k] = cc.copy_to(lp[k], tpg)
+            return lp
+
+        out = dict(params)
+        for k in ("layers", "mamba_layers", "encoder", "decoder"):
+            if k in params:
+                out[k] = [layer(lp) for lp in params[k]]
+        if "shared_attn" in params:
+            out["shared_attn"] = layer(params["shared_attn"])
         return out
 
     def reduce_grad(self, g: torch.Tensor, sh: Sharding) -> torch.Tensor:
@@ -497,14 +515,45 @@ class _Shards:
         return g
 
     def batch_local(self, batch: dict, shardings: dict) -> dict:
+        """The rank's block of each batch field; sets ``seq_start``.  Where
+        the sequence does not split (``self.sp == 1``) every sp rank takes
+        it whole.  A VLM's sequence is the prefix, then the text: the rank
+        takes its block of the two together."""
+        vlm = self.cfg.family == "vlm"
         out = {}
         for k, v in batch.items():
             sh = shardings[k]
-            if not self.tp_mode:  # data parallel: the batch block only
+            if self.sp == 1 or vlm:
                 sh = self.lmesh.sharding(*[
                     e if e is None or "sp" not in shlib._names(e) else None
                     for e in sh.spec])
             out[k] = _local(v, sh)
+        if self.sp > 1:
+            if vlm:
+                out = self._prefix_block(out)
+            else:
+                self.seq_start = (self.lmesh.coord("sp")
+                                  * out["tokens"].shape[-1])
+        return out
+
+    def _prefix_block(self, local: dict) -> dict:
+        """The rank's block of ``cat(prefix_embeds, tokens)`` along the
+        sequence: the prefix rows and the text rows (with their targets and
+        mask) that fall in it."""
+        F = local["prefix_embeds"].shape[-2]
+        T = local["tokens"].shape[-1]
+        if (F + T) % self.sp:
+            raise ValueError(f"a sequence of {F} + {T} rows does not split "
+                             f"over sp={self.sp}")
+        size = (F + T) // self.sp
+        start = self.seq_start = self.lmesh.coord("sp") * size
+        p0, p1 = min(start, F), min(start + size, F)
+        t0, t1 = max(start - F, 0), max(start + size - F, 0)
+        out = dict(local)
+        out["prefix_embeds"] = local["prefix_embeds"].narrow(-2, p0, p1 - p0)
+        for k in ("tokens", "targets", "mask"):
+            if k in local:
+                out[k] = local[k].narrow(-1, t0, t1 - t0)
         return out
 
 
@@ -626,9 +675,6 @@ def _sharded_train_step(cfg, lmesh: LogicalMesh, shape: ShapeConfig,
             with sharding_context(rules):
                 for i in range(n):
                     mb = {k: v[i] for k, v in local_batch.items()}
-                    if shards.sp > 1:
-                        shards.seq_start = (lmesh.coord("sp")
-                                            * mb["tokens"].shape[-1])
                     loss, _ = api.loss_fn(shards.layout(params_tree), mb,
                                           shards.local_cfg)
                     loss.backward()
@@ -720,32 +766,23 @@ def _serve_params(shards: _Shards, params, pshard):
     return shards.layout(_unflatten(params, used))
 
 
-def _cache_in(shards: _Shards, caches, cshard):
-    """The rank's cache: its blocks (tensor parallel) or its batch block
-    whole over the other axes (data parallel)."""
-    def leaf(v, sh):
-        if not isinstance(v, torch.Tensor):
-            return v
-        v = _local(v, sh)
-        return v if shards.tp_mode else shards.whole(v, sh)
-    return tree_map(leaf, caches, cshard)
+def _cache_in(caches, cshard):
+    """The rank's cache blocks."""
+    return tree_map(lambda v, sh: _local(v, sh)
+                    if isinstance(v, torch.Tensor) else v, caches, cshard)
 
 
-def _cache_out(shards: _Shards, cache, cshard, cshape):
-    """The step's cache as DTensors of the cache shardings."""
-    def leaf(v, sh, meta):
-        if not isinstance(v, torch.Tensor):
-            return v
-        if not shards.tp_mode:
-            v = shards.block(v, sh)
-        return sh.place(v, meta.shape)
-    return tree_map(leaf, cache, cshard, cshape)
+def _cache_out(cache, cshard, cshape):
+    """The step's cache blocks as DTensors of the cache shardings."""
+    return tree_map(lambda v, sh, meta: sh.place(v, meta.shape)
+                    if isinstance(v, torch.Tensor) else v,
+                    cache, cshard, cshape)
 
 
 def _logits_out(shards: _Shards, logits, logit_shard: Sharding, b: int):
     """Last-position logits as a DTensor (batch over dp, vocab over tp):
-    where every tp rank holds the whole vocabulary (tied embeddings, the
-    data-parallel families) it keeps its block."""
+    where every tp rank holds the whole vocabulary (tied embeddings) it
+    keeps its block."""
     if logit_shard.shards(1) > 1 and logits.shape[-1] == padded_vocab(
             shards.cfg.vocab_size):
         logits = cc.chunk_of(logits, shards.lmesh.group("tp"),
@@ -780,13 +817,13 @@ def build_serve_step(cfg: ModelConfig, lmesh, shape: ShapeConfig):
 
     def serve_step(params, caches, token):
         local_params = _serve_params(shards, params, pshard)
-        cache = _cache_in(shards, caches, cshard)
+        cache = _cache_in(caches, cshard)
         with torch.no_grad(), sharding_context(rules):
             logits, cache = api.decode_step(local_params,
                                             _local(token, tshard),
                                             shards.local_cfg, cache)
         return (_logits_out(shards, logits, logit_shard, shape.global_batch),
-                _cache_out(shards, cache, cshard, cshape))
+                _cache_out(cache, cshard, cshape))
 
     token_spec = ((shape.global_batch,), torch.int32)
     return serve_step, (pshard, cshard, tshard), (logit_shard, cshard), (
@@ -827,8 +864,6 @@ def build_prefill_step(cfg: ModelConfig, lmesh, shape: ShapeConfig):
     def prefill_step(params, *args):
         local_params = _serve_params(shards, params, pshard)
         local = shards.batch_local(dict(zip(names, args)), bsh)
-        if shards.sp > 1:
-            shards.seq_start = lmesh.coord("sp") * local["tokens"].shape[1]
         kw = ({"prefix_embeds": local["prefix_embeds"]}
               if cfg.family == "vlm" else {})
         lead = (local["src_embeds"],) if cfg.family == "audio" else ()
@@ -836,7 +871,7 @@ def build_prefill_step(cfg: ModelConfig, lmesh, shape: ShapeConfig):
             logits, cache = api.prefill(local_params, *lead, local["tokens"],
                                         shards.local_cfg, s, **kw)
         return (_logits_out(shards, logits, logit_shard, b),
-                _cache_out(shards, cache, cshard, cshape))
+                _cache_out(cache, cshard, cshape))
 
     return prefill_step, (pshard,) + in_batch, (logit_shard, cshard), (
         pshape,) + inputs

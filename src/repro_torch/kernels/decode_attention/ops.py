@@ -32,12 +32,22 @@ explicitly: every index is clamped into range and the dropped writes put
 back what was there.  Unlike the reference's functional updates they write
 the cache *in place* (and return it), so an arena is never copied.
 
+``decode_attention_partial(q, k_cache, v_cache, lengths, ...)`` (K2p) is
+the same kernel, launch and split plan with the fold's state as its
+output: each ``(b, h)``'s unnormalised ``o`` and its ``m`` and ``l``, in
+f32, the contract of the plain :func:`.ref.decode_attention_partial`
+(an empty row gives ``o = 0``, ``m = NEG_INF``, ``l = 0``).  A rank that
+holds one block of a cache's sequence runs it on its block, and the ranks'
+states combine as :func:`.ref.combine_partials` combines splits
+(``distribution/steps.py``).  It dispatches as ``decode_attention`` does.
+
 Under :func:`repro_torch.roofline.op_analysis.analyze` each call records
 its work (``op_analysis.decode_attention_work`` over the rows its lengths
 select) whichever route runs it.
 
 ``decode_attention.launches`` counts kernel launches (one per call that
-reaches the kernel, one kernel per launch); nothing else touches it.  When
+reaches the kernel, one kernel per launch); nothing else touches it.
+``decode_attention_partial.launches`` counts K2p's likewise.  When
 a caller sets ``decode_attention.shapes`` to a set, each launch also adds
 its ``(b, s, h, kv, d, dtype name)`` to it.
 """
@@ -48,9 +58,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.decode_attention import ref as _ref
 from repro_torch.kernels.decode_attention.ref import (
     combine_partials,
-    decode_attention_partial,
     decode_attention_ref,
 )
 from repro_torch.roofline import op_analysis
@@ -188,6 +198,10 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fn = lib.decode_attention_partial_launch
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -216,7 +230,10 @@ def _ticket_buffer(device: torch.device, groups: int) -> torch.Tensor:
     return buf
 
 
-def _decode_attention_cuda(q, k_cache, v_cache, lengths, scale, block_k):
+def _decode_attention_cuda(q, k_cache, v_cache, lengths, scale, block_k,
+                           partial: bool = False):
+    """The kernel's launch: the output in q's dtype, or (``partial``,
+    K2p) the f32 ``(o, m, l)``."""
     if q.device.type != "cuda":
         raise ValueError(
             f"impl='cuda' needs CUDA tensors, q is on {q.device}")
@@ -245,7 +262,12 @@ def _decode_attention_cuda(q, k_cache, v_cache, lengths, scale, block_k):
             v_cache.data_ptr() % 16:
         raise ValueError("decode_attention kernel needs 16-byte aligned "
                          "q and caches")
-    out = torch.empty_like(q)
+    if partial:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m, l = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+                for _ in range(2))
+    else:
+        out = torch.empty_like(q)
     p = plan(b, kvh, s, d=d, itemsize=q.element_size(), g=g,
              sm_count=_sm_count(q.device), block_k=block_k)
     part_o = part_ml = tickets = None
@@ -257,22 +279,28 @@ def _decode_attention_cuda(q, k_cache, v_cache, lengths, scale, block_k):
         tickets = _ticket_buffer(q.device, b * kvh)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library().decode_attention_launch(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(),
-            None if part_o is None else part_o.data_ptr(),
-            None if part_ml is None else part_ml.data_ptr(),
-            None if tickets is None else tickets.data_ptr(),
-            code, b, s, kvh, g, d, p.splits, p.fixed_rows, float(scale),
-            stream)
+        head = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                lengths.data_ptr(), out.data_ptr())
+        scratch = (None if part_o is None else part_o.data_ptr(),
+                   None if part_ml is None else part_ml.data_ptr(),
+                   None if tickets is None else tickets.data_ptr())
+        tail = (code, b, s, kvh, g, d, p.splits, p.fixed_rows, float(scale),
+                stream)
+        if partial:
+            err = _library().decode_attention_partial_launch(
+                *head, m.data_ptr(), l.data_ptr(), *scratch, *tail)
+        else:
+            err = _library().decode_attention_launch(*head, *scratch, *tail)
     if err != 0:
         raise RuntimeError(
-            f"decode_attention kernel launch failed: cudaError {err}")
-    decode_attention.launches += 1
-    if decode_attention.shapes is not None:
-        decode_attention.shapes.add(
+            f"decode_attention{'_partial' if partial else ''} kernel launch "
+            f"failed: cudaError {err}")
+    counter = decode_attention_partial if partial else decode_attention
+    counter.launches += 1
+    if counter.shapes is not None:
+        counter.shapes.add(
             (b, s, h, kvh, d, str(q.dtype).removeprefix("torch.")))
-    return out
+    return (out, m, l) if partial else out
 
 
 def decode_attention(
@@ -287,6 +315,35 @@ def decode_attention(
 ) -> torch.Tensor:
     """Softmax attention of ``q`` over ``k_cache[i, :lengths[i]]`` ->
     ``(b, h, d)`` in q's dtype; a ``lengths == 0`` row is exact zeros."""
+    return _call(False, q, k_cache, v_cache, lengths, scale, block_k, impl)
+
+
+decode_attention.launches = 0
+decode_attention.shapes = None
+
+
+def decode_attention_partial(
+    q: torch.Tensor,  # (b, h, d)
+    k_cache: torch.Tensor,  # (b, s_block, kv, d): one block of the cache
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,  # (b,) int32: valid rows of THIS block
+    *,
+    scale: "float | None" = None,
+    block_k: "int | None" = None,
+    impl: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2p: the flash-decoding state of ``q`` over ``k_cache[i,
+    :lengths[i]]``, ``(o (b, h, d), m (b, h), l (b, h))`` in f32 (see the
+    module docstring); a ``lengths == 0`` row is ``(0, NEG_INF, 0)``."""
+    return _call(True, q, k_cache, v_cache, lengths, scale, block_k, impl)
+
+
+decode_attention_partial.launches = 0
+decode_attention_partial.shapes = None
+
+
+def _call(partial: bool, q, k_cache, v_cache, lengths, scale, block_k,
+          impl: str):
     b, h, d = q.shape
     if k_cache.ndim != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d \
             or v_cache.shape != k_cache.shape:
@@ -304,27 +361,34 @@ def decode_attention(
         kvh = k_cache.shape[2]
         work = op_analysis.decode_attention_work(
             b, h, kvh, d, k_cache.element_size(),
-            op_analysis.decode_rows(lengths, k_cache.shape[1]))
-        return op_analysis.kernel_call("decode_attention", work, _route, q,
-                                       k_cache, v_cache, lengths, scale,
-                                       block_k, impl)
-    return _route(q, k_cache, v_cache, lengths, scale, block_k, impl)
+            op_analysis.decode_rows(lengths, k_cache.shape[1]),
+            partial=partial)
+        return op_analysis.kernel_call(
+            "decode_attention_partial" if partial else "decode_attention",
+            work, _route, partial, q, k_cache, v_cache, lengths, scale,
+            block_k, impl)
+    return _route(partial, q, k_cache, v_cache, lengths, scale, block_k, impl)
 
 
-decode_attention.launches = 0
-decode_attention.shapes = None
-
-
-def _route(q, k_cache, v_cache, lengths, scale, block_k, impl: str):
+def _route(partial: bool, q, k_cache, v_cache, lengths, scale, block_k,
+           impl: str):
     if impl == "ref":
+        if partial:
+            return _ref.decode_attention_partial(q, k_cache, v_cache, lengths,
+                                                 scale=scale)
         return decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
     if impl == "cuda":
         return _decode_attention_cuda(q, k_cache, v_cache, lengths, scale,
-                                      block_k)
+                                      block_k, partial)
     if impl == "meta":
         if q.device.type != "meta":
             raise ValueError(f"impl='meta' needs meta tensors, q is on "
                              f"{q.device}")
+        if partial:
+            return (torch.empty(q.shape, dtype=torch.float32,
+                                device=q.device),
+                    *(torch.empty(q.shape[:2], dtype=torch.float32,
+                                  device=q.device) for _ in range(2)))
         return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     raise ValueError(f"unknown impl {impl!r}")
 

@@ -63,7 +63,9 @@ def decode_attention_partial(
     Returns ``(o, m, l)``: ``o`` (b, h, d) is the split's *unnormalized*
     ``sum_s exp(s - m) v_s``, ``m`` (b, h) its running max and ``l`` (b, h)
     its ``sum_s exp(s - m)``.  ``combine_partials`` folds any number of
-    splits into the full softmax output.
+    splits into the full softmax output.  A row with no valid entry in the
+    split gives ``o = 0``, ``m = NEG_INF``, ``l = 0`` exactly: nothing to
+    fold (the all-masked softmax would otherwise weigh every row alike).
     """
     b, h, d = q.shape
     kv = k_cache.shape[2]
@@ -78,7 +80,9 @@ def decode_attention_partial(
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
-    return o.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h)
+    empty = (lengths <= 0).reshape(b, 1)
+    o = torch.where(empty[..., None], 0.0, o.reshape(b, h, d))
+    return o, m.reshape(b, h), torch.where(empty, 0.0, l.reshape(b, h))
 
 
 def combine_partials(

@@ -13,7 +13,10 @@ cross-attention to ``decode_attention`` with every length equal to the
 number of source frames (the reference calls the plain version there, the
 same function).
 
-Layers are Python lists of per-layer param dicts (:func:`params_from_numpy`
+The reference's ``constrain`` calls stand at its places, and the port's
+tensor-parallel ones (``tp_in`` / ``tp_out`` around each column- and
+row-parallel product; no-ops outside a sharding context).  Layers are
+Python lists of per-layer param dicts (:func:`params_from_numpy`
 unstacks the reference's scanned layers).  The cache follows the port's
 transformer: stacked ``(num_layers, b, max_len, kv, hd)`` K/V written in
 place at a host int ``pos``, plus stacked ``(num_layers, b, s_src, kv, hd)``
@@ -35,6 +38,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.device import resolve_device
+from repro_torch.distribution import ctx as shard_ctx
+from repro_torch.distribution.ctx import constrain
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
@@ -93,8 +98,9 @@ def _enc_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _project_qkv(lp["attn"], hn, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = _attend(q, k, v, cfg, causal=False)  # bidirectional
-    x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
+    o = _attend(q, constrain(k, "kv_heads"), constrain(v, "kv_heads"), cfg,
+                causal=False)  # bidirectional
+    x = x + constrain(o.reshape(b, s, -1) @ lp["attn"]["wo"], "tp_out")
     return x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
 
 
@@ -113,8 +119,12 @@ def encode(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _cross_kv(lp: Params, memory: torch.Tensor, cfg: ModelConfig):
+    """The cross K/V of the memory (column-parallel under tensor
+    parallelism: the memory is replicated over the ranks, each projects
+    its kv heads)."""
     b, s_src, _ = memory.shape
     shape = (b, s_src, cfg.num_kv_heads, cfg.head_dim)
+    memory = constrain(memory, "tp_in")
     return ((memory @ lp["cross"]["wk"]).reshape(shape),
             (memory @ lp["cross"]["wv"]).reshape(shape))
 
@@ -128,14 +138,16 @@ def _dec_layer(lp: Params, x: torch.Tensor, memory: torch.Tensor,
     q, k, v = _project_qkv(lp["attn"], hn, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = _attend(q, k, v, cfg, causal=True)
-    x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
+    o = _attend(q, constrain(k, "kv_heads"), constrain(v, "kv_heads"), cfg,
+                causal=True)
+    x = x + constrain(o.reshape(b, s, -1) @ lp["attn"]["wo"], "tp_out")
     # Cross-attention: no RoPE, the whole memory.
-    hn = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
+    hn = constrain(rmsnorm(x, lp["ln_x"], cfg.norm_eps), "tp_in")
     qc = (hn @ lp["cross"]["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
     mk, mv = _cross_kv(lp, memory, cfg)
-    oc = _attend(qc, mk, mv, cfg, causal=False)
-    x = x + oc.reshape(b, s, -1) @ lp["cross"]["wo"]
+    oc = _attend(qc, constrain(mk, "kv_heads"), constrain(mv, "kv_heads"),
+                 cfg, causal=False)
+    x = x + constrain(oc.reshape(b, s, -1) @ lp["cross"]["wo"], "tp_out")
     x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
     return x, k, v, mk, mv
 
@@ -148,7 +160,7 @@ def _dec_layer_x(lp: Params, x: torch.Tensor, memory: torch.Tensor,
 def decode_train(params: Params, tokens: torch.Tensor, memory: torch.Tensor,
                  cfg: ModelConfig, *, remat: bool = False) -> torch.Tensor:
     """Teacher-forced decoder forward: logits (b, s, padded_vocab) f32."""
-    x = embed_apply(params["embed"], tokens)
+    x = constrain(embed_apply(params["embed"], tokens), "act_btd")
     positions = _positions(x)
     for lp in params["decoder"]:
         if remat:
@@ -196,17 +208,24 @@ def prefill(params: Params, src_embeds: torch.Tensor, tokens: torch.Tensor,
     Returns (last-position logits (b, padded_vocab), cache).
     """
     memory = encode(params, src_embeds, cfg)
-    x = embed_apply(params["embed"], tokens)
+    x = constrain(embed_apply(params["embed"], tokens), "act_btd")
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens does not fit max_len "
                          f"{max_len}")
     positions = _positions(x)
-    cache = init_cache(cfg, b, max_len, memory.shape[1], device=x.device)
+    rows = shard_ctx.override("cache_rows")  # the rank's block of max_len
+    fill = shard_ctx.override("cache_fill")
+    cache = init_cache(cfg, b, rows(max_len) if rows else max_len,
+                       memory.shape[1], device=x.device)
     for i, lp in enumerate(params["decoder"]):
         x, k, v, mk, mv = _dec_layer(lp, x, memory, cfg, positions)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        if fill is not None:
+            fill(cache["k"][i], k)
+            fill(cache["v"][i], v)
+        else:
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
         cache["xk"][i] = mk
         cache["xv"][i] = mv
     cache["pos"] = s
@@ -220,9 +239,11 @@ def decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
     the token's self K/V into ``cache`` in place; the returned cache shares
     its tensors and carries ``pos + 1``."""
     pos = int(cache["pos"])
-    if pos >= cache["k"].shape[2]:
-        raise ValueError(f"cache of {cache['k'].shape[2]} positions is full")
-    x = embed_apply(params["embed"], token[:, None])
+    cache_len = shard_ctx.override("cache_len")
+    max_len = cache_len() if cache_len is not None else cache["k"].shape[2]
+    if pos >= max_len:
+        raise ValueError(f"cache of {max_len} positions is full")
+    x = constrain(embed_apply(params["embed"], token[:, None]), "act_btd")
     b = x.shape[0]
     s_src = cache["xk"].shape[2]
     lengths = torch.full((b,), s_src, dtype=torch.int32, device=x.device)
@@ -232,11 +253,11 @@ def decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
             lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
             {"k": cache["k"][i], "v": cache["v"][i], "pos": pos})
         x = x + h
-        hn = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
+        hn = constrain(rmsnorm(x, lp["ln_x"], cfg.norm_eps), "tp_in")
         qc = (hn @ lp["cross"]["wq"]).reshape(b, cfg.num_heads, cfg.head_dim)
         oc = decode_attention(qc.contiguous(), cache["xk"][i],
                               cache["xv"][i], lengths, impl=impl)
-        x = x + oc.reshape(b, 1, -1) @ lp["cross"]["wo"]
+        x = x + constrain(oc.reshape(b, 1, -1) @ lp["cross"]["wo"], "tp_out")
         x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return (unembed_apply(params["embed"], x[:, 0]),

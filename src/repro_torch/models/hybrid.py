@@ -28,6 +28,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.device import resolve_device
+from repro_torch.distribution import ctx as shard_ctx
+from repro_torch.distribution.ctx import constrain
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
@@ -73,7 +75,7 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 def apply(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
           remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (b, s, padded_vocab) f32, aux_loss = 0)."""
-    x = embed_apply(params["embed"], tokens)
+    x = constrain(embed_apply(params["embed"], tokens), "act_btd")
     positions = _positions(x)
     attn_at = set(_attn_positions(cfg))
     mb = m2.rematerialized(m2.block_apply, remat)
@@ -116,7 +118,9 @@ def attention_prefill(sp: Params, x: torch.Tensor, cfg: ModelConfig,
                       positions: torch.Tensor, max_len: int
                       ) -> tuple[torch.Tensor, dict]:
     """One application of the shared block over a prompt: returns (x, its
-    KV cache ``{"k", "v"}`` of ``max_len`` rows, ``"pos"``: prompt length)."""
+    KV cache ``{"k", "v"}`` of ``max_len`` rows (the rank's block of them
+    where the cache's sequence is split over ranks), ``"pos"``: prompt
+    length)."""
     b, s, _ = x.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens does not fit max_len "
@@ -125,23 +129,31 @@ def attention_prefill(sp: Params, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _project_qkv(sp["attn"], hn, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = _attend(q, k, v, cfg, causal=True)
-    x = x + o.reshape(b, s, -1) @ sp["attn"]["wo"]
+    o = _attend(q, constrain(k, "kv_heads"), constrain(v, "kv_heads"), cfg,
+                causal=True)
+    x = x + constrain(o.reshape(b, s, -1) @ sp["attn"]["wo"], "tp_out")
     hn = rmsnorm(x, sp["ln2"], cfg.norm_eps)
     x = x + mlp_apply(sp["mlp"], hn, cfg)
     dt = tfm.dtype_of(cfg)
-    shape = (b, max_len, cfg.num_kv_heads, cfg.head_dim)
+    rows = shard_ctx.override("cache_rows")
+    shape = (b, rows(max_len) if rows else max_len, cfg.num_kv_heads,
+             cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dt, device=x.device),
              "v": torch.zeros(shape, dtype=dt, device=x.device), "pos": s}
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
+    fill = shard_ctx.override("cache_fill")
+    if fill is not None:
+        fill(cache["k"], k)
+        fill(cache["v"], v)
+    else:
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
     return x, cache
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int) -> tuple[torch.Tensor, dict]:
     """Returns (last-position logits (b, padded_vocab), cache)."""
-    x = embed_apply(params["embed"], tokens)
+    x = constrain(embed_apply(params["embed"], tokens), "act_btd")
     positions = _positions(x)
     attn_at = set(_attn_positions(cfg))
     caches = {"mamba": [], "attn": []}
@@ -160,16 +172,17 @@ def decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
                 caches: dict) -> tuple[torch.Tensor, dict]:
     """One-token decode: returns (logits (b, padded_vocab), cache); each
     application's K/V row is written in place."""
-    x = embed_apply(params["embed"], token[:, None])
+    x = constrain(embed_apply(params["embed"], token[:, None]), "act_btd")
     attn_at = _attn_positions(cfg)
+    cache_len = shard_ctx.override("cache_len")
     new = {"mamba": [], "attn": []}
     ai = 0
     for i, lp in enumerate(params["mamba_layers"]):
         if i in attn_at:
             cache = caches["attn"][ai]
-            if int(cache["pos"]) >= cache["k"].shape[1]:
-                raise ValueError(f"cache of {cache['k'].shape[1]} positions "
-                                 "is full")
+            max_len = cache_len() if cache_len else cache["k"].shape[1]
+            if int(cache["pos"]) >= max_len:
+                raise ValueError(f"cache of {max_len} positions is full")
             x, c = tfm.layer_decode(params["shared_attn"], x, cfg, cache)
             new["attn"].append(c)
             ai += 1

@@ -24,7 +24,8 @@ Inside one, the sharded steps (``distribution/steps.py``) run each layer on
 the rank's shards and the calls do the tensor-parallel collectives:
 ``tp_in`` before a column-parallel product, ``tp_out`` after a row-parallel
 one, ``act_kv`` gathers the sequence of k and v, ``kv_heads`` picks the kv
-heads of the rank's q heads; the kernels always take the rank's plain
+heads of the rank's q heads, ``norm_var`` takes the gated norm's mean over
+features split across ranks; the kernels always take the rank's plain
 tensors.
 """
 from __future__ import annotations
@@ -74,9 +75,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
 
 def rmsnorm_gated(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
-    """Mamba2 gated RMSNorm: norm(x * silu(z)) * w."""
+    """Mamba2 gated RMSNorm: norm(x * silu(z)) * w.  Under tensor
+    parallelism x holds the rank's block of the features, and the
+    ``norm_var`` override takes the mean over all of them."""
     xf = (x * F.silu(z.float()).to(x.dtype)).float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var_fn = shard_ctx.override("norm_var")
+    var = (torch.mean(xf * xf, dim=-1, keepdim=True) if var_fn is None
+           else var_fn(xf))
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 

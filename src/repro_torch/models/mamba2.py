@@ -10,7 +10,9 @@ per-layer param dicts and the decode cache as a list of per-layer dicts
 ``{"conv_x", "conv_BC", "ssm"}`` (the reference stacks both for
 ``lax.scan`` when ``cfg.scan_layers``; :func:`params_from_numpy` unstacks
 its params).  The reference's ``constrain`` calls stand at its places
-(``distribution/ctx.py``; no-ops outside a sharding context).  ``loss_fn`` trains through the
+(``distribution/ctx.py``; no-ops outside a sharding context); under tensor
+parallelism a block runs on the rank's SSM heads, which it reads off its
+params' shapes (:func:`_heads`).  ``loss_fn`` trains through the
 scan's backward (``kernels/ssd_scan/ops.py::SsdScan``: the hand-written
 backward on a card), each block rematerialized under ``remat``
 (``torch.utils.checkpoint``, non-reentrant, as ``transformer.loss_fn``).
@@ -125,13 +127,20 @@ def _dt(dt_raw: torch.Tensor, p: Params) -> torch.Tensor:
     return F.softplus(dt_raw.float() + p["dt_bias"])
 
 
+def _heads(p: Params, cfg: ModelConfig) -> tuple[int, int]:
+    """(heads, d_inner) of the block's params: the rank's share under
+    tensor parallelism, else the config's."""
+    h = p["in_dt"].shape[-1]
+    return h, h * cfg.ssm_head_dim
+
+
 def _scan(p: Params, x: torch.Tensor, xs, BC, dt_raw, cfg: ModelConfig,
           impl: str):
     """The SSD scan of a block over the conv outputs, with the D skip.
     Returns (y (b, l, di) in x's dtype, final state)."""
     b, l, _ = x.shape
-    di, g, n, h, _ = _dims(cfg)
-    hd = cfg.ssm_head_dim
+    g, n, hd = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    h, di = _heads(p, cfg)
     B, C = torch.split(BC, g * n, dim=-1)  # strided views: the kernel
     dt = _dt(dt_raw, p)                    # takes contiguous tensors only
     A = -torch.exp(p["A_log"])
@@ -152,7 +161,7 @@ def scan_impl(cfg: ModelConfig) -> str:
 
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 *, impl: str = "auto") -> torch.Tensor:
-    hn = rmsnorm(x, p["ln"], cfg.norm_eps)
+    hn = constrain(rmsnorm(x, p["ln"], cfg.norm_eps), "tp_in")
     z, xp, BC_raw, dt_raw = _project(p, hn)
     z, xp = constrain(z, "ssm_inner"), constrain(xp, "ssm_inner")
     BC_raw = constrain(BC_raw, "ssm_bc")
@@ -161,7 +170,7 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y, _ = _scan(p, x, xs, BC, dt_raw, cfg, impl)
     y = rmsnorm_gated(constrain(y, "ssm_inner"), z, p["norm_w"],
                       cfg.norm_eps)
-    return constrain(x + y @ p["out_proj"], "act_btd")
+    return constrain(x + constrain(y @ p["out_proj"], "tp_out"), "act_btd")
 
 
 def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -169,7 +178,7 @@ def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Like block_apply but returns the decode cache (conv tail + ssm state)."""
     l = x.shape[1]
     width = cfg.ssm_conv_width
-    hn = rmsnorm(x, p["ln"], cfg.norm_eps)
+    hn = constrain(rmsnorm(x, p["ln"], cfg.norm_eps), "tp_in")
     z, xp, BC_raw, dt_raw = _project(p, hn)
     xs = _causal_conv(xp, p["conv_x_w"], p["conv_x_b"])
     BC = _causal_conv(BC_raw, p["conv_BC_w"], p["conv_BC_b"])
@@ -182,16 +191,16 @@ def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
         "conv_BC": BC_raw[:, l - (width - 1):].to(x.dtype, copy=True),
         "ssm": state,
     }
-    return x + y @ p["out_proj"], cache
+    return x + constrain(y @ p["out_proj"], "tp_out"), cache
 
 
 def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  cache: dict) -> tuple[torch.Tensor, dict]:
     """One-token recurrent update: x (b, 1, d)."""
     b = x.shape[0]
-    di, g, n, h, _ = _dims(cfg)
-    hd = cfg.ssm_head_dim
-    hn = rmsnorm(x, p["ln"], cfg.norm_eps)
+    g, n, hd = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    h, di = _heads(p, cfg)
+    hn = constrain(rmsnorm(x, p["ln"], cfg.norm_eps), "tp_in")
     z, xp, BC_raw, dt_raw = _project(p, hn)
     conv_x_in = torch.cat([cache["conv_x"], xp], dim=1)  # (b, width, di)
     conv_BC_in = torch.cat([cache["conv_BC"], BC_raw], dim=1)
@@ -211,7 +220,7 @@ def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = rmsnorm_gated(y, z, p["norm_w"], cfg.norm_eps)
     new_cache = {"conv_x": conv_x_in[:, 1:], "conv_BC": conv_BC_in[:, 1:],
                  "ssm": state}
-    return x + y @ p["out_proj"], new_cache
+    return x + constrain(y @ p["out_proj"], "tp_out"), new_cache
 
 
 # --------------------------------------------------------------------------- #
@@ -282,7 +291,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, *,
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int = 0) -> tuple[torch.Tensor, list]:
     """Returns (last-position logits (b, padded_vocab), per-layer caches)."""
-    x = embed_apply(params["embed"], tokens)
+    x = constrain(embed_apply(params["embed"], tokens), "act_btd")
     caches = []
     for lp in params["layers"]:
         x, c = block_prefill(lp, x, cfg)
@@ -293,7 +302,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def decode_step(params: Params, token: torch.Tensor, cfg: ModelConfig,
                 caches: list) -> tuple[torch.Tensor, list]:
-    x = embed_apply(params["embed"], token[:, None])
+    x = constrain(embed_apply(params["embed"], token[:, None]), "act_btd")
     new = []
     for lp, cache in zip(params["layers"], caches):
         x, c = block_decode(lp, x, cfg, cache)

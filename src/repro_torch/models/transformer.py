@@ -205,8 +205,9 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"prompt of {s} tokens does not fit max_len "
                          f"{max_len}")
     positions = _positions(b, s, x.device)
-    make_cache = shard_ctx.override("init_cache") or init_cache
-    cache = make_cache(cfg, b, max_len, device=x.device)
+    rows = shard_ctx.override("cache_rows")  # the rank's block of max_len
+    cache = init_cache(cfg, b, rows(max_len) if rows else max_len,
+                       device=x.device)
     fill = shard_ctx.override("cache_fill")
     for i, lp in enumerate(params["layers"]):
         hn = rmsnorm(x, lp["ln1"], cfg.norm_eps)

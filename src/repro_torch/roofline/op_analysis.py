@@ -99,12 +99,14 @@ def fed_reduce_work(n: int, d: int, itemsize: int, scaled: bool) -> Work:
 
 
 def decode_attention_work(b: int, h: int, kv: int, d: int, itemsize: int,
-                          rows: int) -> Work:
+                          rows: int, partial: bool = False) -> Work:
     """K2: ``rows`` cache rows (summed over the batch: what the lengths
     select) read once from K and V, q read and the output written, the
-    int32 lengths read; 4 d flops per (row, query head)."""
+    int32 lengths read; 4 d flops per (row, query head).  K2p
+    (``partial``) writes its f32 state instead: o (b, h, d), m and l."""
+    out = b * h * (d + 2) * 4 if partial else b * h * d * itemsize
     return Work(4 * rows * h * d,
-                2 * rows * kv * d * itemsize + 2 * b * h * d * itemsize
+                2 * rows * kv * d * itemsize + b * h * d * itemsize + out
                 + 4 * b)
 
 

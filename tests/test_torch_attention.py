@@ -78,7 +78,9 @@ def test_decode_plain_matches_reference(case, dt):
 
 def test_decode_partial_combine_matches_reference_and_full():
     """Split partials + combine == the full decode, and each split's
-    (o, m, l) equals the reference's (3e-5)."""
+    (o, m, l) equals the reference's (3e-5); a split with no valid row is
+    (0, NEG_INF, 0) exactly (the reference's is NEG_INF with the uniform
+    weights of an all-masked softmax, which the combine weighs by 0)."""
     b, s, h, kv, d, nsh = 2, 512, 6, 2, 64, 8
     rng = np.random.default_rng(1)
     q, kc, vc = (_rand(rng, (b, h, d)), _rand(rng, (b, s, kv, d)),
@@ -89,7 +91,7 @@ def test_decode_partial_combine_matches_reference_and_full():
                                      torch.from_numpy(vc),
                                      torch.from_numpy(lens))
     ssh = s // nsh
-    parts = []
+    parts, empties = [], 0
     for i in range(nsh):
         sl = slice(i * ssh, (i + 1) * ssh)
         shard_len = np.clip(lens - i * ssh, 0, ssh).astype(np.int32)
@@ -99,14 +101,88 @@ def test_decode_partial_combine_matches_reference_and_full():
         j = jdec.decode_attention_partial(
             jnp.asarray(q), jnp.asarray(kc[:, sl]), jnp.asarray(vc[:, sl]),
             jnp.asarray(shard_len))
+        full_rows = shard_len > 0
+        empties += int((~full_rows).sum())
         for a, r in zip(t, j):
-            np.testing.assert_allclose(_np(a), _np(r), atol=3e-5, rtol=3e-5)
+            np.testing.assert_allclose(_np(a)[full_rows], _np(r)[full_rows],
+                                       atol=3e-5, rtol=3e-5)
+        o, m, l = t
+        assert torch.equal(o[~torch.from_numpy(full_rows)],
+                           torch.zeros_like(o[~torch.from_numpy(full_rows)]))
+        assert bool((m[~torch.from_numpy(full_rows)]
+                     == tdec._ref.NEG_INF).all())
+        assert bool((l[~torch.from_numpy(full_rows)] == 0).all())
+        np.testing.assert_array_equal(_np(m)[~full_rows],
+                                      _np(j[1])[~full_rows])
         parts.append(t)
+    assert empties > 0  # the case holds empty splits
     out = tdec.combine_partials(*(torch.stack(x) for x in zip(*parts)))
     np.testing.assert_allclose(out.numpy(), full.numpy(), atol=3e-5)
     jout = jdec.combine_partials(
         *(jnp.asarray(torch.stack(x).numpy()) for x in zip(*parts)))
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=3e-5)
+
+
+@pytest.mark.parametrize("blocks", [2, 4])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_partial_on_rank_blocks_matches_reference(blocks, dt):
+    """K2p's wrapper (``decode_attention_partial``, its plain version on
+    the CPU) on each rank's block of a sequence-split cache, at a GQA group
+    of 3 (llama3.2-3b's): every block with rows matches the reference's
+    ``decode_attention_partial`` within the dtype's tolerance, empty blocks
+    (one sequence shorter than a block, one of length 0) are (0, NEG_INF,
+    0) exactly, and the ranks' states combined (``combine_partials``, as
+    the sharded decode combines them) equal the reference's combine and
+    the whole-cache decode."""
+    b, s, h, kv, d = 4, 96, 6, 2, 32
+    rng = np.random.default_rng(blocks)
+    q, kc, vc = (_rand(rng, (b, h, d)), _rand(rng, (b, s, kv, d)),
+                 _rand(rng, (b, s, kv, d)))
+    lens = np.array([s, 13, s // blocks + 5, 0], np.int32)
+    tol = DTYPES[dt][2]
+    (jq, tq), (jk, tk), (jv, tv) = _pair(q, dt), _pair(kc, dt), _pair(vc, dt)
+    size = s // blocks
+    parts, jparts = [], []
+    for r in range(blocks):
+        sl = slice(r * size, (r + 1) * size)
+        n = np.clip(lens - r * size, 0, size).astype(np.int32)
+        got = tdec.decode_attention_partial(
+            tq, tk[:, sl].contiguous(), tv[:, sl].contiguous(),
+            torch.from_numpy(n))
+        assert [t.dtype for t in got] == [torch.float32] * 3
+        assert [tuple(t.shape) for t in got] == [(b, h, d), (b, h), (b, h)]
+        want = jdec.decode_attention_partial(jq, jk[:, sl], jv[:, sl],
+                                             jnp.asarray(n))
+        rows = n > 0
+        for a, w in zip(got, want):
+            np.testing.assert_allclose(_np(a)[rows], _np(w)[rows], atol=tol,
+                                       rtol=tol)
+        o, m, l = (t[torch.from_numpy(~rows)] for t in got)
+        assert not bool(o.any()) and not bool(l.any())
+        assert bool((m == tdec._ref.NEG_INF).all())
+        parts.append(got)
+        jparts.append(want)
+    assert sum(int((np.clip(lens - r * size, 0, size) == 0).sum())
+               for r in range(blocks)) >= blocks  # empty blocks were held
+    out = tdec.combine_partials(*(torch.stack(x) for x in zip(*parts)),
+                                out_dtype=tq.dtype)
+    jout = jdec.combine_partials(*(jnp.stack(x) for x in zip(*jparts)),
+                                 out_dtype=jq.dtype)
+    whole = tdec.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    full = lens > 0  # the reference's all-masked row is no attention
+    np.testing.assert_allclose(_np(out)[full], _np(jout)[full], atol=tol,
+                               rtol=tol)
+    np.testing.assert_allclose(_np(out), _np(whole), atol=tol, rtol=tol)
+
+
+def test_decode_partial_meta_route_gives_f32_state_shapes():
+    q = torch.empty((2, 6, 64), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((2, 40, 2, 64), dtype=torch.bfloat16, device="meta")
+    lens = torch.full((2,), 7, dtype=torch.int32, device="meta")
+    o, m, l = tdec.decode_attention_partial(q, k, k, lens)
+    assert (o.shape, m.shape, l.shape) == ((2, 6, 64), (2, 6), (2, 6))
+    assert {o.dtype, m.dtype, l.dtype} == {torch.float32}
+    assert o.device.type == "meta"
 
 
 def test_decode_reused_slot_ignores_stale_kv():

@@ -362,6 +362,94 @@ def test_decode_kernel_leaves_its_tickets_at_zero(cuda_device):
                                    rtol=2e-2)
 
 
+@pytest.mark.parametrize("blocks", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_k", [None, 16])
+def test_decode_partial_kernel_on_rank_blocks(cuda_device, blocks, dtype,
+                                              block_k):
+    """K2p at llama3.2-3b's decode shape, the cache cut into rank blocks:
+    each block's (o, m, l) against the plain ``decode_attention_partial``
+    (3e-5 f32, 2e-2 bf16 of the largest entry), blocks past a sequence's length exactly (0,
+    NEG_INF, 0), two launches bitwise equal and counted, the splits folded
+    in a cluster (by length) or through the tickets (block_k = 16); the
+    blocks combined equal the whole-cache decode kernel."""
+    from repro_torch.kernels.decode_attention import ref
+    from repro_torch.kernels.decode_attention.ops import (
+        combine_partials, decode_attention_partial)
+
+    b, s, h, kv, d = 16, 577, 24, 8, 128
+    gen = torch.Generator().manual_seed(blocks)
+    q = _randn(gen, (b, h, d), dtype, cuda_device)
+    kc = _randn(gen, (b, s, kv, d), dtype, cuda_device)
+    vc = _randn(gen, (b, s, kv, d), dtype, cuda_device)
+    lens = torch.randint(1, s + 1, (b,), generator=gen, dtype=torch.int32)
+    lens[0], lens[1], lens[-1] = 0, 100, s
+    lens = lens.to(cuda_device)
+    tol = ATTN_TOL[dtype]
+    bounds = [round(i * s / blocks) for i in range(blocks + 1)]
+    parts, empty = [], 0
+    for lo, hi in zip(bounds, bounds[1:]):
+        kb, vb = kc[:, lo:hi].contiguous(), vc[:, lo:hi].contiguous()
+        lb = (lens - lo).clamp(0, hi - lo).to(torch.int32)
+        before = decode_attention_partial.launches
+        got = decode_attention_partial(q, kb, vb, lb, block_k=block_k)
+        again = decode_attention_partial(q, kb, vb, lb, block_k=block_k)
+        plain = ref.decode_attention_partial(q, kb, vb, lb)
+        torch.cuda.synchronize()
+        assert decode_attention_partial.launches == before + 2
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        assert [t.dtype for t in got] == [torch.float32] * 3
+        full = lb > 0
+        for a, w in zip(got, plain):  # o is an unnormalised sum: to its max
+            assert _rel_to_max(a[full], w[full]) <= tol
+        o, m, l = (t[~full] for t in got)
+        empty += int((~full).sum())
+        assert not o.any() and not l.any() and (m == ref.NEG_INF).all()
+        parts.append(got)
+    assert empty >= blocks - 1
+    out = combine_partials(*(torch.stack(x) for x in zip(*parts)),
+                           out_dtype=dtype)
+    whole = decode_attention(q, kc, vc, lens)
+    torch.testing.assert_close(out.float(), whole.float(), atol=tol,
+                               rtol=tol)
+
+
+# The scans on a tensor-parallel rank's heads: mamba2-1.3b's (n = 128) and
+# zamba2-1.2b's (n = 64) 64 heads at tp = 16 and 32.
+SSD_TP_CASES = [(2, 512, hl, 64, 1, n, 128) for n in (128, 64)
+                for hl in (4, 2)]
+
+
+@pytest.mark.parametrize("case", SSD_TP_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernels_on_a_tensor_parallel_ranks_heads(cuda_device, case,
+                                                      dtype):
+    """The forward scan and K4b at 4 and 2 heads (bf16 on the tensor-core
+    routes, whose blocks take up to 8 heads: here one partial block)
+    against their plain versions at the limits of the cases above."""
+    gen = torch.Generator().manual_seed(sum(case) + 5)
+    args = _ssd_inputs(gen, case, dtype, cuda_device)
+    b, l, h, p, g, n, chunk = case
+    y, st = ssd_ops.ssd_scan(*args, chunk=chunk)
+    py, ps = ssd_ops.ssd_scan(*args, chunk=chunk, impl="chunked")
+    dy = _randn(gen, (b, l, h, p), dtype, cuda_device)
+    got = ssd_ops._ssd_scan_bwd_cuda(*args, dy, None, chunk)
+    again = ssd_ops._ssd_scan_bwd_cuda(*args, dy, None, chunk)
+    plain = ssd_ops.ssd_bwd_ref(*args, dy, None, chunk=chunk)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, py, atol=3e-4, rtol=0)
+    else:
+        assert bool(((y.float() - py.float()).abs()
+                     <= 2e-2 * (1 + py.float().abs())).all())
+    torch.testing.assert_close(st, ps, atol=3e-4, rtol=0)
+    tol = 3e-4 if dtype == torch.float32 else 2e-2
+    for name, a, a2, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, again,
+                              plain):
+        assert torch.equal(a, a2), f"{name} is not bitwise repeatable"
+        assert _rel_to_max(a, w) <= tol, name
+
+
 @pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_and_repeats(cuda_device, case, dtype):

@@ -7,10 +7,14 @@
   ``batch_shardings`` and ``cache_shardings`` role by role.
 * Worlds of gloo CPU ranks, each in a subprocess (a ``FileStore`` in
   ``tmp_path`` for the rendezvous): 8 ranks run the sharded train steps
-  (dense and MoE on a (2, 4) mesh, and a tp = 2, sp = 2 plan) and the
-  sharded decode, held against the port's unsharded run and against the
-  reference's run of the same plan (8 fake host devices) at the reference's
-  tolerances in bf16 and within 1e-5 in f32; 4 ranks run the fleet-sharded
+  (dense and MoE on a (2, 4) mesh, a tp = 2, sp = 2 plan, and the SSM,
+  hybrid and audio families tensor parallel at tp = 4 and the VLM at tp =
+  sp = 2), the sharded decode (its cache's sequence split over tp, sp, or
+  data and sp: the decode kernel's partials combined across ranks) and
+  the families' prefill and decode, held against the port's unsharded run
+  and against the reference's run of the same plan (8 fake host devices)
+  at the reference's tolerances in bf16 and within 1e-5 in f32, from the
+  same batches (numpy files both sides read); 4 ranks run the fleet-sharded
   ``fed_reduce``, the tiers over 2 fleet shards and the mesh errors; 1 rank
   runs the one-shard paths and the CLI.  The initial states reach the port
   through its checkpointer, restored straight into the sharded placements
@@ -30,21 +34,56 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 TINY = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
             head_dim=16, vocab_size=512)
+
+
+def _smoke(arch):
+    """The smoke config's fields (but its dtype), for both packages."""
+    import dataclasses
+
+    from repro.configs.registry import get_config
+
+    out = dataclasses.asdict(get_config(arch, smoke=True))
+    out.pop("dtype")
+    return out
+
+
 CFGS = {
     "dense": dict(name="tiny", family="dense", d_ff=128, **TINY),
     "moe": dict(name="tinymoe", family="moe", d_ff=64, num_experts=4,
                 experts_per_token=2, **TINY),
+    # The SSM, hybrid, audio and VLM families at their smoke widths.
+    "mamba2": _smoke("mamba2_1_3b"),
+    "zamba2": _smoke("zamba2_1_2b"),
+    "seamless": _smoke("seamless_m4t_medium"),
+    "vlm": _smoke("internvl2_26b"),
 }
+SP2 = {"tp": 2, "sp": 2}
 # (config, dtype, plan or None for choose_mesh_plan on the (2, 4) mesh)
 TRAIN_CASES = {
     f"{fam}_{tag}_{dt}": (fam, dtype, plan)
     for fam, tag, plan in (("dense", "2x4", None), ("moe", "2x4", None),
-                           ("dense", "sp2", {"tp": 2, "sp": 2}))
+                           ("dense", "sp2", SP2))
     for dt, dtype in (("bf16", "bfloat16"), ("f32", "float32"))}
+# Tensor parallel at tp = 4 (the SSM blocks on 2 of their 8 heads each),
+# and the VLM at tp = sp = 2 (the prefix split over sp with the text).
+FAMILY_TRAIN = {"mamba2_2x4_f32": ("mamba2", "float32", None),
+                "zamba2_2x4_f32": ("zamba2", "float32", None),
+                "seamless_2x4_f32": ("seamless", "float32", None),
+                "vlm_sp2_f32": ("vlm", "float32", SP2)}
+TRAIN_CASES.update(FAMILY_TRAIN)
+# (config, dtype, plan, batch): 2x4 duplicates kv heads (tp = 4 over 2):
+# the cache's sequence splits over tp; sp2 over sp; a batch of 1 does not
+# split over data, so the sequence splits over data and sp.
 DECODE_CASES = {
-    f"decode_{tag}_{dt}": ("dense", dtype, plan)
-    for tag, plan in (("2x4", None), ("sp2", {"tp": 2, "sp": 2}))
+    f"decode_{tag}_{dt}": ("dense", dtype, plan, b)
+    for tag, plan, b in (("2x4", None, 8), ("sp2", SP2, 8),
+                         ("nobatch", SP2, 1))
     for dt, dtype in (("bf16", "bfloat16"), ("f32", "float32"))}
+# Prefill of 24 tokens into a 64-row cache, then two decode steps, f32.
+SERVE_CASES = {"mamba2_1_3b": ("mamba2", None), "zamba2_1_2b": ("zamba2", None),
+               "seamless_m4t_medium": ("seamless", None),
+               "internvl2_26b": ("vlm", SP2)}
+SERVE_PROMPT, SERVE_LEN, SERVE_BATCH = 24, 64, 8
 TOL_TRAIN, TOL_DECODE, TOL_F32 = 5e-2, 2e-1, 1e-5
 
 
@@ -305,9 +344,11 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import jax, jax.numpy as jnp, numpy as np
 from repro.configs.base import ModelConfig, ShapeConfig, MeshPlan, choose_mesh_plan
 from repro.distribution.sharding import derive_logical_mesh
-from repro.distribution.steps import build_train_step, build_serve_step, init_train_state
+from repro.distribution.steps import (build_prefill_step, build_serve_step,
+                                      build_train_step, init_train_state)
 from repro.models.registry import get_model
-out_dir, cfgs, train_cases, decode_cases = sys.argv[1], *map(json.loads, sys.argv[2:5])
+out_dir, cfgs, train_cases, decode_cases, serve_cases = (
+    sys.argv[1], *map(json.loads, sys.argv[2:6]))
 
 def flat(tree):
     return {"/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path):
@@ -319,10 +360,14 @@ def lmesh_of(cfg, plan):
     plan = MeshPlan(**plan) if plan else choose_mesh_plan(cfg, model_axis=4)
     return derive_logical_mesh(mesh, plan)
 
-rng = np.random.default_rng(0)
-batch = {"tokens": jnp.asarray(rng.integers(0, 512, (2, 4, 32)), jnp.int32),
-         "targets": jnp.asarray(rng.integers(0, 512, (2, 4, 32)), jnp.int32),
-         "mask": jnp.ones((2, 4, 32), jnp.float32)}
+def load(name):
+    with np.load(os.path.join(out_dir, name)) as d:
+        return {k: d[k] for k in d.files}
+
+def as_jax(tree):
+    return {k: jnp.asarray(v, jnp.bfloat16 if k.endswith("embeds") else v.dtype)
+            for k, v in tree.items()}
+
 res = {}
 for name, (fam, dtype, plan) in train_cases.items():
     cfg = ModelConfig(dtype=dtype, **cfgs[fam])
@@ -330,28 +375,57 @@ for name, (fam, dtype, plan) in train_cases.items():
     fn, in_sh, out_sh, _ = build_train_step(
         cfg, lm, ShapeConfig("t", seq_len=32, global_batch=8, kind="train",
                              microbatches=2))
+    batch = as_jax(load(f"batch_{name}.npz"))
     with lm.mesh:
         state = init_train_state(cfg, seed=0)
         jitted = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh)
-        for _ in range(2):
+        for i in range(2):
             state, m = jitted(state, batch)
+            if i == 0:  # the first moment after one step: 0.1 x the gradient
+                np.savez(os.path.join(out_dir, f"ref_{name}_m1.npz"),
+                         **flat(state["opt"]["m"]))
     np.savez(os.path.join(out_dir, f"ref_{name}.npz"), **flat(state["params"]))
     res[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
-for name, (fam, dtype, plan) in decode_cases.items():
+for name, (fam, dtype, plan, b) in decode_cases.items():
     cfg = ModelConfig(dtype=dtype, **cfgs[fam])
     lm = lmesh_of(cfg, plan)
     fn, in_sh, out_sh, _ = build_serve_step(
-        cfg, lm, ShapeConfig("d", seq_len=64, global_batch=8, kind="decode"))
+        cfg, lm, ShapeConfig("d", seq_len=64, global_batch=b, kind="decode"))
     api = get_model(cfg)
     with lm.mesh:
         params = api.init(jax.random.PRNGKey(0), cfg)
-        caches = api.init_cache(cfg, 8, 64)
-        tok = jnp.arange(8, dtype=jnp.int32) + 3
+        caches = api.init_cache(cfg, b, 64)
+        tok = jnp.arange(b, dtype=jnp.int32) + 3
         jitted = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh)
         logits, caches = jitted(params, caches, tok)
         logits2, _ = jitted(params, caches, tok + 1)
     np.save(os.path.join(out_dir, f"ref_{name}.npy"),
             np.asarray(jnp.asarray(logits2, jnp.float32)))
+for arch, (fam, plan, b, max_len) in serve_cases.items():
+    cfg = ModelConfig(dtype="float32", **cfgs[fam])
+    lm = lmesh_of(cfg, plan)
+    api = get_model(cfg)
+    inputs = load(f"serve_{arch}.npz")
+    names = {"audio": ("src_embeds", "tokens"),
+             "vlm": ("tokens", "prefix_embeds")}.get(cfg.family, ("tokens",))
+    pfn, pin, pout, _ = build_prefill_step(
+        cfg, lm, ShapeConfig("p", seq_len=max_len, global_batch=b, kind="prefill"))
+    sfn, sin, sout, _ = build_serve_step(
+        cfg, lm, ShapeConfig("d", seq_len=max_len, global_batch=b, kind="decode"))
+    with lm.mesh:
+        params = api.init(jax.random.PRNGKey(0), cfg)
+        args = [jnp.asarray(inputs[n], jnp.bfloat16 if n.endswith("embeds")
+                            else jnp.int32) for n in names]
+        logits, caches = jax.jit(pfn, in_shardings=pin, out_shardings=pout)(
+            params, *args)
+        step = jax.jit(sfn, in_shardings=sin, out_shardings=sout)
+        tok = jnp.arange(b, dtype=jnp.int32) + 3
+        d1, caches = step(params, caches, tok)
+        d2, _ = step(params, caches, tok + 1)
+    np.savez(os.path.join(out_dir, f"ref_serve_{arch}.npz"),
+             **{k: np.asarray(jnp.asarray(v, jnp.float32))
+                for k, v in (("prefill", logits), ("decode1", d1),
+                             ("decode2", d2))})
 print(json.dumps(res))
 '''
 
@@ -403,17 +477,21 @@ from repro_torch.distribution.steps import (
     build_serve_step, build_train_step, gather, init_train_state, place,
     place_params, train_state_shardings)
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, mamba2, transformer
 from repro_torch.models.registry import get_model
 
-CFGS, TRAIN, DECODE = (json.loads(a) for a in sys.argv[2:5])
+CFGS, TRAIN, DECODE, SERVE = (json.loads(a) for a in sys.argv[2:6])
+
+def module(cfg):
+    return {"ssm": mamba2, "hybrid": hybrid, "audio": encdec}.get(cfg.family, transformer)
+
+def load(out_dir, name):
+    with np.load(os.path.join(out_dir, name)) as d:
+        return {k: torch.from_numpy(d[k]).to(torch.bfloat16) if k.endswith("embeds")
+                else torch.from_numpy(d[k]) for k in d.files}
 
 def body(rank, world, out_dir):
     mesh = make_host_mesh(2, 4)
-    rng = np.random.default_rng(0)
-    batch = {"tokens": torch.tensor(rng.integers(0, 512, (2, 4, 32)), dtype=torch.int32),
-             "targets": torch.tensor(rng.integers(0, 512, (2, 4, 32)), dtype=torch.int32),
-             "mask": torch.ones((2, 4, 32))}
     shape = ShapeConfig("t", seq_len=32, global_batch=8, kind="train", microbatches=2)
     res = {}
 
@@ -423,51 +501,61 @@ def body(rank, world, out_dir):
 
     for name, (fam, dtype, plan) in TRAIN.items():
         cfg = ModelConfig(dtype=dtype, **CFGS[fam])
+        to_np = module(cfg).params_to_numpy
         lm = lmesh_of(cfg, plan)
+        batch = load(out_dir, f"batch_{name}.npz")
         ck = Checkpointer(os.path.join(out_dir, f"init_{fam}_{dtype}"))
         like = init_train_state(cfg, 0, device="cpu")
         state, _ = ck.restore(like, shardings=train_state_shardings(cfg, lm, like))
         fn = build_train_step(cfg, lm, shape)[0]
-        for _ in range(2):
+        for i in range(2):
             state, m = fn(state, batch)
-        params = transformer.params_to_numpy(gather(state["params"]), cfg)
+            if i == 0:  # the first moment after one step: 0.1 x the gradient
+                m1 = to_np(gather(state["opt"]["m"]), cfg)
+        params = to_np(gather(state["params"]), cfg)
         r = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
              "plan": str(lm.plan)}
         if rank == 0:
             np.savez(os.path.join(out_dir, f"port_{name}.npz"), **flat(params))
+            np.savez(os.path.join(out_dir, f"port_{name}_m1.npz"), **flat(m1))
             plain, _ = ck.restore(like)
             fn1 = build_train_step(cfg, None, shape)[0]
-            for _ in range(2):
-                plain, m1 = fn1(plain, batch)
+            for i in range(2):
+                plain, pm = fn1(plain, batch)
+                if i == 0:
+                    np.savez(os.path.join(out_dir, f"plain_{name}_m1.npz"),
+                             **flat(to_np(plain["opt"]["m"], cfg)))
             np.savez(os.path.join(out_dir, f"plain_{name}.npz"),
-                     **flat(transformer.params_to_numpy(plain["params"], cfg)))
-            r["plain_loss"] = float(m1["loss"])
-            r["plain_grad_norm"] = float(m1["grad_norm"])
+                     **flat(to_np(plain["params"], cfg)))
+            r["plain_loss"] = float(pm["loss"])
+            r["plain_grad_norm"] = float(pm["grad_norm"])
         res[name] = r
-    for name, (fam, dtype, plan) in DECODE.items():
+    for name, (fam, dtype, plan, b) in DECODE.items():
         cfg = ModelConfig(dtype=dtype, **CFGS[fam])
         lm = lmesh_of(cfg, plan)
         api = get_model(cfg)
         ck = Checkpointer(os.path.join(out_dir, f"params_{fam}_{dtype}"))
         params, _ = ck.restore(api.init(0, cfg, device="cpu"))
         fn, (psh, csh, tsh), _, _ = build_serve_step(
-            cfg, lm, ShapeConfig("d", seq_len=64, global_batch=8, kind="decode"))
-        tok = torch.arange(8, dtype=torch.int32) + 3
-        caches = place(api.init_cache(cfg, 8, 64, device="cpu"), csh)
+            cfg, lm, ShapeConfig("d", seq_len=64, global_batch=b, kind="decode"))
+        tok = torch.arange(b, dtype=torch.int32) + 3
+        caches = place(api.init_cache(cfg, b, 64, device="cpu"), csh)
         placed = place_params(params, cfg, lm)
         _, caches = fn(placed, caches, tok)
         logits2, _ = fn(placed, caches, tok + 1)
         logits2 = logits2.full_tensor().float().numpy()
         if rank == 0:
             np.save(os.path.join(out_dir, f"port_{name}.npy"), logits2)
-            c = api.init_cache(cfg, 8, 64, device="cpu")
+            c = api.init_cache(cfg, b, 64, device="cpu")
             _, c = api.decode_step(params, tok, cfg, c)
             l2, _ = api.decode_step(params, tok + 1, cfg, c)
             np.save(os.path.join(out_dir, f"plain_{name}.npy"), l2.float().numpy())
-        res[name] = {"plan": str(lm.plan)}
+        res[name] = {"plan": str(lm.plan),
+                     "seq_axes": list(shlib.cache_seq_axes(cfg, lm, b % 2 == 0) or ())}
     # The port's other layouts and families, f32, against its own unsharded
-    # step: tied and fused projections, sp = 4 with q/k/v biases, the VLM
-    # prefix (tensor parallel), and the data-parallel SSM, hybrid and audio.
+    # step from the port's own init: tied and fused projections, sp = 2
+    # with q/k/v biases, qwen2, and the VLM (kv heads duplicated), SSM,
+    # hybrid and audio families, tensor parallel at tp = 4.
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.distribution.steps import place_train_state, train_batch_specs
@@ -507,50 +595,45 @@ def body(rank, world, out_dir):
             r["param_diff"] = max(float((a - c).abs().max()) for a, c in zip(got, want))
             r["param_scale"] = max(float(c.abs().max()) for c in want)
         res["extra_" + name] = r
-    # Serving, f32, against the unsharded prefill and two decode steps: the
-    # data-parallel families and the VLM at sp = 2 (data parallel too).
+    # Serving, f32, from the reference's initial params: a prefill of 24
+    # tokens into a 64-row cache and two decode steps through the sharded
+    # steps, against the unsharded prefill and decode (and, in the tests,
+    # against the reference's same plan).
     from repro_torch.distribution.steps import build_prefill_step
-    for arch, plan in (("mamba2_1_3b", None), ("zamba2_1_2b", None),
-                       ("seamless_m4t_medium", None),
-                       ("internvl2_26b", {"tp": 2, "sp": 2})):
-        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    for arch, (fam, plan, b, max_len) in SERVE.items():
+        cfg = ModelConfig(dtype="float32", **CFGS[fam])
         lm, api = lmesh_of(cfg, plan), get_model(cfg)
-        params = api.init(0, cfg, device="cpu")
-        s_len, b = 32, 8
-        toks = torch.tensor(gen.integers(0, cfg.vocab_size, (b, s_len)), dtype=torch.int32)
-        if cfg.family == "vlm":
-            f = cfg.frontend_tokens
-            inputs = (toks[:, f:], torch.tensor(gen.standard_normal((b, f, cfg.d_model)),
-                                                 dtype=torch.float32))
-            want, _ = api.prefill(params, inputs[0], cfg, s_len, prefix_embeds=inputs[1])
-        elif cfg.family == "audio":
-            inputs = (torch.tensor(gen.standard_normal((b, s_len, cfg.d_model)),
-                                   dtype=torch.float32), toks)
-            want, _ = api.prefill(params, *inputs, cfg, s_len)
-        else:
-            inputs = (toks,)
-            want, _ = api.prefill(params, toks, cfg, s_len)
+        ck = Checkpointer(os.path.join(out_dir, f"params_{fam}_float32"))
+        params, _ = ck.restore(api.init(0, cfg, device="cpu"))
+        inputs = load(out_dir, f"serve_{arch}.npz")
+        names = {"audio": ("src_embeds", "tokens"),
+                 "vlm": ("tokens", "prefix_embeds")}.get(cfg.family, ("tokens",))
+        args = [inputs[n] for n in names]
         placed = place_params(params, cfg, lm)
-        pshape = ShapeConfig("p", seq_len=s_len, global_batch=b, kind="prefill")
-        got, _ = build_prefill_step(cfg, lm, pshape)[0](placed, *inputs)
-        got = got.full_tensor()
-        dshape = ShapeConfig("d", seq_len=64, global_batch=b, kind="decode")
-        fn, (psh, csh, tsh), _, _ = build_serve_step(cfg, lm, dshape)
+        pstep = build_prefill_step(cfg, lm, ShapeConfig("p", seq_len=max_len,
+                                                        global_batch=b, kind="prefill"))[0]
+        sstep = build_serve_step(cfg, lm, ShapeConfig("d", seq_len=max_len,
+                                                      global_batch=b, kind="decode"))[0]
+        got = [None] * 3
+        got[0], caches = pstep(placed, *args)
         tok = torch.arange(b, dtype=torch.int32) + 3
-        mk = ((lambda: api.init_cache(cfg, b, 64, 64, device="cpu"))
-              if cfg.family == "audio" else
-              (lambda: api.init_cache(cfg, b, 64, device="cpu")))
-        caches = place(mk(), csh)
-        _, caches = fn(placed, caches, tok)
-        d2, _ = fn(placed, caches, tok + 1)
-        d2 = d2.full_tensor()
+        got[1], caches = sstep(placed, caches, tok)
+        got[2], _ = sstep(placed, caches, tok + 1)
+        got = [t.full_tensor() for t in got]
         r = {"plan": str(lm.plan)}
         if rank == 0:
-            c = mk()
-            _, c = api.decode_step(params, tok, cfg, c)
-            w2, _ = api.decode_step(params, tok + 1, cfg, c)
-            r["prefill"] = float((got - want).abs().max() / want.abs().max())
-            r["decode"] = float((d2 - w2).abs().max() / w2.abs().max())
+            if cfg.family == "vlm":
+                want0, c = api.prefill(params, args[0], cfg, max_len, prefix_embeds=args[1])
+            else:
+                want0, c = api.prefill(params, *args, cfg, max_len)
+            want1, c = api.decode_step(params, tok, cfg, c)
+            want2, _ = api.decode_step(params, tok + 1, cfg, c)
+            np.savez(os.path.join(out_dir, f"port_serve_{arch}.npz"),
+                     **{k: v.float().numpy() for k, v in
+                        zip(("prefill", "decode1", "decode2"), got)})
+            r["prefill"] = float((got[0] - want0).abs().max() / want0.abs().max())
+            r["decode"] = max(float((g - w).abs().max() / w.abs().max())
+                              for g, w in ((got[1], want1), (got[2], want2)))
         res["serve_" + arch] = r
     # A reference checkpoint restored into a sharded state, gathered.
     cfg = ModelConfig(dtype="bfloat16", scan_layers=False, **CFGS["dense"])
@@ -740,9 +823,16 @@ if __name__ == "__main__":
 '''
 
 
+def _port_module(cfg):
+    from repro_torch.models import encdec, hybrid, mamba2, transformer
+
+    return {"ssm": mamba2, "hybrid": hybrid, "audio": encdec}.get(
+        cfg.family, transformer)
+
+
 def _write_inits(out: pathlib.Path):
-    """The reference's initial states as the port's checkpoints (the
-    port's layout), and one reference checkpoint (unstacked layers)."""
+    """The reference's initial states and params as the port's checkpoints
+    (the port's layout), and one reference checkpoint (unstacked layers)."""
     import jax
 
     from repro.checkpoint.checkpointer import Checkpointer as RefCk
@@ -752,18 +842,22 @@ def _write_inits(out: pathlib.Path):
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs.base import ModelConfig
     from repro_torch.distribution.steps import train_state_from_numpy
-    from repro_torch.models import transformer
 
-    for fam, kw in CFGS.items():
-        for dtype in ("bfloat16", "float32"):
-            rcfg, pcfg = RCfg(dtype=dtype, **kw), ModelConfig(dtype=dtype, **kw)
+    train = {(fam, dtype) for fam, dtype, _ in TRAIN_CASES.values()}
+    serve = {(fam, dtype) for fam, dtype, _, _ in DECODE_CASES.values()} | {
+        (fam, "float32") for fam, _ in SERVE_CASES.values()}
+    for fam, dtype in sorted(train | serve):
+        kw = CFGS[fam]
+        rcfg, pcfg = RCfg(dtype=dtype, **kw), ModelConfig(dtype=dtype, **kw)
+        if (fam, dtype) in train:
             tree = jax.tree.map(np.asarray, ref_init(rcfg, seed=0))
             Checkpointer(out / f"init_{fam}_{dtype}").save(
                 0, train_state_from_numpy(tree, pcfg, "cpu"))
+        if (fam, dtype) in serve:
             params = jax.tree.map(np.asarray, ref_model(rcfg).init(
                 jax.random.PRNGKey(0), rcfg))
             Checkpointer(out / f"params_{fam}_{dtype}").save(
-                0, transformer.params_from_numpy(params, pcfg, "cpu"))
+                0, _port_module(pcfg).params_from_numpy(params, pcfg, "cpu"))
     rcfg = RCfg(dtype="bfloat16", scan_layers=False, **CFGS["dense"])
     state = ref_init(rcfg, seed=3)
     RefCk(out / "ref_ckpt").save(0, state, extra={"from": "reference"})
@@ -775,18 +869,63 @@ def _write_inits(out: pathlib.Path):
     np.savez(out / "ref_ckpt.npz", **flat)
 
 
+def _write_inputs(out: pathlib.Path):
+    """Each train case's batch and each serving case's inputs (numpy,
+    seeded), which both packages read."""
+    from repro_torch.configs.base import ModelConfig, ShapeConfig
+    from repro_torch.distribution.steps import train_batch_specs
+
+    shape = ShapeConfig("t", seq_len=32, global_batch=8, kind="train",
+                        microbatches=2)
+    for name, (fam, dtype, _) in TRAIN_CASES.items():
+        specs = train_batch_specs(ModelConfig(dtype=dtype, **CFGS[fam]),
+                                  shape)
+        rng = np.random.default_rng(0)
+        batch = {k: rng.integers(0, 512, specs[k][0]).astype(np.int32)
+                 for k in ("tokens", "targets")}
+        batch["mask"] = np.ones(specs["mask"][0], np.float32)
+        for k in ("prefix_embeds", "src_embeds"):
+            if k in specs:  # bf16 on both sides, rounded from these f32
+                batch[k] = rng.standard_normal(specs[k][0]).astype(np.float32)
+        np.savez(out / f"batch_{name}.npz", **batch)
+    for arch, (fam, _) in SERVE_CASES.items():
+        cfg = ModelConfig(dtype="float32", **CFGS[fam])
+        rng = np.random.default_rng(6)
+        b, s, D = SERVE_BATCH, SERVE_PROMPT, cfg.d_model
+        if cfg.family == "vlm":
+            f = cfg.frontend_tokens
+            inputs = {"tokens": rng.integers(0, 512, (b, s - f)),
+                      "prefix_embeds": rng.standard_normal((b, f, D))}
+        elif cfg.family == "audio":  # the source fills the cross cache
+            inputs = {"src_embeds": rng.standard_normal((b, SERVE_LEN, D)),
+                      "tokens": rng.integers(0, 512, (b, s))}
+        else:
+            inputs = {"tokens": rng.integers(0, 512, (b, s))}
+        np.savez(out / f"serve_{arch}.npz",
+                 **{k: v.astype(np.int32 if k == "tokens" else np.float32)
+                    for k, v in inputs.items()})
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     pytest.importorskip("torch")
     out = tmp_path_factory.mktemp("worlds")
+    serve = {a: (fam, plan, SERVE_BATCH, SERVE_LEN)
+             for a, (fam, plan) in SERVE_CASES.items()}
     args = [json.dumps(CFGS), json.dumps(TRAIN_CASES),
-            json.dumps(DECODE_CASES)]
+            json.dumps(DECODE_CASES), json.dumps(serve)]
+    _write_inputs(out)
     procs = {}
-    # The reference's runs (the longest) need no inits: they start first,
-    # the train and the decode cases in two processes.
+    # The reference's runs (the longest) start first, in three processes:
+    # the dense and MoE train cases, the decode cases, the other families.
     (out / "ref.py").write_text(REF_SCRIPT)
-    for name, cases in (("ref", [json.dumps(TRAIN_CASES), "{}"]),
-                        ("ref_decode", ["{}", json.dumps(DECODE_CASES)])):
+    dense_train = {k: v for k, v in TRAIN_CASES.items()
+                   if k not in FAMILY_TRAIN}
+    for name, cases in (
+            ("ref", [json.dumps(dense_train), "{}", "{}"]),
+            ("ref_decode", ["{}", json.dumps(DECODE_CASES), "{}"]),
+            ("ref_families", [json.dumps(FAMILY_TRAIN), "{}",
+                              json.dumps(serve)])):
         procs[name] = subprocess.Popen(
             [sys.executable, str(out / "ref.py"), str(out), args[0], *cases],
             cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
@@ -845,9 +984,9 @@ def test_sharded_train_step_matches_unsharded_port(worlds, case):
     # routing capacity is per shard, so the (2, 4) run is another function.
     assert abs(r["loss"] - r["plain_loss"]) < TOL_TRAIN, r
     assert diff < TOL_TRAIN, (diff, r)
-    if CFGS[TRAIN_CASES[case][0]]["family"] == "dense" and case.endswith(
+    if CFGS[TRAIN_CASES[case][0]]["family"] != "moe" and case.endswith(
             "f32"):
-        # Dense f32: the same function, to rounding.
+        # f32 but MoE: the same function, to rounding.
         assert abs(r["loss"] - r["plain_loss"]) <= TOL_F32 * abs(
             r["plain_loss"]), r
         assert diff <= TOL_F32 * scale, (diff, scale)
@@ -871,6 +1010,30 @@ def test_sharded_train_step_matches_reference_same_plan(worlds, case):
         assert diff <= TOL_F32 * scale, (diff, scale)
 
 
+@pytest.mark.parametrize("case", sorted(c for c in FAMILY_TRAIN
+                                         if CFGS[FAMILY_TRAIN[c][0]]
+                                         ["family"] in ("ssm", "hybrid")))
+def test_sharded_ssm_in_BC_gradient_matches_reference_and_unsharded(
+        worlds, case):
+    """The SSM blocks' in_BC and conv_BC stay whole over tp while each rank
+    scans its own heads: their gradients are the sum over tp of each rank's
+    part.  After one step AdamW's first moment is 0.1 x the clipped
+    gradient; it must equal the reference's same plan and the unsharded
+    step's (a missing sum over tp shows here first)."""
+    pytest.importorskip("torch")
+    d = worlds["dir"]
+    port = _npz(d / f"port_{case}_m1.npz")
+    keys = [k for k in port if k.rsplit("/", 1)[-1] in ("in_BC", "conv_BC_w")]
+    assert any(k.endswith("in_BC") for k in keys), sorted(port)
+    for other in ("ref", "plain"):
+        want = _npz(d / f"{other}_{case}_m1.npz")
+        for k in keys:
+            scale = float(np.abs(want[k]).max())
+            assert scale > 0, k
+            diff = float(np.abs(port[k] - want[k]).max())
+            assert diff <= TOL_F32 * scale, (other, k, diff, scale)
+
+
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))
 def test_sharded_decode_matches_unsharded_and_reference(worlds, case):
     pytest.importorskip("torch")
@@ -884,6 +1047,16 @@ def test_sharded_decode_matches_unsharded_and_reference(worlds, case):
     assert float(np.abs(port - plain).max()) < (
         TOL_DECODE if case.endswith("bf16") else
         TOL_F32 * float(np.abs(plain).max())), case
+
+
+@pytest.mark.parametrize("case,axes", [("decode_2x4_f32", ["tp"]),
+                                       ("decode_sp2_f32", ["sp"]),
+                                       ("decode_nobatch_f32", ["data", "sp"])])
+def test_decode_cache_sequence_splits_over_the_cases_axes(worlds, case, axes):
+    """The decode cases combine K2p's partials over the axes they mean to:
+    tp (kv heads duplicated), sp, and data with sp (a batch of 1)."""
+    pytest.importorskip("torch")
+    assert worlds["world8"][case]["seq_axes"] == axes
 
 
 def test_reference_checkpoint_restores_into_sharded_state(worlds):
@@ -976,8 +1149,9 @@ EXTRA = ("tied", "fused", "qwen2_7b", "internvl2_26b", "mamba2_1_3b",
 
 @pytest.mark.parametrize("name", EXTRA)
 def test_sharded_train_step_layouts_and_families_f32(worlds, name):
-    """Tied and fused projections, sp = 4 with biases, the VLM prefix, and
-    the data-parallel families, each against the port's unsharded step."""
+    """Tied and fused projections, sp = 2 with biases, and the VLM (kv heads
+    duplicated), SSM, hybrid and audio families tensor parallel, each
+    against the port's unsharded step."""
     pytest.importorskip("torch")
     r = worlds["world8"]["extra_" + name]
     for k in ("loss", "grad_norm"):
@@ -1011,9 +1185,25 @@ SERVE = ("mamba2_1_3b", "zamba2_1_2b", "seamless_m4t_medium", "internvl2_26b")
 
 @pytest.mark.parametrize("arch", SERVE)
 def test_sharded_serving_of_the_data_parallel_families_f32(worlds, arch):
-    """``build_prefill_step`` and two ``build_serve_step`` steps of the
-    SSM, hybrid and audio families and the VLM at sp = 2 (each rank's batch
-    block whole) against the unsharded prefill and decode."""
+    """``build_prefill_step`` and two ``build_serve_step`` steps from the
+    prefilled cache of the SSM, hybrid and audio families (tensor parallel
+    at tp = 4; once data parallel, hence the name) and the VLM at tp = sp =
+    2 (its cache's sequence split over sp, a block of it still empty)
+    against the unsharded prefill and decode."""
     pytest.importorskip("torch")
     r = worlds["world8"]["serve_" + arch]
     assert r["prefill"] <= TOL_F32 and r["decode"] <= TOL_F32, r
+
+
+@pytest.mark.parametrize("arch", SERVE)
+def test_sharded_serving_matches_reference_same_plan_f32(worlds, arch):
+    """The same prefill and decode logits against the reference's run of
+    the same plan on 8 host devices, from the same params and inputs."""
+    pytest.importorskip("torch")
+    d = worlds["dir"]
+    port = _npz(d / f"port_serve_{arch}.npz")
+    ref = _npz(d / f"ref_serve_{arch}.npz")
+    assert sorted(port) == ["decode1", "decode2", "prefill"]
+    for k in port:
+        scale = float(np.abs(ref[k]).max())
+        assert float(np.abs(port[k] - ref[k]).max()) <= TOL_F32 * scale, k

@@ -70,22 +70,33 @@ def test_run_cell_passes_and_records_are_sane(records, shape):
                            "all-to-all", "collective-permute"}
     # tp = 8: every layer's two row-parallel products are all-reduced.
     assert counts["all-reduce"] >= 2 * 28
+    # Decode: the cache's sequence splits over sp, so each layer runs K2p
+    # on the rank's block and combines the partials.
     kernel = {"prefill_32k": "flash_attention",
-              "decode_32k": "decode_attention"}[shape]
+              "decode_32k": "decode_attention_partial"}[shape]
     assert rec["kernels"][kernel]["calls"] == 28
     assert rec["seconds"]["trace"] <= rec["seconds"]["total"]
 
 
 def test_decode_cell_reads_the_whole_cache(records):
     """The decode cell decodes the last token of a full 32k cache: each
-    layer's kernel reads every row of the rank's sequences, all-gathered
-    over sp."""
+    layer's K2p reads every row of the rank's block of it (half the
+    sequence, sp = 2), and no cache block is all-gathered: the ranks
+    combine their partials with two all-reduces per layer, of m and of the
+    packed (o, l)."""
     rec = records[1]["decode_32k"]
     b_local = 128 // 16  # batch over data (16)
-    rows = b_local * 32768
-    per_call = rec["kernels"]["decode_attention"]["flops"] // 28
+    rows = b_local * 32768 // 2
+    per_call = rec["kernels"]["decode_attention_partial"]["flops"] // 28
     # 4 d flops per (row, query head): 3 of the 24 heads on each tp rank.
     assert per_call == 4 * rows * 3 * 128
+    assert "decode_attention" not in rec["kernels"]
+    # What the combine moves per layer: m, then (o, l), f32, for the
+    # rank's 8 sequences x 3 heads; far under one layer's cache block
+    # (8 x 16384 rows x 1 kv head x 128 x 2 bytes x 2 = 67 MB).
+    combine = 28 * 4 * b_local * 3 * (1 + 128 + 1)
+    assert rec["collective_bytes"]["all-gather"] < 1e6
+    assert rec["collective_bytes"]["all-reduce"] >= combine
 
 
 def test_cell_supported_equals_the_reference():

@@ -196,6 +196,17 @@ def test_kernel_formulas_give_the_card_rows_figures():
     assert oa.bound(k4b)["bound_by"] == "operations"
 
 
+def test_decode_partial_work_writes_its_f32_state():
+    """K2p's work: the decode kernel's flops and reads, its output the f32
+    o (b, h, d) with m and l (b, h) in place of the output in q's dtype."""
+    lens = _smoke_decode_lengths()
+    rows = oa.decode_rows(lens, 577)
+    whole = oa.decode_attention_work(16, 24, 8, 128, 2, rows)
+    part = oa.decode_attention_work(16, 24, 8, 128, 2, rows, partial=True)
+    assert part.flops == whole.flops
+    assert part.bytes - whole.bytes == 16 * 24 * (130 * 4 - 128 * 2)
+
+
 def test_hand_counted_bytes_and_flops():
     m, k, n = 8, 16, 4
     a, b = torch.ones(m, k), torch.ones(k, n)
