@@ -5,7 +5,11 @@ signature (``src/repro/distribution/steps.py``) and semantics: a loop over
 the step's microbatches adds each microbatch's gradients, cast to f32, into
 one f32 buffer; the sum is divided by the microbatch count and AdamW
 (``optim/optimizers.py``) updates the f32 master and the working params.
-Each layer is rematerialized (``loss_fn(remat=True)``).
+Each layer is rematerialized (``loss_fn(remat=True)``).  Under a profiler
+each microbatch's forward and backward are ``train.forward`` and
+``train.backward`` spans, AdamW ``train.optimizer`` (``runtime/tracing.py``);
+the recomputed blocks, on the autograd engine's thread on a card, take the
+waiting ``train.backward`` as their parent.
 
 It returns ``(train_step, state_shape, batch_specs)``, not shardings:
 ``state_shape`` is the state's tree on the ``meta`` device (shapes and
@@ -90,6 +94,7 @@ from repro_torch.optim.optimizers import (
     tree_leaves,
     tree_map,
 )
+from repro_torch.runtime import tracing
 
 
 def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
@@ -602,8 +607,11 @@ def build_train_step(cfg: ModelConfig, lmesh, shape: ShapeConfig,
             loss_sum = None
             for i in range(n):
                 mb = {k: v[i] for k, v in batch.items()}
-                loss, _ = api.loss_fn(params, mb, cfg)
-                loss.backward()
+                with tracing.span("train.forward", microbatch=i):
+                    loss, _ = api.loss_fn(params, mb, cfg)
+                with tracing.span("train.backward", waits=True,
+                                  microbatch=i):
+                    loss.backward()
                 loss = loss.detach()
                 loss_sum = loss if loss_sum is None else loss_sum + loss
         finally:
@@ -615,7 +623,8 @@ def build_train_step(cfg: ModelConfig, lmesh, shape: ShapeConfig,
         with torch.no_grad():
             for a in tree_leaves(acc):
                 a.div_(n)
-        _, opt, om = adamw_update(opt_cfg, acc, state["opt"], params)
+        with tracing.span("train.optimizer"):
+            _, opt, om = adamw_update(opt_cfg, acc, state["opt"], params)
         state["opt"] = opt
         return state, {"loss": loss_sum / n, **om}
 
@@ -675,9 +684,12 @@ def _sharded_train_step(cfg, lmesh: LogicalMesh, shape: ShapeConfig,
             with sharding_context(rules):
                 for i in range(n):
                     mb = {k: v[i] for k, v in local_batch.items()}
-                    loss, _ = api.loss_fn(shards.layout(params_tree), mb,
-                                          shards.local_cfg)
-                    loss.backward()
+                    with tracing.span("train.forward", microbatch=i):
+                        loss, _ = api.loss_fn(shards.layout(params_tree), mb,
+                                              shards.local_cfg)
+                    with tracing.span("train.backward", waits=True,
+                                      microbatch=i):
+                        loss.backward()
                     loss = loss.detach()
                     loss_sum = loss if loss_sum is None else loss_sum + loss
         finally:
@@ -698,9 +710,10 @@ def _sharded_train_step(cfg, lmesh: LogicalMesh, shape: ShapeConfig,
                          for k in ("master", "m", "v")}
             local_opt["step"] = opt["step"].to_local().clone()
             local_params = tree_map(lambda t: t.to_local(), state["params"])
-            _, new_opt, om = adamw_update(
-                opt_cfg, _unflatten(state["params"], a_leaves), local_opt,
-                local_params, grad_norm=gnorm)
+            with tracing.span("train.optimizer"):
+                _, new_opt, om = adamw_update(
+                    opt_cfg, _unflatten(state["params"], a_leaves), local_opt,
+                    local_params, grad_norm=gnorm)
             opt["step"].to_local().copy_(new_opt["step"])
             loss = shards.sum_over(loss_sum / n, shards.sum_axes)
         return state, {"loss": loss, **om}

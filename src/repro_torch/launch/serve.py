@@ -63,6 +63,7 @@ from repro_torch.core.traffic_curves import diurnal, right_tailed_normal
 from repro_torch.core.updates import UpdateBuffer, UpdateHandle
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import get_model
+from repro_torch.runtime import tracing
 
 
 def stack_requests(token_rows: np.ndarray, *, device="cuda") -> UpdateBuffer:
@@ -95,6 +96,12 @@ class BatchedServer:
     request, busy_until)``), making the baseline directly comparable to the
     continuous engine.  ``params`` (default: initialized from ``seed``)
     lets both servers share one model.
+
+    Under a profiler a batch is one ``serve.batch`` span carrying its
+    request ids (``runtime/tracing.py``), over ``serve.gather``,
+    ``serve.prefill`` (the prefill and its greedy pick), one
+    ``serve.decode`` per token and ``serve.readback`` (the tokens' copies
+    to the host); the records' accounting is the batch's own time.
     """
 
     def __init__(self, cfg, *, batch_size: int, prompt_len: int,
@@ -150,10 +157,11 @@ class BatchedServer:
         """Greedy decode with the tokens kept on the card: one
         ``decode_step`` per token, no host sync until the caller reads."""
         out = []
-        for _ in range(self.decode_tokens):
-            logits, cache = self.api.decode_step(self.params, tok, self.cfg,
-                                                 cache)
-            tok = _greedy(logits, self.cfg.vocab_size)
+        for j in range(self.decode_tokens):
+            with tracing.span("serve.decode", j=j):
+                logits, cache = self.api.decode_step(self.params, tok,
+                                                     self.cfg, cache)
+                tok = _greedy(logits, self.cfg.vocab_size)
             out.append(tok)
         return torch.stack(out)  # (decode_tokens, batch)
 
@@ -162,47 +170,55 @@ class BatchedServer:
         it is fed back (kept for correctness tests against the fused
         loop)."""
         out = []
-        for _ in range(self.decode_tokens):
-            logits, cache = self.api.decode_step(self.params, tok, self.cfg,
-                                                 cache)
-            host = _greedy(logits, self.cfg.vocab_size).cpu().numpy()
-            tok = torch.from_numpy(host).to(self.device)
+        for j in range(self.decode_tokens):
+            with tracing.span("serve.decode", j=j):
+                logits, cache = self.api.decode_step(self.params, tok,
+                                                     self.cfg, cache)
+                host = _greedy(logits, self.cfg.vocab_size).cpu().numpy()
+                tok = torch.from_numpy(host).to(self.device)
             out.append(tok)
         return torch.stack(out)
 
     def _serve_batch(self, t: float, size: "int | None" = None) -> None:
         size = self.batch_size if size is None else size
         batch = [self.queue.popleft() for _ in range(size)]
-        prompts = self._gather_prompts([m for m, _ in batch])
-        logits, cache = self.api.prefill(self.params, prompts, self.cfg,
-                                         self.max_len)
-        first = _greedy(logits, self.cfg.vocab_size)
-        if self.fused:
-            toks = self._decode_fused(first, cache)
-        else:
-            toks = self._decode_tokens_loop(first, cache)
-        first_host = first.cpu().numpy()
-        toks_host = toks.cpu().numpy()  # (decode_tokens, size)
-        # Virtual-time accounting: the whole batch is serialized behind any
-        # in-flight batch and finishes together — the structural latency
-        # penalty continuous batching removes.
-        start = max(t, self.busy_until)
-        first_token_t = start + self.cost.prefill_s(size)
-        finish = first_token_t + self.decode_tokens * self.cost.decode_s(size)
-        self.busy_until = finish
-        for i, (m, arrival_t) in enumerate(batch):
-            rec = RequestRecord(request_id=m.device_id, arrival_t=arrival_t)
-            rec.start_t = start
-            rec.first_token_t = first_token_t
-            rec.finish_t = finish
-            rec.decoded = self.decode_tokens
-            rec.tokens = [int(first_host[i])] + [int(x)
-                                                 for x in toks_host[:, i]]
-            self.records.append(rec)
-        self.metrics.append(ServeMetrics(
-            t=t, queue_depth=len(self.queue),
-            batch_size=size, tokens_decoded=self.decode_tokens * size,
-        ))
+        with tracing.span("serve.batch", unit=True, size=size,
+                          requests=[m.device_id for m, _ in batch]):
+            with tracing.span("serve.gather"):
+                prompts = self._gather_prompts([m for m, _ in batch])
+            with tracing.span("serve.prefill"):
+                logits, cache = self.api.prefill(self.params, prompts,
+                                                 self.cfg, self.max_len)
+                first = _greedy(logits, self.cfg.vocab_size)
+            if self.fused:
+                toks = self._decode_fused(first, cache)
+            else:
+                toks = self._decode_tokens_loop(first, cache)
+            with tracing.span("serve.readback"):
+                first_host = first.cpu().numpy()
+                toks_host = toks.cpu().numpy()  # (decode_tokens, size)
+            # Virtual-time accounting: the whole batch is serialized behind
+            # any in-flight batch and finishes together — the structural
+            # latency penalty continuous batching removes.
+            start = max(t, self.busy_until)
+            first_token_t = start + self.cost.prefill_s(size)
+            finish = (first_token_t
+                      + self.decode_tokens * self.cost.decode_s(size))
+            self.busy_until = finish
+            for i, (m, arrival_t) in enumerate(batch):
+                rec = RequestRecord(request_id=m.device_id,
+                                    arrival_t=arrival_t)
+                rec.start_t = start
+                rec.first_token_t = first_token_t
+                rec.finish_t = finish
+                rec.decoded = self.decode_tokens
+                rec.tokens = [int(first_host[i])] + [int(x)
+                                                     for x in toks_host[:, i]]
+                self.records.append(rec)
+            self.metrics.append(ServeMetrics(
+                t=t, queue_depth=len(self.queue),
+                batch_size=size, tokens_decoded=self.decode_tokens * size,
+            ))
 
     def drain(self, t: float) -> None:
         """Serve everything still queued: full batches first, then the

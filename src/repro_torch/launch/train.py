@@ -95,6 +95,7 @@ from repro_torch.optim.compression import (
     topk_init,
 )
 from repro_torch.optim.optimizers import AdamWConfig
+from repro_torch.runtime import tracing
 from repro_torch.runtime.fault_tolerance import TrainingSupervisor
 
 
@@ -191,19 +192,25 @@ def make_cloud_step(cfg, shape: ShapeConfig, pipe: TokenPipeline, *,
     supervisor.  With a mesh every rank draws the same batch and the step
     keeps its block.  ``step.next_batch()`` and ``step.train_step`` are
     its two halves (to run the same step on a batch of one's own, as the
-    analyzer does)."""
+    analyzer does).  Under a profiler each call is one ``train.step`` span
+    (``runtime/tracing.py``) and its host-to-card copies one
+    ``train.batch``."""
     dev = resolve_device(device)
     train_step, _, _ = build_train_step(cfg, lmesh, shape, opt_cfg)
     n, mb = shape.microbatches, shape.global_batch // shape.microbatches
 
+    tokens = shape.global_batch * shape.seq_len
+
     def next_batch():
-        b = next(pipe)
-        return {k: torch.from_numpy(np.ascontiguousarray(
-            getattr(b, k).reshape(n, mb, -1))).to(dev)
-            for k in ("tokens", "targets", "mask")}
+        with tracing.span("train.batch"):
+            b = next(pipe)
+            return {k: torch.from_numpy(np.ascontiguousarray(
+                getattr(b, k).reshape(n, mb, -1))).to(dev)
+                for k in ("tokens", "targets", "mask")}
 
     def step(state):
-        return train_step(state, next_batch())
+        with tracing.span("train.step", unit=True, tokens=tokens):
+            return train_step(state, next_batch())
 
     step.next_batch, step.train_step = next_batch, train_step
     return step

@@ -16,6 +16,9 @@ params' shapes (:func:`_heads`).  ``loss_fn`` trains through the
 scan's backward (``kernels/ssd_scan/ops.py::SsdScan``: the hand-written
 backward on a card), each block rematerialized under ``remat``
 (``torch.utils.checkpoint``, non-reentrant, as ``transformer.loss_fn``).
+Under a profiler each call of a block is a ``model.block`` span
+(``runtime/tracing.py``), a recomputation included: the span is opened
+inside the function ``checkpoint`` runs again.
 ``cfg.attention_impl`` ``"einsum"`` or ``"ref"`` asks for the plain scan
 (forward and backward) on any device, as it asks for the plain attention.
 """
@@ -51,6 +54,7 @@ from repro_torch.models.transformer import (
     _tree_map,
     dtype_of,
 )
+from repro_torch.runtime import tracing
 
 Params = Any
 
@@ -159,6 +163,7 @@ def scan_impl(cfg: ModelConfig) -> str:
     return "chunked" if cfg.attention_impl in _PLAIN else "auto"
 
 
+@tracing.spanned("model.block")
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 *, impl: str = "auto") -> torch.Tensor:
     hn = constrain(rmsnorm(x, p["ln"], cfg.norm_eps), "tp_in")
@@ -173,6 +178,7 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return constrain(x + constrain(y @ p["out_proj"], "tp_out"), "act_btd")
 
 
+@tracing.spanned("model.block")
 def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   *, impl: str = "auto") -> tuple[torch.Tensor, dict]:
     """Like block_apply but returns the decode cache (conv tail + ssm state)."""
@@ -194,6 +200,7 @@ def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return x + constrain(y @ p["out_proj"], "tp_out"), cache
 
 
+@tracing.spanned("model.block")
 def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  cache: dict) -> tuple[torch.Tensor, dict]:
     """One-token recurrent update: x (b, 1, d)."""
