@@ -8,10 +8,11 @@
     python3 chip_smoke.py --ssm-only      # the SSD kernel and SSM serving only
     python3 chip_smoke.py --training-only # phases 1, 4 and 15-19 only
     python3 chip_smoke.py --tooling-only  # phase 16 and the tooling (21)
+    python3 chip_smoke.py --conv-only     # the causal conv kernel (18b)
 
-All four kernels (``fed_reduce``, ``decode_attention``, ``flash_attention``
+All five kernels (``fed_reduce``, ``decode_attention``, ``flash_attention``
 with its backward, and ``ssd_scan`` with its backward, the last three with
-tensor-core and plain-FMA paths) are
+tensor-core and plain-FMA paths, and ``causal_conv`` with its backward) are
 built first from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``, one
 compiler per source, all at once; ptxas's registers and spills of the new
 kernels and the tensor-core instructions in each library's SASS
@@ -114,7 +115,8 @@ numbered order; any failure raises and the script exits non-zero:
    to the CPU run's with the smoke-size model), wall ms per prefill and
    decode iteration, decode tokens/s, peak memory; launch counters zeroed
    before and read after: one ``ssd_scan`` per layer per prefill (8 x 4
-   each), every one on the tensor-core kernel, and for zamba2 one
+   each), every one on the tensor-core kernel, two ``causal_conv`` per
+   layer per prefill (x and B,C), and for zamba2 one
    tensor-core ``flash_attention`` per shared-block application per
    prefill (2 x 4) and one ``decode_attention`` per application per
    decode step (2 x 256), at shapes phases 4 and 7 checked; a profiled
@@ -242,12 +244,25 @@ numbered order; any failure raises and the script exits non-zero:
     three timed steps and one profiled step: loss, lr and grad norm
     finite, wall s, tokens/s, the 6 N share of 989 TFLOP/s, peak memory,
     and ``ssd_scan`` launches equal to the audit (768 forward and 384
-    backward per step under remat, all on the tensor-core kernels), the
+    backward per step under remat, all on the tensor-core kernels; per
+    conv, 768 ``causal_conv`` forward and 384 backward calls), the
     profiled step's kernels too.  Then phase 16's cross-check for mamba2
     and for zamba2-1.2b (2 layers at full width, its shared block at layer
     0).  Then every forward and backward shape that phases 16, 17 and 19
     launched and phases 15 and 18 did not check is checked as they check
     their cases.
+
+Phase 18b (after 18, and in ``--ssm-only``) holds ``causal_conv``, the
+causal conv + bias + SiLU of a Mamba2 block, and its backward on the card
+against the plain chain in bf16 at mamba2-1.3b's x (4096 channels) and B,C
+(256) in a training microbatch (1 x 4096) and a prefill batch (8 x 4096):
+y, dx, dw and db within 2e-2 of the plain version's largest entry, two
+calls bitwise equal, one forward and two backward kernels a call
+(``torch.profiler``); then times forward and backward kernels (inputs
+cycled past the L2), the plain chain's forward and its autograd backward,
+``F.conv1d`` + SiLU forward and backward as the library yardstick (timed,
+never called by the port) and each bound (bytes / 3.35 TB/s), one
+``{"causal_conv_case": ...}`` line per shape.
 
 Phase 20 drives the sharded paths on a one-rank NCCL group
 (``init_process_group("nccl", store=HashStore(), rank=0, world_size=1)``),
@@ -270,13 +285,16 @@ blocks), and the forward scan and K4b on the 4 and 2 heads of a
 tensor-parallel rank; after them mamba2-1.3b, zamba2-1.2b and
 seamless-m4t-medium at full width and 2 layers go through the
 tensor-parallel steps on the (1, 1) mesh (a prefill, 8 decode steps, 2
-train steps; bitwise equal to unsharded, held), while two processes on the
-card (a gloo group) decode llama3.2-3b at 2 layers with the cache's
-sequence split over sp = 2: K2p on each rank's block and the combine's
-all-reduces, within 2e-2 (bf16) and 1e-4 (f32) of the unsharded decode.
-Its K1, K2, K2p, K3, K3b, K4 and K4b launches join the kernels line (K2p's
-from the two-rank decode).  One rank shows the sharded paths equal to the
-unsharded ones and nothing more.
+train steps; bitwise equal to unsharded, held; the SSM and hybrid families'
+``causal_conv`` calls equal to their count: each layer's two convs once a
+prefill, twice a microbatch forward and once backward), while two
+processes on the card (a gloo group) decode llama3.2-3b at 2 layers with
+the cache's sequence split over sp = 2: K2p on each rank's block and the
+combine's all-reduces, within 2e-2 (bf16) and 1e-4 (f32) of the unsharded
+decode.  Its K1, K2, K2p, K3, K3b, K4, K4b and ``causal_conv`` launches
+join the kernels line (K2p's from the two-rank decode; ``causal_conv``'s
+one a forward call and two a backward call).  One rank shows the sharded
+paths equal to the unsharded ones and nothing more.
 
 Phase 21 holds the port's tooling on the card.  (a) After phase 16's timed
 steps one more llama3.2-3b step (full width and depth, 8 x 4096 tokens:
@@ -300,7 +318,7 @@ stay within 60.
 
 ``--training-only`` runs phases 1, 4 and 15-21; ``--sharded-only`` runs
 the build and phase 20; ``--tooling-only`` the build, phase 16 and phase
-21.
+21; ``--conv-only`` the build and phase 18b.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit from ``nvidia-smi``, before that one JSON
@@ -348,7 +366,8 @@ LEAF_WIDTHS = (256, 1)  # avazu_lr's w and b leaves
 BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor-core peak
 KERNEL_SOURCE = "src/repro_torch/csrc/fed_reduce.cu"
 KERNEL_REPLACES = "src/repro/kernels/fed_reduce/fed_reduce.py:41"
-KERNELS = ("fed_reduce", "decode_attention", "flash_attention", "ssd_scan")
+KERNELS = ("fed_reduce", "decode_attention", "flash_attention", "ssd_scan",
+           "causal_conv")
 PROFILE_DIR = os.path.join(ROOT, "chiprun_out")
 
 
@@ -2849,6 +2868,7 @@ def ssm_serving_phase(dev, arch: str, checked: set, card: str) -> dict:
     import torch
 
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.causal_conv.ops import causal_conv
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -2873,7 +2893,7 @@ def ssm_serving_phase(dev, arch: str, checked: set, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ssd_scan.launches = ssd_scan.tc_launches = 0  # zeroed just before the
     decode_attention.launches = flash_attention.launches = 0  # main path ...
-    flash_attention.wgmma_launches = 0
+    flash_attention.wgmma_launches = causal_conv.launches = 0
     w0 = time.perf_counter()
     server = serve.BatchedServer(
         cfg, batch_size=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
@@ -2889,16 +2909,20 @@ def ssm_serving_phase(dev, arch: str, checked: set, card: str) -> dict:
                 "ssd_scan_tc": ssd_scan.tc_launches,
                 "flash_attention": flash_attention.launches,
                 "flash_attention_wgmma": flash_attention.wgmma_launches,
-                "decode_attention": decode_attention.launches}  # ... read
+                "decode_attention": decode_attention.launches,
+                "causal_conv": causal_conv.launches}  # ... read
     rep = server.report()
     n_prefill = len(server.metrics)
     n_decode = n_prefill * SERVE_DECODE
-    # Every bf16 prefill's scan runs on the tensor-core kernel.
+    # Every bf16 prefill's scan runs on the tensor-core kernel, and each
+    # layer's two convs on the conv kernel (decode keeps its own one-token
+    # conv).
     expected = {"ssd_scan": cfg.num_layers * n_prefill,
                 "ssd_scan_tc": cfg.num_layers * n_prefill,
                 "flash_attention": apps * n_prefill,
                 "flash_attention_wgmma": apps * n_prefill,
-                "decode_attention": apps * n_decode}
+                "decode_attention": apps * n_decode,
+                "causal_conv": 2 * cfg.num_layers * n_prefill}
     peak = torch.cuda.max_memory_allocated()
     s = rep.summary(30.0)
     if s != cpu:
@@ -3323,13 +3347,27 @@ def _ssd_counters() -> dict:
             "ssd_scan_bwd_tc": ssd_scan.tc_bwd_launches}
 
 
+def _zero_conv_counters():
+    from repro_torch.kernels.causal_conv.ops import causal_conv
+
+    causal_conv.launches = causal_conv.bwd_launches = 0
+
+
+def _conv_counters() -> dict:
+    from repro_torch.kernels.causal_conv.ops import causal_conv
+
+    return {"causal_conv": causal_conv.launches,
+            "causal_conv_bwd": causal_conv.bwd_launches}
+
+
 def _zero_counters():
     _zero_flash_counters()
     _zero_ssd_counters()
+    _zero_conv_counters()
 
 
 def _counters() -> dict:
-    return {**_flash_counters(), **_ssd_counters()}
+    return {**_flash_counters(), **_ssd_counters(), **_conv_counters()}
 
 
 def _audit(cfg) -> tuple[dict, tuple, dict]:
@@ -3338,11 +3376,14 @@ def _audit(cfg) -> tuple[dict, tuple, dict]:
     must show and their expected counts.  Each layer launches its forward
     kernel twice (the forward and the recompute) and its backward once:
     flash attention for llama, the scan (on the tensor cores, forward and
-    backward) for mamba2."""
+    backward) for mamba2, and for mamba2 each of a block's two causal
+    convs likewise (one forward kernel a call, two backward)."""
     L, n = cfg.num_layers, TRAIN_MICRO
     if cfg.family == "ssm":
         expected = {"ssd_scan": 2 * L * n, "ssd_scan_tc": 2 * L * n,
-                    "ssd_scan_bwd": L * n, "ssd_scan_bwd_tc": L * n}
+                    "ssd_scan_bwd": L * n, "ssd_scan_bwd_tc": L * n,
+                    "causal_conv": 2 * 2 * L * n,
+                    "causal_conv_bwd": 2 * L * n}
         match = ("ssd_scan_tc_kernel", *SSD_BWD_KERNELS["tc"])
     else:
         expected = {"flash_attention": 2 * L * n,
@@ -3350,11 +3391,16 @@ def _audit(cfg) -> tuple[dict, tuple, dict]:
                     "flash_attention_bwd": L * n,
                     "flash_attention_bwd_wgmma": L * n,
                     "ssd_scan": 0, "ssd_scan_tc": 0, "ssd_scan_bwd": 0,
-                    "ssd_scan_bwd_tc": 0}
+                    "ssd_scan_bwd_tc": 0, "causal_conv": 0,
+                    "causal_conv_bwd": 0}
         match = ("flash_fwd_wgmma_kernel", "flash_bwd_prep_kernel",
                  "flash_bwd_fused_wgmma_kernel",
                  "flash_bwd_dq_convert_kernel")
     want = {m: 2 * L * n if i == 0 else L * n for i, m in enumerate(match)}
+    if cfg.family == "ssm":
+        match += CONV_KERNELS
+        want.update({CONV_KERNELS[0]: 2 * 2 * L * n,
+                     CONV_KERNELS[1]: 2 * L * n, CONV_KERNELS[2]: 2 * L * n})
     return expected, match, want
 
 
@@ -3531,7 +3577,9 @@ def training_cross_check(dev, arch: str = TRAIN_ARCH) -> dict:
     family = get_config(arch).family
     want = {"flash_attention_bwd": 0 if family == "ssm" else (
         2 * 2 * (1 if family == "hybrid" else 2)),
-        "ssd_scan_bwd": 2 * 2 * 2 if family in ("ssm", "hybrid") else 0}
+        "ssd_scan_bwd": 2 * 2 * 2 if family in ("ssm", "hybrid") else 0,
+        "causal_conv_bwd": 2 * 2 * 2 * 2 if family in ("ssm", "hybrid")
+        else 0}
     out = {}
     for dtype, tol in (("bfloat16", 2e-2), ("float32", 1e-4)):
         cfg = dataclasses.replace(get_config(arch), num_layers=2,
@@ -4052,6 +4100,119 @@ def check_ssd_shapes(dev, checked: set) -> tuple[float, float]:
     log(f"scan forward and backward shapes launched by phase 19: "
         f"{len(launched)}, {len(new)} checked here")
     return err, rel
+
+
+# --------------------------------------------------------------------------
+# phase 18b: the causal conv + bias + SiLU kernel and its backward
+
+# (batch, len, channels): mamba2-1.3b's x and B,C in a training microbatch
+# and in a prefill batch of the benchmark's serving cell (8 x 4096).
+CONV_CASES = ((1, 4096, 4096), (1, 4096, 256), (8, 4096, 4096),
+              (8, 4096, 256))
+CONV_SOURCE = "src/repro_torch/csrc/causal_conv.cu"
+CONV_KERNELS = ("causal_conv_fwd_kernel", "causal_conv_bwd_kernel",
+                "causal_conv_wsum_kernel")
+
+
+def _conv_library(x, w, b):
+    """``F.conv1d`` (cuDNN's depthwise conv, TF32 off) + SiLU: the library
+    yardstick, timed only; the port never calls it."""
+    import torch.nn.functional as F
+
+    width = w.shape[0]
+    out = F.conv1d(F.pad(x.transpose(1, 2), (width - 1, 0)),
+                   w.t().unsqueeze(1), b, groups=x.shape[-1])
+    return F.silu(out).transpose(1, 2)
+
+
+def conv_case(dev, case) -> dict:
+    """The kernel and its backward against the plain chain on the card at
+    ``case`` in bf16 (y, dx, dw, db within 2e-2 of the plain version's
+    largest entry, two calls bitwise equal, one forward and two backward
+    kernels a call), then timed with inputs cycled past the L2: forward and
+    backward kernels, the plain chain's forward and its autograd backward,
+    ``F.conv1d`` + SiLU forward and backward, and the bounds."""
+    import torch
+
+    from repro_torch.kernels.causal_conv import ops
+    from repro_torch.roofline import op_analysis as oa
+
+    b, l, c = case
+    gen = torch.Generator(device=dev).manual_seed(b * l + c)
+    x = torch.randn((b, l, c), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((4, c), generator=gen, device=dev) * 0.125).bfloat16()
+    bias = (torch.randn((c,), generator=gen, device=dev) * 0.1).bfloat16()
+    dy = torch.randn((b, l, c), generator=gen, device=dev).bfloat16()
+    got = [ops._fwd_cuda(x, w, bias), *ops._bwd_cuda(x, w, bias, dy)]
+    again = [ops._fwd_cuda(x, w, bias), *ops._bwd_cuda(x, w, bias, dy)]
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    y = ops.causal_conv_ref(*leaves)
+    want = [y.detach(), *torch.autograd.grad(y, leaves, dy)]
+    errs = {n: float((g.float() - r.float()).abs().max()
+                     / r.float().abs().max())
+            for n, g, r in zip(("y", "dx", "dw", "db"), got, want)}
+    kern = device_kernels(lambda: (ops._fwd_cuda(x, w, bias),
+                                   ops._bwd_cuda(x, w, bias, dy)))
+    names = {k: sum(r[2] for r in kern if k in r[0]) for k in CONV_KERNELS}
+    row = {"shape": list(case), "dtype": "bfloat16", "max_rel_err": errs,
+           "limit": 2e-2,
+           "bitwise_equal": all(torch.equal(a, e) for a, e in zip(got,
+                                                                  again)),
+           "kernels": names,
+           "plan_fwd": ops._plan(x, (x, w, bias), False)._asdict(),
+           "plan_bwd": ops._plan(x, (x, w, bias, dy), True)._asdict()}
+    del got, again, want, y
+    nbytes = 2 * x.numel() * x.element_size()
+    n = _copies(nbytes)
+    sets = [(x.clone(), w, bias, dy.clone()) for _ in range(n)]
+    row["ms"] = time_ms(lambda i: ops._fwd_cuda(*sets[i % n][:3]))
+    row["bwd_ms"] = time_ms(lambda i: ops._bwd_cuda(*sets[i % n]))
+    row["plain_ms"] = time_ms(lambda i: ops.causal_conv_ref(
+        *sets[i % n][:3]), iters=10)
+    row["library_ms"] = time_ms(lambda i: _conv_library(*sets[i % n][:3]),
+                                iters=10)
+    for key, fn in (("plain_bwd_ms", ops.causal_conv_ref),
+                    ("library_bwd_ms", _conv_library)):
+        graphs = []
+        for xs, *_ in sets:
+            lv = [xs.requires_grad_(True), w.clone().requires_grad_(True),
+                  bias.clone().requires_grad_(True)]
+            graphs.append((fn(*lv), lv))
+        row[key] = time_ms(lambda i: torch.autograd.grad(
+            graphs[i % n][0], graphs[i % n][1], sets[i % n][3],
+            retain_graph=True), iters=10)
+        del graphs
+        for xs, *_ in sets:
+            xs.requires_grad_(False)
+    dims = (b, l, c, 4, x.element_size())
+    fwd = oa.bound(oa.causal_conv_work(*dims), F32_FLOPS)
+    bwd = oa.bound(oa.causal_conv_bwd_work(*dims), F32_FLOPS)
+    row.update(bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"],
+               bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"])
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["bwd_bound_share"] = row["bwd_bound_ms"] / row["bwd_ms"]
+    del sets
+    if (max(errs.values()) > row["limit"] or not row["bitwise_equal"]
+            or names != {CONV_KERNELS[0]: 1, CONV_KERNELS[1]: 1,
+                         CONV_KERNELS[2]: 1}):
+        raise AssertionError(f"causal_conv at {case}: {row}")
+    return row
+
+
+def conv_phase(dev) -> dict:
+    """Phase 18b: :func:`conv_case` at each of ``CONV_CASES``; returns the
+    kernel's entry for the kernels line (its numbers at the training x
+    shape)."""
+    rows = []
+    for case in CONV_CASES:
+        rows.append(conv_case(dev, case))
+        log(json.dumps({"causal_conv_case": rows[-1]}))
+    entry = _timed_entry("causal_conv", CONV_SOURCE, None,
+                         [max(r["max_rel_err"].values()) for r in rows],
+                         rows[0])
+    entry["bwd_ms"] = rows[0]["bwd_ms"]
+    entry["launches"] = None
+    return entry
 
 
 # --------------------------------------------------------------------------
@@ -4999,6 +5160,17 @@ def sharded_family(dev, arch: str, card: str) -> dict:
     if serve_launches != plain_launches:
         raise AssertionError(f"sharded {arch} serving launched "
                              f"{serve_launches}, unsharded {plain_launches}")
+    # Each SSM layer's two convs: once in the prefill; in training twice a
+    # microbatch forward (the recomputation) and once backward, 2 steps.
+    convs = 2 * cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    micro = 2 * tshape.microbatches
+    want = {"serve": {"causal_conv": convs, "causal_conv_bwd": 0},
+            "train": {"causal_conv": 2 * micro * convs,
+                      "causal_conv_bwd": micro * convs}}
+    got = {k: {c: row["launches"][k][c] for c in want[k]} for k in want}
+    if got != want:
+        raise AssertionError(f"sharded {arch}: causal_conv calls {got}, "
+                             f"expected {want}")
     return row
 
 
@@ -5057,7 +5229,12 @@ def sharded_phase(dev, card: str) -> dict:
                                     for r in fams.values())),
         "ssd_scan": fam_ssd,
         "ssd_scan_bwd": sum(r["launches"]["train"]["ssd_scan_bwd"]
-                            for r in fams.values())}
+                            for r in fams.values()),
+        # kernel launches: one a forward call, two a backward call
+        "causal_conv": sum(r["launches"][k]["causal_conv"]
+                           + 2 * r["launches"][k]["causal_conv_bwd"]
+                           for r in fams.values()
+                           for k in ("serve", "train"))}
     log(json.dumps({"sharded": {"launches": launches,
                                 "ssd_tp_max_rel_err": ssd_tp,
                                 "card": card}}))
@@ -5346,6 +5523,9 @@ def main(argv=None) -> int:
     p.add_argument("--tooling-only", action="store_true",
                    help="build, then run phase 16 with its analyzed step "
                         "and the tooling phase (21) only")
+    p.add_argument("--conv-only", action="store_true",
+                   help="build, then run the causal conv kernel phase (18b) "
+                        "only")
     p.add_argument("--profile", action="store_true",
                    help="profile the federated slice's rounds 1 and 2 "
                         "instead")
@@ -5397,9 +5577,13 @@ def main(argv=None) -> int:
         log(card)
         return 0
 
-    if args.sharded_only or args.tooling_only:
+    if args.sharded_only or args.tooling_only or args.conv_only:
         t0 = time.perf_counter()
-        if args.sharded_only:
+        if args.conv_only:
+            entry = conv_phase(dev)
+            passed("causal conv kernel phase", t0)
+            log(json.dumps({"kernels": [entry]}))
+        elif args.sharded_only:
             sharded_phase(dev, card)
             passed("sharded phase", t0)
         else:
@@ -5414,17 +5598,22 @@ def main(argv=None) -> int:
         return 0
     entries, main_path, scheduling = [], None, None
     fed_entry = flash_entry = ssd_entry = dec_entry = bwd_entry = None
+    conv_entry, conv_launches = None, 0  # phase 18b; the paths' launches
     if args.ssm_only:
         t0 = time.perf_counter()
         ssd_entry, ssd_checked = ssd_cases(dev)
         _, dec_checked = decode_cases(dev, [DECODE_ZAMBA])
         _, flash_checked = flash_cases(dev, [FLASH_ZAMBA])
         passed("ssd and zamba2 attention kernel phases", t0)
+        t0 = time.perf_counter()
+        conv_entry = conv_phase(dev)
+        passed("causal conv kernel phase", t0)
         ssd_entry["launches"] = None
         if not args.kernel_only:
             ssm = ssm_phases(dev, ssd_checked | dec_checked | flash_checked,
                              card)
             ssd_entry["launches"] = sum(v["ssd_scan"] for v in ssm.values())
+            conv_launches += sum(v["causal_conv"] for v in ssm.values())
         entries.append(ssd_entry)
     if not (args.serving_only or args.ssm_only):
         _, _, plan = calibrated_plan(
@@ -5496,6 +5685,7 @@ def main(argv=None) -> int:
                            (flash_entry, "flash_attention_wgmma")):
                 e["launches"] = llama[key] + sum(v[key] for v in paths)
             ssd_entry["launches"] = sum(v["ssd_scan"] for v in ssm.values())
+            conv_launches += sum(v["causal_conv"] for v in ssm.values())
         if main_path:
             # The main-path phase's checks at the shapes it launched at.
             for e in (dec_entry, flash_entry):
@@ -5543,6 +5733,9 @@ def main(argv=None) -> int:
         ssd_bwd_entry, ssd_bwd_checked = ssd_bwd_phase(dev)
         ssd_bwd_entry["launches"] = None
         passed("ssd backward kernel phase", t0)
+        t0 = time.perf_counter()
+        conv_entry = conv_phase(dev)
+        passed("causal conv kernel phase", t0)
         if not args.kernel_only:
             start_ssd_audit()
             t0 = time.perf_counter()
@@ -5575,6 +5768,8 @@ def main(argv=None) -> int:
             if ssd_entry is not None:
                 ssd_entry["launches"] = ((ssd_entry["launches"] or 0)
                                          + ssm_train["launches"]["ssd_scan"])
+            conv_launches += (ssm_train["launches"]["causal_conv"]
+                              + 2 * ssm_train["launches"]["causal_conv_bwd"])
         entries += [bwd_entry, ssd_bwd_entry]
     if not (args.ssm_only or args.scheduling_only or args.serving_only
             or args.kernel_only):
@@ -5591,11 +5786,17 @@ def main(argv=None) -> int:
                        (ssd_bwd_entry, "ssd_scan_bwd")):
             if e is not None:
                 e["launches"] = (e["launches"] or 0) + sharded["launches"][key]
+        conv_launches += sharded["launches"]["causal_conv"]
         entries.append(sharded["k2p"])
         # Phase 21, last as numbered (its card step ran inside phase 16).
         tooling = _tooling(dev, card, train)
         fed_entry["launches"] = ((fed_entry["launches"] or 0)
                                  + tooling["launches"]["fed_reduce"])
+    if conv_entry is not None:
+        # Kernel launches on the main paths that ran: one a forward call,
+        # two a backward call.
+        conv_entry["launches"] = conv_launches or None
+        entries.append(conv_entry)
     for e in entries:
         if ptxas.get(e["name"]):
             e["ptxas"] = ptxas[e["name"]]

@@ -60,6 +60,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels._vmap import fold, unfold
 from repro_torch.kernels.ssd_scan.ref import (
     pad_steps,
     ssd_bwd_ref,
@@ -390,19 +391,6 @@ def _dims(x, B, chunk) -> tuple:
     return (*x.shape, *B.shape[2:], chunk, x.element_size())
 
 
-def _fold(t, dim, batch, axis):
-    """A vmapped operand with its vmapped dimension ``dim`` (``None``:
-    unbatched, expanded) folded into its ``axis`` (the heads of x, dt, dy,
-    A and the state, the groups of B and C), vmapped index outermost."""
-    t = t.expand(batch, *t.shape) if dim is None else t.movedim(dim, 0)
-    t = t.movedim(0, axis)
-    return t.reshape(*t.shape[:axis], -1, *t.shape[axis + 2:]).contiguous()
-
-
-def _unfold(t, batch, axis):
-    return t.reshape(*t.shape[:axis], batch, -1, *t.shape[axis + 1:])
-
-
 # The axis of heads (or groups) of each operand, where a vmapped dimension
 # folds in: a ctypes launch cannot be vmapped, and the heads are independent
 # of each other (A differs per head, so the batch axis would not do).
@@ -443,10 +431,10 @@ class SsdScan(torch.autograd.Function):
     def vmap(info, in_dims, x, dt, A, B, C, chunk, impl):
         n = info.batch_size
         y, state = SsdScan.apply(
-            *(_fold(t, d, n, a) for t, d, a in zip((x, dt, A, B, C),
-                                                   in_dims, _FWD_AXES)),
+            *(fold(t, d, n, a) for t, d, a in zip((x, dt, A, B, C),
+                                                  in_dims, _FWD_AXES)),
             chunk, impl)
-        return (_unfold(y, n, 2), _unfold(state, n, 1)), (2, 1)
+        return (unfold(y, n, 2), unfold(state, n, 1)), (2, 1)
 
 
 class _SsdScanBackward(torch.autograd.Function):
@@ -478,11 +466,11 @@ class _SsdScanBackward(torch.autograd.Function):
         if dstate is None:
             in_dims = in_dims[:6]
         ops = (x, dt, A, B, C, dy) + (() if dstate is None else (dstate,))
-        folded = [_fold(t, d, n, a) for t, d, a in zip(ops, in_dims,
-                                                       _BWD_AXES)]
+        folded = [fold(t, d, n, a) for t, d, a in zip(ops, in_dims,
+                                                      _BWD_AXES)]
         grads = _SsdScanBackward.apply(
             *folded, *([None] if dstate is None else []), chunk, impl)
-        return (tuple(_unfold(gr, n, a) for gr, a in zip(grads, _FWD_AXES)),
+        return (tuple(unfold(gr, n, a) for gr, a in zip(grads, _FWD_AXES)),
                 _FWD_AXES)
 
 

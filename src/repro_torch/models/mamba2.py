@@ -1,9 +1,11 @@
 """Mamba2 (SSD — state-space duality) language model.
 
 Block layout follows the Mamba2 reference: projections producing ``[z, x,
-B, C, dt]``, short causal depthwise conv over ``[x, B, C]``, SSD scan (the
-``ssd_scan`` kernel on a card, its chunked plain version on the CPU), gated
-RMSNorm, ``out_proj``.  Decode carries an O(1) recurrent state per layer.
+B, C, dt]``, short causal depthwise conv + bias + SiLU over x and over
+``[B, C]`` (the ``causal_conv`` kernel on a card, its plain chain on the
+CPU), SSD scan (the ``ssd_scan`` kernel on a card, its chunked plain version
+on the CPU), gated RMSNorm, ``out_proj``.  Decode carries an O(1) recurrent
+state per layer and keeps its own one-token conv.
 
 init/apply in the reference's style, with the layers as a Python list of
 per-layer param dicts and the decode cache as a list of per-layer dicts
@@ -20,7 +22,8 @@ Under a profiler each call of a block is a ``model.block`` span
 (``runtime/tracing.py``), a recomputation included: the span is opened
 inside the function ``checkpoint`` runs again.
 ``cfg.attention_impl`` ``"einsum"`` or ``"ref"`` asks for the plain scan
-(forward and backward) on any device, as it asks for the plain attention.
+and conv (forward and backward) on any device, as it asks for the plain
+attention; the block's ``impl`` routes both.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.device import resolve_device
 from repro_torch.distribution import ctx as shard_ctx
 from repro_torch.distribution.ctx import constrain
+from repro_torch.kernels.causal_conv.ops import causal_conv
 from repro_torch.kernels.ssd_scan.ops import ssd_decode_step, ssd_scan
 from repro_torch.models.layers import (
     _PLAIN,
@@ -101,26 +105,6 @@ def block_init(generator, cfg: ModelConfig, device) -> Params:
     }
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 *, tail: "torch.Tensor | None" = None) -> torch.Tensor:
-    """Depthwise causal conv along seq.  xbc (b, l, c); w (width, c).
-
-    The taps are summed in the input dtype, in tap order, then the bias is
-    added and silu taken in f32 — the reference's rounding (``F.conv1d``
-    would round differently).  ``tail`` is the (b, width-1, c) left context
-    carried by the decode cache.
-    """
-    width = w.shape[0]
-    if tail is None:
-        xbc_p = F.pad(xbc, (0, 0, width - 1, 0))
-    else:
-        xbc_p = torch.cat([tail.to(xbc.dtype), xbc], dim=1)
-    out = torch.zeros_like(xbc)
-    for i in range(width):  # width is 4: unrolled elementwise adds
-        out = out + xbc_p[:, i: i + xbc.shape[1]] * w[i]
-    return F.silu((out + b).float()).to(xbc.dtype)
-
-
 def _project(p: Params, hn: torch.Tensor):
     return hn @ p["in_z"], hn @ p["in_x"], hn @ p["in_BC"], hn @ p["in_dt"]
 
@@ -170,8 +154,8 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     z, xp, BC_raw, dt_raw = _project(p, hn)
     z, xp = constrain(z, "ssm_inner"), constrain(xp, "ssm_inner")
     BC_raw = constrain(BC_raw, "ssm_bc")
-    xs = _causal_conv(xp, p["conv_x_w"], p["conv_x_b"])
-    BC = _causal_conv(BC_raw, p["conv_BC_w"], p["conv_BC_b"])
+    xs = causal_conv(xp, p["conv_x_w"], p["conv_x_b"], impl=impl)
+    BC = causal_conv(BC_raw, p["conv_BC_w"], p["conv_BC_b"], impl=impl)
     y, _ = _scan(p, x, xs, BC, dt_raw, cfg, impl)
     y = rmsnorm_gated(constrain(y, "ssm_inner"), z, p["norm_w"],
                       cfg.norm_eps)
@@ -186,8 +170,8 @@ def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
     width = cfg.ssm_conv_width
     hn = constrain(rmsnorm(x, p["ln"], cfg.norm_eps), "tp_in")
     z, xp, BC_raw, dt_raw = _project(p, hn)
-    xs = _causal_conv(xp, p["conv_x_w"], p["conv_x_b"])
-    BC = _causal_conv(BC_raw, p["conv_BC_w"], p["conv_BC_b"])
+    xs = causal_conv(xp, p["conv_x_w"], p["conv_x_b"], impl=impl)
+    BC = causal_conv(BC_raw, p["conv_BC_w"], p["conv_BC_b"], impl=impl)
     y, state = _scan(p, x, xs, BC, dt_raw, cfg, impl)
     y = rmsnorm_gated(y, z, p["norm_w"], cfg.norm_eps)
     # Copies: a view of the last width-1 steps would keep the whole

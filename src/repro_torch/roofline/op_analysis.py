@@ -66,7 +66,8 @@ __all__ = [
     "analyze", "kernel_call", "ARMED", "Work", "COLLECTIVES",
     "fed_reduce_work", "decode_attention_work", "decode_rows",
     "causal_pairs", "flash_attention_work", "flash_attention_bwd_work",
-    "ssd_scan_work", "ssd_scan_bwd_work", "bound", "roofline_terms",
+    "ssd_scan_work", "ssd_scan_bwd_work", "causal_conv_work",
+    "causal_conv_bwd_work", "bound", "roofline_terms",
     "dominant_term", "PEAK_FLOPS", "F32_FLOPS", "HBM_BW", "NVLINK_BW",
 ]
 
@@ -186,6 +187,24 @@ def ssd_scan_bwd_work(b: int, l: int, h: int, p: int, g: int, n: int, q: int,
     fma = (b * g * nc * tri * n
            + b * h * nc * (2 * tri * p + 2 * tri * n + 5 * q * p * n))
     return Work(2 * fma, moved)
+
+
+def causal_conv_work(b: int, l: int, c: int, width: int, itemsize: int
+                     ) -> Work:
+    """Mamba2's depthwise causal conv + bias + SiLU: x read once, y written
+    once, w and the bias read; the conv's ``width`` multiply-adds per output
+    (a grouped convolution's flops, as ``flop_counter`` counts them)."""
+    return Work(2 * width * b * l * c,
+                (2 * b * l * c + (width + 1) * c) * itemsize)
+
+
+def causal_conv_bwd_work(b: int, l: int, c: int, width: int, itemsize: int
+                         ) -> Work:
+    """Its backward: x and dy read once, dx written once, w and the bias
+    read and their gradients written; ``width`` multiply-adds per element
+    for dx and as many for dw."""
+    return Work(4 * width * b * l * c,
+                (3 * b * l * c + 2 * (width + 1) * c) * itemsize)
 
 
 # --------------------------------------------------------------------------- #

@@ -138,7 +138,10 @@ def test_cpu_and_meta_routes_count_the_same(arch, kind):
     if kind == "train":
         assert {k: v["calls"] for k, v in got["meta"]["kernels"].items()} \
             == ({"ssd_scan": 2 * 2 * cfg.num_layers,
-                 "ssd_scan_bwd": 2 * cfg.num_layers}
+                 "ssd_scan_bwd": 2 * cfg.num_layers,
+                 # the block's two convs (x and B,C), as the scan
+                 "causal_conv": 2 * 2 * 2 * cfg.num_layers,
+                 "causal_conv_bwd": 2 * 2 * cfg.num_layers}
                 if arch != "tiny" else
                 {"flash_attention": 2 * 2 * cfg.num_layers,
                  "flash_attention_bwd": 2 * cfg.num_layers})
