@@ -49,9 +49,8 @@ def _free():
 
 def training(cell, dev, args, train):
     from reference.lowp import fp8_matmul
-    from reference.model import plain_matmul
+    from reference.matmul import plain_matmul
 
-    c, tr = cell.config, cell.traffic
     for seed in _ints(args.seeds):
         r = Run(cell=cell, seed=seed, seconds=0, trace=False,
                 t0=time.perf_counter(), device=dev, rehearsal=False)
@@ -61,7 +60,7 @@ def training(cell, dev, args, train):
         _free()
         names = train.leaf_names(spec)
         t_prog = time.perf_counter() - t
-        ref = train.reference(c, tr, seed, dev, spec, plain_matmul)
+        ref = train.reference(cell, seed, dev, spec, plain_matmul)
         _free()
         t_ref = time.perf_counter() - t - t_prog
         n = checks.training(prog, ref, names)
@@ -69,7 +68,7 @@ def training(cell, dev, args, train):
                "ref_s": t_ref, **n, "losses": prog["losses"],
                "ref_losses": ref["losses"]})
         if seed in _ints(args.control_seeds):
-            ctl = train.reference(c, tr, seed, dev, spec, fp8_matmul)
+            ctl = train.reference(cell, seed, dev, spec, fp8_matmul)
             _free()
             _emit({"seed": seed, "kind": "control",
                    **checks.training(ctl, ref, names)})
@@ -86,9 +85,9 @@ def serving(cell, dev, args, serve):
     import numpy as np
 
     from reference.lowp import fp8_matmul
-    from reference.model import plain_matmul
+    from reference.matmul import plain_matmul
 
-    c, tr = cell.config, cell.traffic
+    tr = cell.traffic
     B = tr["batch_size"]
     if args.rates:
         for rate in [float(x) for x in args.rates.split(",")]:
@@ -123,7 +122,7 @@ def serving(cell, dev, args, serve):
         rows = list(range(first, len(records)))
         lowp = fp8_matmul if seed in _ints(args.control_seeds) else None
         t = time.perf_counter()
-        g = serve.served_gaps(c, tr, seed, dev, spec, prompts, records, rows,
+        g = serve.served_gaps(cell, seed, dev, spec, prompts, records, rows,
                               plain_matmul, lowp)
         _emit({"seed": seed, "kind": "program", "requests": len(rows),
                "served_gap": g["served_gap"],

@@ -47,8 +47,9 @@ class Server:
         from repro_torch.launch.serve import BatchedServer, stack_requests
 
         c, tr, dev = r.cell.config, r.cell.traffic, r.device
-        cfg = program.model_config(c)
-        self.spec = weights.leaves(c)
+        arch = r.cell.model
+        cfg = program.model_config(c, arch.FIELDS)
+        self.spec = arch.leaves(c)
         params = weights.nest(self.spec,
                               weights.make_all(self.spec, r.seed, dev))
         program.check_tree(params, cfg)
@@ -102,27 +103,22 @@ def _open_loop(srv: Server, rate: float, n: int) -> tuple[list, float]:
     return lat, done
 
 
-def kernel_shapes(c: dict, b: int, l: int) -> dict:
-    di = c["expand"] * c["d_model"]
-    return {"ssd_scan": dict(b=b, l=l, h=di // c["headdim"], p=c["headdim"],
-                             g=c["ngroups"], n=c["d_state"],
-                             q=c["chunk_size"], itemsize=2)}
-
-
-def batch_flops(c: dict, tr: dict) -> float:
+def batch_flops(arch, c: dict, tr: dict) -> float:
     """Model flops of one batch: the prefill and each decode step."""
     B, P, D = tr["batch_size"], tr["prompt_len"], tr["decode_tokens"]
-    return flops.model_flops(c, B, P, "forward") + sum(
-        flops.decode_flops(c, B, P + j) for j in range(D))
+    return flops.model_flops(arch, c, B, P, "forward") + sum(
+        flops.decode_flops(arch, c, B, P + j) for j in range(D))
 
 
-def served_gaps(c, tr, seed, dev, spec, prompts, records, rows, matmul,
+def served_gaps(cell, seed, dev, spec, prompts, records, rows, matmul,
                 lowp_matmul=None) -> dict:
-    """The reference's logits over each sampled request's prompt and served
-    tokens: the gap of each served token below the reference's best (and,
-    with ``lowp_matmul``, of the token the control puts first)."""
+    """The reference's logits (the cell's architecture's ``logits_at``)
+    over each sampled request's prompt and served tokens: the gap of each
+    served token below the reference's best (and, with ``lowp_matmul``, of
+    the token the control puts first)."""
     import torch
-    from reference import model
+
+    c, tr, model = cell.config, cell.traffic, cell.model
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -188,7 +184,7 @@ def _serve(r, n_window) -> dict:
     so that it is freed before the reference runs."""
     import torch
     from harness.cli import TraceData
-    from reference.model import plain_matmul
+    from reference.matmul import plain_matmul
 
     c, tr, dev = r.cell.config, r.cell.traffic, r.device
     B, rate = tr["batch_size"], r.cell.cell["rate_per_s"]
@@ -209,8 +205,9 @@ def _serve(r, n_window) -> dict:
         win = profiled(lambda: [srv.batch() for _ in range(k)])
         out["trace"] = TraceData(
             window=win, units=k, unit_wall_s=sum(walls) / len(walls),
-            model_flops_per_unit=batch_flops(c, tr),
-            shapes=kernel_shapes(c, B, tr["prompt_len"]),
+            model_flops_per_unit=batch_flops(r.cell.model, c, tr),
+            shapes=r.cell.model.kernel_shapes(c, B, tr["prompt_len"],
+                                              "forward"),
             counters=program.counter_delta(before, program.counters()),
             peaks=None)
     else:
@@ -232,7 +229,7 @@ def _serve(r, n_window) -> dict:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     rows = sample_rows(r.seed, first, n_served, tr["check_requests"])
-    numbers = served_gaps(c, tr, r.seed, dev, spec, prompts, records, rows,
+    numbers = served_gaps(r.cell, r.seed, dev, spec, prompts, records, rows,
                           plain_matmul)
     r.log(f"reference over {len(rows)} requests in "
           f"{time.perf_counter() - t_ref:.1f} s")

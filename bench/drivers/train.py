@@ -135,9 +135,9 @@ def prepare(r):
     from repro_torch.launch.train import make_cloud_step
     from repro_torch.optim.optimizers import AdamWConfig, adamw_init
 
-    c, tr, dev = r.cell.config, r.cell.traffic, r.device
-    cfg = program.model_config(c)
-    spec = weights.leaves(c)
+    c, tr, dev, arch = r.cell.config, r.cell.traffic, r.device, r.cell.model
+    cfg = program.model_config(c, arch.FIELDS)
+    spec = arch.leaves(c)
     params = weights.nest(spec, weights.make_all(spec, r.seed, dev))
     program.check_tree(params, cfg)
     state = {"params": params, "opt": adamw_init(params)}
@@ -218,31 +218,18 @@ def _window(step, state, dev, seconds, ahead):
         torch.stack(losses).double().cpu().tolist(), log
 
 
-def kernel_shapes(c: dict, b: int, l: int, train: bool) -> dict:
-    """The arguments of the yardstick's work formula of each kernel the
-    cell calls, for one call over ``b`` sequences of ``l`` tokens (a
-    training step's calls are per microbatch)."""
-    di = c["expand"] * c["d_model"]
-    scan = dict(b=b, l=l, h=di // c["headdim"], p=c["headdim"],
-                g=c["ngroups"], n=c["d_state"], q=c["chunk_size"], itemsize=2)
-    out = {"ssd_scan": scan}
-    if train:  # autograd hands the backward a (zero) state cotangent
-        out["ssd_scan_bwd"] = dict(scan, dstate=True)
-    return out
-
-
-def reference(c, tr, seed, dev, spec, matmul) -> dict:
-    """The reference's check steps from the same weights and batches, in
-    the configuration's state: an f32 master that AdamW updates and, before
-    each step, a working copy rounded from it to each leaf's dtype (bf16 or
-    f32), through which the loss and its gradients are computed in f32
-    (TF32 off).  Returns the losses, the first-step gradient norms
-    (post-clipping, as the optimizer takes them) and each leaf's change, of
-    the master and of the working copy."""
+def reference(cell, seed, dev, spec, matmul) -> dict:
+    """The reference's check steps (the cell's architecture's ``loss``)
+    from the same weights and batches, in the configuration's state: an f32
+    master that AdamW updates and, before each step, a working copy rounded
+    from it to each leaf's dtype (bf16 or f32), through which the loss and
+    its gradients are computed in f32 (TF32 off).  Returns the losses, the
+    first-step gradient norms (post-clipping, as the optimizer takes them)
+    and each leaf's change, of the master and of the working copy."""
     import torch
-    from reference import model
     from reference.adamw import AdamW
 
+    c, tr, model = cell.config, cell.traffic, cell.model
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -301,9 +288,9 @@ def free(dev) -> None:
 def run(r) -> dict:
     import torch
     from harness.cli import TraceData
-    from reference.model import plain_matmul
+    from reference.matmul import plain_matmul
 
-    c, tr, dev = r.cell.config, r.cell.traffic, r.device
+    c, tr, dev, arch = r.cell.config, r.cell.traffic, r.device, r.cell.model
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     state, step, prog, spec = prepare(r)
@@ -328,10 +315,12 @@ def run(r) -> dict:
         out["trace"] = TraceData(
             window=win, units=k, unit_wall_s=sum(walls) / len(walls),
             model_flops_per_unit=flops.model_flops(
-                c, tr["microbatches"] * tr["microbatch_size"],
+                arch, c, tr["microbatches"] * tr["microbatch_size"],
                 tr["seq_len"], "train"),
-            shapes=kernel_shapes(c, tr["microbatch_size"], tr["seq_len"],
-                                 True),
+            shapes={key: [(s, n * tr["microbatches"]) for s, n in v]
+                    for key, v in arch.kernel_shapes(
+                        c, tr["microbatch_size"], tr["seq_len"],
+                        "train").items()},
             counters=program.counter_delta(before, program.counters()),
             peaks=None)
         attempted = len(walls) + k
@@ -352,7 +341,7 @@ def run(r) -> dict:
     del state, step
     free(dev)
     t_ref = time.perf_counter()
-    ref = reference(c, tr, r.seed, dev, spec, plain_matmul)
+    ref = reference(r.cell, r.seed, dev, spec, plain_matmul)
     free(dev)
     numbers = checks.training(prog, ref, leaf_names(spec))
     r.log(f"reference {time.perf_counter() - t_ref:.1f} s; program losses "

@@ -45,7 +45,7 @@ class TraceData:
     units: int                # steps or batches in the profiled window
     unit_wall_s: float        # host wall per unit, untraced, synchronized
     model_flops_per_unit: float
-    shapes: dict              # the cell's kernel call shapes by kernel
+    shapes: dict              # {kernel: [(work formula args, calls per unit)]}
     counters: dict            # the port's launch counters over the window
     peaks: "dict | None"      # the card's row of yardstick/peaks.json
 

@@ -8,10 +8,13 @@ name under the benchmark's directories, searched in order:
   reads them (``drivers/<driver>.py``);
 * ``cells/<workload>.json``: what is fixed per cell (the offered rate of a
   serving cell, the limits that decide ``correct``);
+* ``models/<model>.py``: the architecture the configuration file names
+  under ``"model"`` (its seeded leaves, the port's fields it checks, its
+  model-flop terms, its kernels' shapes and its plain reference);
 * ``metrics/<metric>.py``: one per-layer metric's reader.
 
-A later change adds a configuration, a mix, a cell or a metric by adding
-files and a ``workloads`` entry; no file here names one.
+A later change adds an architecture, a configuration, a mix, a cell or a
+metric by adding files and a ``workloads`` entry; no file here names one.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ class Cell:
     name: str
     chips: int
     config: dict        # the configuration file's contents
+    model: object       # models/<config["model"]>.py, the architecture
     traffic: dict
     cell: dict          # cells/<workload>.json
     end_to_end: list    # BENCHMARK.json entries this cell reports
@@ -85,6 +89,7 @@ class Layout:
                      if (workload in m["workloads"] if "workloads" in m
                          else m["moves"] in e2e_names)]
         return Cell(name=workload, chips=int(entry["chips"]), config=config,
+                    model=self.load_module("models", config["model"]),
                     traffic=self.load_json("traffic", entry["traffic"]),
                     cell=self.load_json("cells", workload), end_to_end=e2e,
                     per_layer=per_layer, layout=self)

@@ -5,23 +5,16 @@ counters the port keeps.  Only the drivers and the readers of counters
 import the port, through here."""
 from __future__ import annotations
 
-# configuration-file key -> the port's ModelConfig field
-_FIELDS = {
-    "d_model": "d_model", "num_hidden_layers": "num_layers",
-    "vocab_size": "vocab_size", "expand": "ssm_expand",
-    "headdim": "ssm_head_dim", "d_state": "ssm_state",
-    "ngroups": "ssm_groups", "d_conv": "ssm_conv_width",
-    "chunk_size": "ssm_chunk", "rms_norm_eps": "norm_eps",
-    "tie_embeddings": "tie_embeddings", "dtype": "dtype",
-}
-def model_config(c: dict):
+
+def model_config(c: dict, fields: dict):
     """The port's ``ModelConfig`` of registry arch ``c["arch"]`` (its
-    smoke-size twin when ``c["smoke"]``); raises where a width differs
-    from the file's."""
+    smoke-size twin when ``c["smoke"]``); raises where a field differs
+    from the file's.  ``fields`` maps configuration-file keys to the
+    port's fields (the architecture's ``FIELDS``)."""
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(c["arch"], smoke=bool(c.get("smoke", False)))
-    want = {f: c[k] for k, f in _FIELDS.items()}
+    want = {f: c[k] for k, f in fields.items()}
     bad = {f: (getattr(cfg, f), v) for f, v in want.items()
            if getattr(cfg, f) != v}
     if cfg.family != c["family"] or bad:
@@ -60,13 +53,28 @@ def check_tree(tree, cfg) -> None:
 
 
 def counters() -> dict:
-    """The port's launch counters of its hand-written kernels."""
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    """Every launch counter the port's kernel wrappers keep, by
+    ``<wrapper>.<counter>`` (``ssd_scan.tc_launches``): each integer
+    attribute named ``*launches`` of a function of a
+    ``repro_torch.kernels.<kernel>.ops`` module."""
+    import importlib
+    import pkgutil
 
-    return {"ssd_scan": ssd_scan.launches,
-            "ssd_scan_tc": ssd_scan.tc_launches,
-            "ssd_scan_bwd": ssd_scan.bwd_launches,
-            "ssd_scan_bwd_tc": ssd_scan.tc_bwd_launches}
+    import repro_torch.kernels as kernels
+
+    out = {}
+    for pkg in pkgutil.iter_modules(kernels.__path__):
+        if not pkg.ispkg:
+            continue
+        ops = importlib.import_module(f"{kernels.__name__}.{pkg.name}.ops")
+        for name, fn in vars(ops).items():
+            if not (callable(fn) and getattr(fn, "__module__", None)
+                    == ops.__name__):
+                continue
+            for attr, v in vars(fn).items():
+                if attr.endswith("launches") and type(v) is int:
+                    out[f"{name}.{attr}"] = v
+    return out
 
 
 def counter_delta(before: dict, after: dict) -> dict:

@@ -48,9 +48,11 @@ def roofline_percent(t, parts) -> "float | None":
     the kernels whose names match, in %.
 
     ``parts``: ``(shape key, counter of all calls, counter of the calls on
-    the route the names belong to, kernel names, formula)``.  Every name
-    must have been launched once per call, and every call must have taken
-    that route; otherwise nothing is reported."""
+    the route the names belong to, kernel names, formula)``.  The cell's
+    shapes give, under each key, each call's shape with its calls per unit:
+    the window's calls have to be that many, every one on that route, and
+    every name must have been launched once per call; otherwise nothing is
+    reported."""
     if t.peaks is None:
         _why("roofline: the card is not in yardstick/peaks.json")
         return None
@@ -58,9 +60,11 @@ def roofline_percent(t, parts) -> "float | None":
     for shape_key, all_calls, route_calls, names, formula in parts:
         calls, routed = t.counters.get(all_calls, 0), t.counters.get(
             route_calls, 0)
-        if calls == 0 or calls != routed:
+        shapes = [(s, n * t.units) for s, n in t.shapes.get(shape_key, ())]
+        due = sum(n for _, n in shapes)
+        if calls == 0 or calls != routed or calls != due:
             _why(f"roofline: {calls} {all_calls} calls, {routed} of them on "
-                 f"the route of {names}")
+                 f"the route of {names}, {due} due by the cell's shapes")
             return None
         for name in names:
             ks = [k for k in t.window.kernels if name in k[0]]
@@ -69,7 +73,10 @@ def roofline_percent(t, parts) -> "float | None":
                      f"{calls} calls")
                 return None
             spent += sum(e - s for _, s, e in ks)
-        w = formula(**t.shapes[shape_key])
-        bound += calls * work.bound_s(w, t.peaks["bf16_flops_per_s"],
+        _why(f"roofline: {calls} {all_calls} calls, each launching "
+             f"{', '.join(names)}")
+        for shape, n in shapes:
+            bound += n * work.bound_s(formula(**shape),
+                                      t.peaks["bf16_flops_per_s"],
                                       t.peaks["hbm_bytes_per_s"])
     return 100.0 * bound / spent

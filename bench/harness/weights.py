@@ -1,8 +1,9 @@
 """Seeded weights, made by the benchmark and handed to both sides.
 
-The leaves of a configuration follow the published Mamba2
-parameterization, named and laid out as the port's param tree holds them (``harness/program.py`` checks that against the port's own
-shapes).  Values come from a few large draws on the device: the leaves are
+A configuration's leaves come from its architecture's ``leaves(c)``
+(``models/<model>.py``), named and laid out as the port's param tree holds
+them (``harness/program.py`` checks that against the port's own shapes).
+Values come from a few large draws on the device: the leaves are
 packed into chunks of at most ``CHUNK`` elements, each chunk is one
 ``torch.randn`` call of a generator seeded from ``(seed, chunk)``, and each
 leaf is a slice of its chunk, transformed by its rule and cast to the dtype
@@ -31,30 +32,6 @@ class Leaf:
         return math.prod(self.shape)
 
 
-def _mamba_leaves(c: dict, prefix: tuple) -> list[Leaf]:
-    d, L = c["d_model"], c["num_hidden_layers"]
-    di = c["expand"] * d
-    h, g, n, w = di // c["headdim"], c["ngroups"], c["d_state"], c["d_conv"]
-    out_scale = 0.02 / math.sqrt(2 * L)
-    return [
-        Leaf(prefix + ("ln",), (d,), "bf16", "ones"),
-        Leaf(prefix + ("in_z",), (d, di), "bf16", "normal", 0.02),
-        Leaf(prefix + ("in_x",), (d, di), "bf16", "normal", 0.02),
-        Leaf(prefix + ("in_BC",), (d, 2 * g * n), "bf16", "normal", 0.02),
-        Leaf(prefix + ("in_dt",), (d, h), "bf16", "normal", 0.02),
-        Leaf(prefix + ("conv_x_w",), (w, di), "bf16", "normal", 0.5 / w),
-        Leaf(prefix + ("conv_x_b",), (di,), "bf16", "normal", 0.02),
-        Leaf(prefix + ("conv_BC_w",), (w, 2 * g * n), "bf16", "normal",
-             0.5 / w),
-        Leaf(prefix + ("conv_BC_b",), (2 * g * n,), "bf16", "normal", 0.02),
-        Leaf(prefix + ("A_log",), (h,), "f32", "alog"),
-        Leaf(prefix + ("dt_bias",), (h,), "f32", "dt_bias"),
-        Leaf(prefix + ("D_skip",), (h,), "f32", "ones"),
-        Leaf(prefix + ("norm_w",), (di,), "bf16", "ones"),
-        Leaf(prefix + ("out_proj",), (di, d), "bf16", "normal", out_scale),
-    ]
-
-
 def padded_vocab(c: dict) -> int:
     """The vocabulary rows the port holds: the published vocabulary padded
     to the config's ``vocab_pad_multiple`` (the pad is never a target and
@@ -63,15 +40,14 @@ def padded_vocab(c: dict) -> int:
     return -(-c["vocab_size"] // m) * m
 
 
-def leaves(c: dict) -> list[Leaf]:
-    """Every leaf of configuration ``c`` in a fixed order."""
+def lm_leaves(c: dict) -> list[Leaf]:
+    """A language model's leaves outside its layers, in a fixed order: the
+    embedding, the output head (both of the padded vocabulary's rows) and
+    the final norm."""
     d, vp = c["d_model"], padded_vocab(c)
-    out = [Leaf(("embed", "embedding"), (vp, d), "bf16", "normal", 0.02),
-           Leaf(("embed", "lm_head"), (d, vp), "bf16", "normal", 0.02),
-           Leaf(("ln_f",), (d,), "bf16", "ones")]
-    for i in range(c["num_hidden_layers"]):
-        out += _mamba_leaves(c, ("layers", i))
-    return out
+    return [Leaf(("embed", "embedding"), (vp, d), "bf16", "normal", 0.02),
+            Leaf(("embed", "lm_head"), (d, vp), "bf16", "normal", 0.02),
+            Leaf(("ln_f",), (d,), "bf16", "ones")]
 
 
 def chunks(spec: list[Leaf]) -> list[list[int]]:

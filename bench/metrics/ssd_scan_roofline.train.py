@@ -13,9 +13,9 @@ SOURCE = "device_trace"
 # (shape key, counter of all calls, counter of the calls on the route,
 #  the route's kernel names, each launched once per call, the formula)
 PARTS = (
-    ("ssd_scan", "ssd_scan", "ssd_scan_tc", ("ssd_scan_tc_kernel",),
-     work.ssd_scan_work),
-    ("ssd_scan_bwd", "ssd_scan_bwd", "ssd_scan_bwd_tc",
+    ("ssd_scan", "ssd_scan.launches", "ssd_scan.tc_launches",
+     ("ssd_scan_tc_kernel",), work.ssd_scan_work),
+    ("ssd_scan_bwd", "ssd_scan.bwd_launches", "ssd_scan.tc_bwd_launches",
      ("ssd_bwd_tc_local_kernel", "ssd_bwd_tc_state_kernel",
       "ssd_bwd_tc_chunk_kernel", "ssd_bwd_tc_dbdc_kernel",
       "ssd_bwd_group_kernel", "ssd_bwd_da_kernel"),

@@ -1,4 +1,5 @@
-"""The plain reference: Mamba2 (SSD by its chunked definition), the Zamba2
-shared attention block, the loss and AdamW, in float32 PyTorch with TF32
-off.  It imports nothing of the program, of JAX or of the JAX package, and
-takes only the weights and inputs the benchmark made."""
+"""The plain reference: each architecture's model in float32 PyTorch with
+TF32 off (``mamba2.py``: Mamba2, SSD by its chunked definition), the
+precision of its products (``matmul.py``; ``lowp.py``, the float8 control),
+and AdamW.  It imports nothing of the program, of JAX or of the JAX
+package, and takes only the weights and inputs the benchmark made."""

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from reference.model import Plain
+from reference.matmul import Plain
 
 E4M3_MAX = 448.0
 

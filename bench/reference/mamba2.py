@@ -10,11 +10,10 @@ computed by its chunked definition (quadratic inside a chunk, a recurrence
 across chunks); the gated RMSNorm norm(y * silu(z)) * w; out_proj; the
 residual.
 
-``params`` is the nested tree of ``harness/weights.py``'s paths, in f32.
-``matmul`` sets the precision of the products: ``matmul(a, w)`` is every
-weight product and ``matmul.operand`` is applied to the scan's operands x,
-B and C (``Plain`` keeps both in f32; the control, ``lowp.Fp8``, rounds
-them).
+``params`` is the nested tree of ``models/mamba2.py``'s leaves, in f32.
+``matmul`` sets the precision of the products (``reference/matmul.py``):
+``matmul(a, w)`` is every weight product and ``matmul.operand`` is applied
+to the scan's operands x, B and C.
 ``loss`` is the token-mean cross-entropy over the published vocabulary;
 ``logits_at`` gives the logits of chosen positions.
 """
@@ -24,18 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-
-class Plain:
-    """The products in f32."""
-
-    def __call__(self, a, w):
-        return a @ w
-
-    def operand(self, t):
-        return t
-
-
-plain_matmul = Plain()
+from reference.matmul import plain_matmul
 
 
 def rmsnorm(x, w, eps):

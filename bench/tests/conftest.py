@@ -7,12 +7,15 @@ marked ``cuda`` need the card and skip here.
 """
 import json
 import pathlib
+import shutil
 import sys
 
 import pytest
 
 BENCH = pathlib.Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
+FIXTURES = BENCH / "tests" / "fixtures"
+HYBRID = "zamba2-1.2b-smoke"  # fixtures/<HYBRID>.json, fixtures/zamba2.py
 for p in (str(BENCH), str(ROOT / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
@@ -76,6 +79,37 @@ def write_smoke_layout(root: pathlib.Path, limits: dict | None = None) -> dict:
                per_layer=[rename(m) for m in spec["per_layer"]])
     (root / "BENCHMARK.json").write_text(json.dumps(out))
     return names
+
+
+def add_hybrid(root: pathlib.Path, names: dict) -> dict:
+    """Adds to a smoke layout (``write_smoke_layout``'s ``names``) a second
+    architecture as files alone: the port's hybrid at smoke size
+    (``fixtures/zamba2.py`` as ``models/zamba2.py`` and its configuration),
+    a cell of it under each smoke traffic mix with the mamba2 cell's limits,
+    and their ``BENCHMARK.json`` entries; returns ``{mamba2 cell: the
+    hybrid's cell}``."""
+    b = root / "bench"
+    (b / "models").mkdir(exist_ok=True)
+    shutil.copy(FIXTURES / "zamba2.py", b / "models" / "zamba2.py")
+    shutil.copy(FIXTURES / f"{HYBRID}.json", b / "configs" / f"{HYBRID}.json")
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": HYBRID, "source": "arXiv:2411.15242",
+                            "file": f"bench/configs/{HYBRID}.json",
+                            "reduced": [], "why": "the port's hybrid"})
+    out = {}
+    for w in list(spec["workloads"]):
+        if w["name"] not in names.values():
+            continue
+        name = f"{HYBRID}.{w['traffic']}"
+        shutil.copy(b / "cells" / f"{w['name']}.json",
+                    b / "cells" / f"{name}.json")
+        spec["workloads"].append(dict(w, name=name, config=HYBRID))
+        for m in spec["end_to_end"]:
+            if w["name"] in m.get("workloads", ()):
+                m["workloads"].append(name)
+        out[next(k for k, v in names.items() if v == w["name"])] = name
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return out
 
 
 def rehearse(root, workload, seed=2147483659, fault=None, capsys=None):

@@ -7,18 +7,20 @@ program at the same size.
 """
 import pytest
 import torch
-from conftest import BENCH, rehearse, smoke_config, write_smoke_layout
+from conftest import (BENCH, add_hybrid, rehearse, smoke_config,
+                      write_smoke_layout)
 
 from harness.cli import Run
 from harness.layout import Layout
 
 
-@pytest.mark.parametrize("cell,fault", [
-    ("mamba2-1.3b.train-4k", "unchanged"),
-    ("mamba2-1.3b.train-4k", "stale_params"),
-    ("mamba2-1.3b.train-4k", "half_batch"),
-    ("mamba2-1.3b.prefill-4k", "altered_token"),
-])
+FAULTS = [("mamba2-1.3b.train-4k", "unchanged"),
+          ("mamba2-1.3b.train-4k", "stale_params"),
+          ("mamba2-1.3b.train-4k", "half_batch"),
+          ("mamba2-1.3b.prefill-4k", "altered_token")]
+
+
+@pytest.mark.parametrize("cell,fault", FAULTS)
 def test_a_broken_timed_path_comes_out_not_correct(cell, fault, tmp_path,
                                                    capsys):
     names = write_smoke_layout(tmp_path)
@@ -28,10 +30,22 @@ def test_a_broken_timed_path_comes_out_not_correct(cell, fault, tmp_path,
     assert line["correct"] is False, line["checks"]
 
 
+@pytest.mark.parametrize("cell,fault", FAULTS)
+def test_a_broken_timed_path_of_a_second_architecture_comes_out_not_correct(
+        cell, fault, tmp_path, capsys):
+    """The same faults in the cells of the port's hybrid, added as files
+    alone."""
+    hybrid = add_hybrid(tmp_path, write_smoke_layout(tmp_path))
+    rc, line, _, err = rehearse(tmp_path, hybrid[cell], fault=fault,
+                                capsys=capsys)
+    assert rc == 0, err[-3000:]
+    assert line["correct"] is False, line["checks"]
+
+
 def test_the_float8_control_reads_above_the_program(tmp_path):
     from harness import checks
     from reference.lowp import fp8_matmul
-    from reference.model import plain_matmul
+    from reference.matmul import plain_matmul
 
     names = write_smoke_layout(tmp_path)
     layout = Layout(tmp_path, [tmp_path / "bench", BENCH])
@@ -41,8 +55,8 @@ def test_the_float8_control_reads_above_the_program(tmp_path):
     r = Run(cell=c, seed=11, seconds=0, trace=False, t0=0.0, device=dev,
             rehearsal=True)
     _, _, prog, spec = train.prepare(r)
-    ref = train.reference(c.config, c.traffic, 11, dev, spec, plain_matmul)
-    ctl = train.reference(c.config, c.traffic, 11, dev, spec, fp8_matmul)
+    ref = train.reference(c, 11, dev, spec, plain_matmul)
+    ctl = train.reference(c, 11, dev, spec, fp8_matmul)
     names_ = train.leaf_names(spec)
     p = checks.training(prog, ref, names_)
     q = checks.training(ctl, ref, names_)
@@ -53,7 +67,7 @@ def test_the_float8_control_misses_served_tokens_the_program_gets(tmp_path):
     """At smoke width the program's served tokens lie at most rounding
     below the reference's best, the control's further."""
     from reference.lowp import fp8_matmul
-    from reference.model import plain_matmul
+    from reference.matmul import plain_matmul
 
     names = write_smoke_layout(tmp_path)
     layout = Layout(tmp_path, [tmp_path / "bench", BENCH])
@@ -66,14 +80,15 @@ def test_the_float8_control_misses_served_tokens_the_program_gets(tmp_path):
     for _ in range(8):
         srv.batch()
     rows = list(range(len(srv.server.records)))
-    g = serve.served_gaps(c.config, c.traffic, 5, dev, srv.spec, srv.prompts,
+    g = serve.served_gaps(c, 5, dev, srv.spec, srv.prompts,
                           srv.server.records, rows, plain_matmul, fp8_matmul)
     assert g["control_gap"] > 3 * g["served_gap"], g
 
 
 def test_the_smoke_config_is_the_ports_smoke_config():
     from harness import program
-    program.model_config(smoke_config("mamba2-1.3b"))
+    from models import mamba2
+    program.model_config(smoke_config("mamba2-1.3b"), mamba2.FIELDS)
 
 
 @pytest.mark.cuda

@@ -1,11 +1,12 @@
 """BENCHMARK.json against the contract's shape, every cell rehearsed at
 smoke size, and a new cell added by files alone."""
+import hashlib
 import json
 import re
 import shutil
 
 import pytest
-from conftest import BENCH, ROOT, rehearse, write_smoke_layout
+from conftest import BENCH, ROOT, add_hybrid, rehearse, write_smoke_layout
 
 from harness.cli import TraceData, per_layer
 from harness.layout import Layout
@@ -113,6 +114,29 @@ def test_a_new_configuration_traffic_cell_and_metric_come_as_files_alone(
                      peaks=None)
     assert per_layer(new, data) == {"kernels_seen.train": {
         "value": 3.0, "unit": "launches"}}
+
+
+def _bench_digest() -> dict:
+    return {str(p.relative_to(BENCH)): hashlib.sha256(p.read_bytes())
+            .hexdigest() for p in sorted(BENCH.rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
+def test_a_second_architecture_comes_as_files_alone(cell, tmp_path, capsys):
+    """The port's hybrid (Mamba2 layers and a shared attention block) added
+    as an architecture module, a configuration and a cell under each mix,
+    with no file of the benchmark edited, rehearses correct."""
+    before = _bench_digest()
+    names = write_smoke_layout(tmp_path)
+    hybrid = add_hybrid(tmp_path, names)[cell]
+    rc, line, _, err = rehearse(tmp_path, hybrid, capsys=capsys)
+    assert rc == 0 and line["correct"] is True, err[-3000:]
+    assert line["failed"] == 0 and line["checks"], line
+    new = Layout(tmp_path, [tmp_path / "bench", BENCH]).cell(hybrid)
+    assert new.model.__file__ == str(tmp_path / "bench" / "models" /
+                                     "zamba2.py")
+    assert _bench_digest() == before
 
 
 def test_a_reader_that_finds_nothing_leaves_its_metric_out(tmp_path):

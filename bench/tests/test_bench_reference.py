@@ -8,7 +8,8 @@ import torch
 from conftest import smoke_config
 
 from harness import program, weights
-from reference import model
+from models import mamba2 as arch
+from reference import mamba2 as model
 from reference.adamw import AdamW
 
 
@@ -48,8 +49,9 @@ def _f32_port(name):
     from repro_torch.models.registry import get_model
 
     c = smoke_config(name)
-    cfg = dataclasses.replace(program.model_config(c), dtype="float32")
-    spec = weights.leaves(c)
+    cfg = dataclasses.replace(program.model_config(c, arch.FIELDS),
+                              dtype="float32")
+    spec = arch.leaves(c)
     ts = [t.float() for t in weights.make_all(spec, 5, "cpu")]
     return c, cfg, get_model(cfg), spec, ts
 
@@ -88,6 +90,27 @@ def test_reference_loss_and_gradients_match_the_port():
     for leaf, a, b in zip(spec, pp, rp):
         ga, gb = a.grad, b.grad
         assert (ga - gb).norm() <= 1e-4 * gb.norm() + 1e-12, leaf.path
+
+
+def test_reference_readings_are_the_parents():
+    """The moved reference gives, on the same weights and tokens, the
+    numbers the reference gave before architectures became modules
+    (frozen from that harness at smoke size)."""
+    c = smoke_config("mamba2-1.3b")
+    spec = arch.leaves(c)
+    params = weights.nest(spec, [t.float() for t in
+                                 weights.make_all(spec, 5, "cpu")])
+    t = _tokens(c, 2, 48)
+    with torch.no_grad():
+        loss = model.loss(params, t[:, :-1], t[:, 1:], c, remat=False)
+        lg = model.logits_at(params, t[:, :-1], [0, 17, 47], c)
+    assert float(loss) == pytest.approx(6.2441558837890625, rel=1e-6)
+    assert float(lg.double().sum()) == pytest.approx(3.449030186615346,
+                                                     rel=1e-5)
+    assert float(lg.abs().double().sum()) == pytest.approx(
+        377.1597518058388, rel=1e-6)
+    assert float(lg[0, 1, 7]) == pytest.approx(0.060059335082769394,
+                                               rel=1e-5)
 
 
 def test_reference_adamw_matches_the_port():

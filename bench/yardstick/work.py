@@ -1,9 +1,11 @@
 """What one kernel call must do: its flops and the bytes it must move.
 
 Frozen copies of the formulas in the port's ``roofline/op_analysis.py``
-(``ssd_scan_work``, ``ssd_scan_bwd_work``, ``bound``) as they stood when the
-benchmark was defined; ``bench/tests/test_bench_yardstick.py`` ties them to
-the program's at the cells' shapes.  A formula counts the work of the call's
+(``ssd_scan_work``, ``ssd_scan_bwd_work``, ``bound`` as they stood when the
+benchmark was defined; ``causal_conv_work``, ``causal_conv_bwd_work`` as
+they stood when the conv's roofline was added);
+``bench/tests/test_bench_yardstick.py`` ties them to the program's at the
+cells' shapes.  A formula counts the work of the call's
 shapes whatever kernel computes it: inputs read once, outputs written once.
 """
 from __future__ import annotations
@@ -38,6 +40,22 @@ def ssd_scan_bwd_work(b, l, h, p, g, n, q, itemsize, dstate) -> Work:
     fma = (b * g * nc * tri * n
            + b * h * nc * (2 * tri * p + 2 * tri * n + 5 * q * p * n))
     return Work(2 * fma, moved)
+
+
+def causal_conv_work(b, l, c, width, itemsize) -> Work:
+    """The depthwise causal conv + bias + SiLU over ``c`` channels: x read
+    once, y written once, w and the bias read; ``width`` multiply-adds per
+    output."""
+    return Work(2 * width * b * l * c,
+                (2 * b * l * c + (width + 1) * c) * itemsize)
+
+
+def causal_conv_bwd_work(b, l, c, width, itemsize) -> Work:
+    """Its backward: x and dy read once, dx written once, w and the bias
+    read and their gradients written; ``width`` multiply-adds per element
+    for dx and as many for dw."""
+    return Work(4 * width * b * l * c,
+                (3 * b * l * c + 2 * (width + 1) * c) * itemsize)
 
 
 def bound_s(work: Work, flops_per_s: float, bytes_per_s: float) -> float:
