@@ -11,7 +11,8 @@ import dataclasses
 import math
 from typing import Literal
 
-Family = Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
+Family = Literal["dense", "moe", "ssm", "hybrid", "hybrid_moe", "vlm",
+                 "audio"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +125,67 @@ class ModelConfig:
         mlp = (3 if self.mlp_activation == "swiglu" else 2) * D * F
         inactive = (self.num_experts - self.experts_per_token) * mlp
         return self.num_params() - self.num_layers * inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """The ``hybrid_moe`` family (``granitemoehybrid``): each layer is a
+    Mamba2 or an attention mixer, as ``layer_types`` says, followed by a
+    dropless MoE and a shared SwiGLU expert.
+
+    ``num_experts`` is the router's width and ``experts_per_token`` its
+    top-k; this card holds the first ``experts_held`` of them (``d_ff``
+    wide) and computes only the pairs routed there (an expert-parallel
+    deployment's share).  The routing is dropless: no capacity
+    (``capacity_factor`` is unused).  The attention has no positional
+    embedding (NoPE) and takes ``attention_multiplier`` as its softmax
+    scale; the embedding is scaled by ``embedding_multiplier``, each
+    mixer's and FFN's output by ``residual_multiplier`` before the
+    residual add, and the logits divided by ``logits_scaling``."""
+
+    layer_types: tuple[str, ...] = ()  # "mamba" | "attention" per layer
+    experts_held: int = 0
+    shared_d_ff: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
+
+    def __post_init__(self):
+        if len(self.layer_types) != self.num_layers or not set(
+                self.layer_types) <= {"mamba", "attention"}:
+            raise ValueError(f"{self.name}: layer_types must name mamba or "
+                             f"attention for each of {self.num_layers} layers")
+        if not 1 <= self.experts_held <= self.num_experts:
+            raise ValueError(f"{self.name}: {self.experts_held} experts held "
+                             f"of the router's {self.num_experts}")
+
+    def _layer_counts(self) -> tuple[int, int]:
+        mamba = sum(t == "mamba" for t in self.layer_types)
+        return mamba, self.num_layers - mamba
+
+    def _ffn_params(self, experts: int) -> int:
+        D = self.d_model
+        return (D * self.num_experts + experts * 3 * D * self.d_ff
+                + 3 * D * self.shared_d_ff + D)  # router, experts, shared, norm
+
+    def num_params(self) -> int:
+        """Parameters held here: the held experts, every mixer, the shared
+        experts and the tied embedding of the (sliced) vocabulary."""
+        D, H, KV, hd = self.d_model, self.num_heads, self.num_kv_heads, \
+            self.head_dim
+        mamba, attn = self._layer_counts()
+        attn_p = D + D * (H + 2 * KV) * hd + H * hd * D
+        return (self.vocab_size * D + D
+                + mamba * (self._mamba_block_params() + D) + attn * attn_p
+                + self.num_layers * self._ffn_params(self.experts_held))
+
+    def active_params(self) -> int:
+        """Parameters a token uses: ``experts_per_token`` experts a layer
+        in place of the held ones."""
+        return self.num_params() - self.num_layers * (
+            self._ffn_params(self.experts_held)
+            - self._ffn_params(self.experts_per_token))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,6 +17,12 @@ ARCH_IDS = (
     "avazu_lr",  # the paper's own model (not an LM cell)
 )
 
+# The port's own architectures, with no twin in the JAX package (whose
+# tests hold ARCH_IDS to it).
+PORT_ARCH_IDS = (
+    "granite_4_0_h_small",
+)
+
 # Dashed aliases matching the assignment sheet.
 ALIASES = {
     "phi3-medium-14b": "phi3_medium_14b",
@@ -29,13 +35,15 @@ ALIASES = {
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
     "internvl2-26b": "internvl2_26b",
     "seamless-m4t-medium": "seamless_m4t_medium",
+    "granite-4.0-h-small": "granite_4_0_h_small",
 }
 
 
 def get_config(arch: str, *, smoke: bool = False):
     arch = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
-    if arch not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if arch not in ARCH_IDS + PORT_ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{ARCH_IDS + PORT_ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
 

@@ -350,7 +350,7 @@ class ContinuousBatchingEngine:
         if not simulate_only:
             if cfg is None:
                 raise ValueError("cfg required unless simulate_only=True")
-            if cfg.family in ("ssm", "hybrid"):
+            if cfg.family in ("ssm", "hybrid", "hybrid_moe"):
                 # The arena holds attention K/V only (as in the reference,
                 # which fails at its first step for these families).
                 raise ValueError(

@@ -129,6 +129,15 @@ def _model_module(cfg: ModelConfig):
         cfg.family, transformer)
 
 
+def _sharded_plan(cfg: ModelConfig, lmesh) -> LogicalMesh:
+    """``lmesh``, where the family has sharded plans; raises otherwise."""
+    if cfg.family == "hybrid_moe":
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid_moe family runs on one device only "
+            f"(no sharded plan): pass lmesh=None")
+    return lmesh
+
+
 def train_state_from_numpy(tree: dict, cfg: ModelConfig,
                            device="cuda") -> dict:
     """The reference's ``{"params", "opt"}`` train state (numpy leaves) as
@@ -579,6 +588,7 @@ def build_train_step(cfg: ModelConfig, lmesh, shape: ShapeConfig,
         if not isinstance(lmesh, LogicalMesh):
             raise TypeError(f"lmesh must be a LogicalMesh "
                             f"(derive_logical_mesh), got {type(lmesh)}")
+        _sharded_plan(cfg, lmesh)
         return (_sharded_train_step(cfg, lmesh, shape, opt_cfg, state_shape,
                                     specs), state_shape, specs)
     n = shape.microbatches
@@ -814,7 +824,7 @@ def build_serve_step(cfg: ModelConfig, lmesh, shape: ShapeConfig):
     shardings (the tensor-parallel families' share the rank's blocks,
     updated in place)."""
     api = get_model(cfg)
-    bs = shape.global_batch % _dp_size(lmesh) == 0
+    bs = shape.global_batch % _dp_size(_sharded_plan(cfg, lmesh)) == 0
     shards = _Shards(cfg, lmesh, kind="decode", batch_shardable=bs)
     rules = shards.rules()
     pshape = api.init(0, cfg, device=torch.device("meta"))
@@ -851,7 +861,7 @@ def build_prefill_step(cfg: ModelConfig, lmesh, shape: ShapeConfig):
     input shapes)`` as the reference (see :func:`build_serve_step` for the
     trees)."""
     api = get_model(cfg)
-    shards = _Shards(cfg, lmesh, kind="prefill")
+    shards = _Shards(cfg, _sharded_plan(cfg, lmesh), kind="prefill")
     rules = shards.rules()
     b, s = shape.global_batch, shape.seq_len
     pshape = api.init(0, cfg, device=torch.device("meta"))

@@ -147,8 +147,10 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
             v.reshape(b, s, KV, hd))
 
 
-def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0):
-    """Full-sequence attention.  On a card (and on the meta device) every
+def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0,
+            scale: "float | None" = None):
+    """Full-sequence attention, softmax scale ``scale`` (default
+    ``head_dim ** -0.5``).  On a card (and on the meta device) every
     impl but the plain ones goes through the flash kernel's wrapper, through
     :class:`FlashAttention` (forward and backward kernels) when a gradient
     flows; so does ``"pallas"`` on the CPU, where the wrapper runs its plain
@@ -157,21 +159,24 @@ def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0):
     by autograd through the plain ops, as the reference differentiates its
     lowerable paths."""
     impl = cfg.attention_impl
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     if impl in _PLAIN:
-        return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                             scale=scale)
     if q.device.type != "cpu" or impl == "pallas":
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            return FlashAttention.apply(q, k, v, causal, q_offset,
-                                        q.shape[-1] ** -0.5)[0]
+            return FlashAttention.apply(q, k, v, causal, q_offset, scale)[0]
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, q_offset=q_offset, impl="auto")
+                               causal=causal, q_offset=q_offset, scale=scale,
+                               impl="auto")
     if impl == "auto":
         if q.shape[1] * k.shape[1] <= 2048 * 2048:
-            return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+            return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                 scale=scale)
     return attention_chunked(
         q, k, v, causal=causal, q_offset=q_offset, q_chunk=q.shape[1],
-        kv_chunk=8 * min(cfg.attention_kv_chunk, k.shape[1]))
+        kv_chunk=8 * min(cfg.attention_kv_chunk, k.shape[1]), scale=scale)
 
 
 def attention_apply(
@@ -210,8 +215,10 @@ def attention_decode(
     cache: dict,  # {"k": (b, S, KV, hd), "v": ..., "pos": int}
     *,
     use_rope: bool = True,
+    scale: "float | None" = None,
 ) -> tuple[torch.Tensor, dict]:
-    """One-token attention against the layer's cache.  The new token's K/V
+    """One-token attention (softmax scale ``scale``, default
+    ``head_dim ** -0.5``) against the layer's cache.  The new token's K/V
     row is written at ``pos`` *in place* (the reference's one-hot
     ``where`` rewrites the whole cache); ``pos`` is a host int shared by the
     batch.  Returns ``(out, {"k", "v", "pos": pos + 1})``."""
@@ -235,12 +242,15 @@ def attention_decode(
         k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
         v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
     if attend is not None:
+        if scale is not None:
+            raise ValueError("a sequence-split decode takes the default "
+                             "softmax scale only")
         o = attend(q[:, 0].contiguous(), k_cache, v_cache, pos, impl)
     else:
         lengths = torch.full((b,), pos + 1, dtype=torch.int32,
                              device=x.device)
         o = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths,
-                             impl=impl)
+                             scale=scale, impl=impl)
     out = constrain(o.reshape(b, 1, H * hd) @ p["wo"], "tp_out")
     return out, {"k": k_cache, "v": v_cache, "pos": pos + 1}
 

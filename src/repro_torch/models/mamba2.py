@@ -20,7 +20,10 @@ backward on a card), each block rematerialized under ``remat``
 (``torch.utils.checkpoint``, non-reentrant, as ``transformer.loss_fn``).
 Under a profiler each call of a block is a ``model.block`` span
 (``runtime/tracing.py``), a recomputation included: the span is opened
-inside the function ``checkpoint`` runs again.
+inside the function ``checkpoint`` runs again.  The block is its mixer
+(``mixer_apply``, ``mixer_prefill``, ``mixer_decode``: norm to
+``out_proj``) plus the residual, so that a model that scales what a mixer
+adds (``models/granite_hybrid.py``) shares it.
 ``cfg.attention_impl`` ``"einsum"`` or ``"ref"`` asks for the plain scan
 and conv (forward and backward) on any device, as it asks for the plain
 attention; the block's ``impl`` routes both.
@@ -147,9 +150,10 @@ def scan_impl(cfg: ModelConfig) -> str:
     return "chunked" if cfg.attention_impl in _PLAIN else "auto"
 
 
-@tracing.spanned("model.block")
-def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+def mixer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 *, impl: str = "auto") -> torch.Tensor:
+    """The block's mixer, from its norm to ``out_proj``: what the block
+    adds to the residual stream ``x``."""
     hn = constrain(rmsnorm(x, p["ln"], cfg.norm_eps), "tp_in")
     z, xp, BC_raw, dt_raw = _project(p, hn)
     z, xp = constrain(z, "ssm_inner"), constrain(xp, "ssm_inner")
@@ -159,13 +163,19 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y, _ = _scan(p, x, xs, BC, dt_raw, cfg, impl)
     y = rmsnorm_gated(constrain(y, "ssm_inner"), z, p["norm_w"],
                       cfg.norm_eps)
-    return constrain(x + constrain(y @ p["out_proj"], "tp_out"), "act_btd")
+    return constrain(y @ p["out_proj"], "tp_out")
 
 
 @tracing.spanned("model.block")
-def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
+def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                *, impl: str = "auto") -> torch.Tensor:
+    return constrain(x + mixer_apply(p, x, cfg, impl=impl), "act_btd")
+
+
+def mixer_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
                   *, impl: str = "auto") -> tuple[torch.Tensor, dict]:
-    """Like block_apply but returns the decode cache (conv tail + ssm state)."""
+    """Like :func:`mixer_apply` but also returns the decode cache (conv
+    tail + ssm state)."""
     l = x.shape[1]
     width = cfg.ssm_conv_width
     hn = constrain(rmsnorm(x, p["ln"], cfg.norm_eps), "tp_in")
@@ -181,13 +191,20 @@ def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
         "conv_BC": BC_raw[:, l - (width - 1):].to(x.dtype, copy=True),
         "ssm": state,
     }
-    return x + constrain(y @ p["out_proj"], "tp_out"), cache
+    return constrain(y @ p["out_proj"], "tp_out"), cache
 
 
 @tracing.spanned("model.block")
-def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+def block_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  *, impl: str = "auto") -> tuple[torch.Tensor, dict]:
+    """Like block_apply but returns the decode cache (conv tail + ssm state)."""
+    out, cache = mixer_prefill(p, x, cfg, impl=impl)
+    return x + out, cache
+
+
+def mixer_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  cache: dict) -> tuple[torch.Tensor, dict]:
-    """One-token recurrent update: x (b, 1, d)."""
+    """The mixer's one-token recurrent update: x (b, 1, d)."""
     b = x.shape[0]
     g, n, hd = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
     h, di = _heads(p, cfg)
@@ -211,7 +228,15 @@ def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = rmsnorm_gated(y, z, p["norm_w"], cfg.norm_eps)
     new_cache = {"conv_x": conv_x_in[:, 1:], "conv_BC": conv_BC_in[:, 1:],
                  "ssm": state}
-    return x + constrain(y @ p["out_proj"], "tp_out"), new_cache
+    return constrain(y @ p["out_proj"], "tp_out"), new_cache
+
+
+@tracing.spanned("model.block")
+def block_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 cache: dict) -> tuple[torch.Tensor, dict]:
+    """One-token recurrent update: x (b, 1, d)."""
+    out, cache = mixer_decode(p, x, cfg, cache)
+    return x + out, cache
 
 
 # --------------------------------------------------------------------------- #

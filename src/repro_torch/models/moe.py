@@ -1,4 +1,6 @@
-"""Mixture-of-Experts MLP block (GShard/Switch-style capacity dispatch).
+"""Mixture-of-Experts MLP blocks: GShard/Switch-style capacity dispatch
+(``moe_apply``) and dropless routing over a card's share of the experts
+(``dropless_apply``, below).
 
 The reference writes routing as dense one-hot dispatch and combine tensors
 of shape ``(tokens, top-k, experts, capacity)`` contracted by einsums (one
@@ -30,7 +32,8 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import HybridMoEConfig, ModelConfig
+from repro_torch.kernels.moe_experts.ops import moe_experts
 from repro_torch.models.layers import truncated_normal_init
 
 Params = Any
@@ -152,3 +155,144 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
             * r.gate.to(x.dtype).float()[:, None])
     out = rows.reshape(b * s, K, D).sum(dim=1).to(x.dtype)
     return out.reshape(b, s, D), r.aux_loss
+
+
+# --------------------------------------------------------------------------- #
+# Dropless routing over the held experts (granitemoehybrid)
+# --------------------------------------------------------------------------- #
+# The router scores all ``cfg.num_experts`` experts and each token takes its
+# ``experts_per_token`` largest logits, gated by their softmax (upstream
+# ``GraniteMoeHybridTopKGating``).  The card holds the first
+# ``experts_held`` experts and computes only the (token, k) pairs routed
+# there, every one of them: no capacity.  Pairs are sorted by
+# held expert (token-major inside each; the others last) into a static
+# ``T * min(held, K)`` rows, the most a dropless route can need, and each
+# expert's rows end at an offset that stays on the device: nothing in the
+# layer waits for the card.  The products run grouped over the held
+# experts (``kernels/moe_experts``); the rows past the last offset are
+# never computed nor read.  Dispatch and combine gather rows and sum each
+# token's pairs in f32 in the order of k, forward and backward, so the
+# layer adds nothing by atomics and repeats bit for bit.  The gates are
+# rounded to the tokens' dtype (upstream's ``type_as``) in value only: their
+# gradient reaches the softmax in f32, whose backward subtracts nearly
+# equal terms.
+
+
+def dropless_init(generator, cfg: HybridMoEConfig, dtype, device) -> Params:
+    """An f32 router over every expert and the held experts' SwiGLU
+    weights ``w1 (held, d, 2 d_ff)`` (gate, then up) and ``w2 (held,
+    d_ff, d)``."""
+    D, F_, n = cfg.d_model, cfg.d_ff, cfg.experts_held
+
+    def tn(shape, dt=dtype, scale=0.02):
+        return truncated_normal_init(generator, shape, dt, device, scale)
+
+    return {"router": tn((D, cfg.num_experts), torch.float32),
+            "w1": tn((n, D, 2 * F_)),
+            "w2": tn((n, F_, D), scale=0.02 / (2 * cfg.num_layers) ** 0.5)}
+
+
+class DroplessRouting(NamedTuple):
+    """Where each ``(token, k)`` pair goes."""
+
+    pair: torch.Tensor  # (R,) int64 pair (t * K + k) of each dispatched row
+    offs: torch.Tensor  # (held,) int32 end of each held expert's rows
+    row: torch.Tensor   # (T, K) int64 row of each pair (clamped if not held)
+    held: torch.Tensor  # (T, K) bool: the pair's expert is held here
+    gate: torch.Tensor  # (T, K) f32 gate: its value rounded to the tokens'
+    #                     dtype, its gradient not
+
+
+def route_dropless(router: torch.Tensor, xt: torch.Tensor,
+                   cfg: HybridMoEConfig) -> DroplessRouting:
+    """Top-K routing of the ``(T, d)`` tokens over all experts, the pairs
+    of the held experts sorted into rows."""
+    T = xt.shape[0]
+    K, n = cfg.experts_per_token, cfg.experts_held
+    with _full_f32_matmul():
+        logits = xt.float() @ router  # (T, E)
+    top, idx = torch.topk(logits, K, dim=-1)
+    gate = torch.softmax(top, dim=-1)
+    held = idx < n
+    group = torch.where(held, idx, n).reshape(-1)  # n: not held here
+    order = torch.argsort(group, stable=True)
+    counts = torch.zeros(n + 1, dtype=group.dtype, device=group.device)
+    counts.scatter_add_(0, group, torch.ones_like(group))
+    rows = T * min(n, K)
+    row = torch.empty_like(order)
+    row[order] = torch.arange(T * K, device=order.device)
+    return DroplessRouting(
+        pair=order[:rows],
+        offs=torch.cumsum(counts[:n], dim=0).to(torch.int32),
+        row=row.reshape(T, K).clamp_max(rows - 1), held=held,
+        gate=gate + (gate.to(xt.dtype).float() - gate).detach())
+
+
+def _sum_pairs(y: torch.Tensor, row: torch.Tensor, held: torch.Tensor,
+               gate: "torch.Tensor | None") -> torch.Tensor:
+    """``(T, d)`` f32: for each token, its held pairs' rows of ``y``
+    (times their gates) summed in the order of k."""
+    out = torch.zeros(row.shape[0], y.shape[1], dtype=torch.float32,
+                      device=y.device)
+    for k in range(row.shape[1]):
+        r = y.index_select(0, row[:, k]).float()
+        if gate is not None:
+            r = r * gate[:, k, None]
+        out.add_(torch.where(held[:, k, None], r, 0.0))
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """The tokens' rows in dispatch order; the backward sums each token's
+    held rows."""
+
+    @staticmethod
+    def forward(ctx, xt, pair, row, held):
+        ctx.save_for_backward(row, held)
+        return xt.index_select(0, pair // row.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        row, held = ctx.saved_tensors
+        return _sum_pairs(g, row, held, None).to(g.dtype), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """Each token's held pairs' expert rows times their gates, summed in
+    f32 and rounded to the rows' dtype."""
+
+    @staticmethod
+    def forward(ctx, y, gate, pair, row, held):
+        ctx.save_for_backward(y, gate, pair, row, held)
+        return _sum_pairs(y, row, held, gate).to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, go):
+        y, gate, pair, row, held = ctx.saved_tensors
+        K = row.shape[1]
+        gf = go.float()
+        mine = held.reshape(-1).index_select(0, pair)[:, None]
+        dy = torch.where(mine, gf.index_select(0, pair // K)
+                         * gate.reshape(-1).index_select(0, pair)[:, None],
+                         0.0).to(y.dtype)
+        dgate = None
+        if ctx.needs_input_grad[1]:
+            dgate = torch.stack(
+                [(gf * y.index_select(0, row[:, k]).float()).sum(-1)
+                 for k in range(K)], dim=1)
+            dgate = torch.where(held, dgate, 0.0)
+        return dy, dgate, None, None, None
+
+
+def dropless_apply(p: Params, x: torch.Tensor, cfg: HybridMoEConfig, *,
+                   impl: str = "auto") -> torch.Tensor:
+    """The held experts' part of the layer's MoE output (b, s, d); the
+    absent experts' pairs add nothing.  ``impl`` routes the expert
+    products (``kernels/moe_experts``)."""
+    b, s, D = x.shape
+    xt = x.reshape(b * s, D)
+    r = route_dropless(p["router"], xt, cfg)
+    xd = _Dispatch.apply(xt, r.pair, r.row, r.held)
+    y = moe_experts(xd, p["w1"], p["w2"], r.offs, impl=impl)
+    out = _Combine.apply(y, r.gate, r.pair, r.row, r.held)
+    return out.reshape(b, s, D)

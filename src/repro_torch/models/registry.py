@@ -1,6 +1,7 @@
 """Family -> (init, loss_fn, apply, serving functions) dispatch.
 
-``loss_fn`` trains every family: dense, MoE, VLM, SSM, hybrid and audio.
+``loss_fn`` trains every family: dense, MoE, VLM, SSM, hybrid, hybrid MoE
+and audio.
 """
 from __future__ import annotations
 
@@ -8,7 +9,13 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import encdec, hybrid, mamba2, transformer
+from repro_torch.models import (
+    encdec,
+    granite_hybrid,
+    hybrid,
+    mamba2,
+    transformer,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,8 +38,9 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             prefill=transformer.prefill,
             decode_step=transformer.decode_step,
         )
-    if cfg.family in ("ssm", "hybrid"):
-        mod = mamba2 if cfg.family == "ssm" else hybrid
+    if cfg.family in ("ssm", "hybrid", "hybrid_moe"):
+        mod = {"ssm": mamba2, "hybrid": hybrid,
+               "hybrid_moe": granite_hybrid}[cfg.family]
         return ModelApi(
             init=mod.init,
             loss_fn=mod.loss_fn,

@@ -10,6 +10,14 @@ enters the profiler's own trace (no ``record_function``, no NVTX range):
 a GPU-side projection of a user annotation is a device event, and the
 benchmark counts every device event of its window as a kernel.
 
+The port opens ``train.step``, ``train.batch``, ``train.forward``,
+``train.backward`` and ``train.optimizer`` (``launch/train.py``,
+``distribution/steps.py``), ``model.block`` around each layer of a model
+(a recomputation included) and ``model.moe`` around a ``hybrid_moe``
+layer's FFN half inside it (``models/granite_hybrid.py``), and
+``serve.batch``, ``serve.gather``, ``serve.prefill``, ``serve.decode`` and
+``serve.readback`` (``launch/serve.py``).
+
 Each closed span is one :class:`Span` in a bounded buffer (the last
 ``CAPACITY``), read with :func:`records`:
 

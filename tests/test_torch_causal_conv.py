@@ -47,7 +47,7 @@ def _rel(a, b):
 
 
 def _conv1d_silu(x, w, b):
-    """The benchmark reference's form (``bench/reference/model.py``):
+    """The benchmark reference's form (``bench/reference/mamba2.py``):
     ``F.conv1d`` over the left-padded sequence, then SiLU, in f32."""
     width = w.shape[0]
     out = F.conv1d(F.pad(x.transpose(1, 2), (width - 1, 0)),

@@ -1535,3 +1535,114 @@ def test_sharded_serving_on_one_rank_equals_unsharded(nccl_rank):
     assert decode_attention.launches == cfg.num_layers
     assert torch.equal(got.full_tensor(), want)
     assert torch.equal(got2.full_tensor(), want2)
+
+
+# --------------------------------------------------------------------------- #
+# granite-4.0-h-small: the dropless MoE over held experts (hybrid_moe)
+# --------------------------------------------------------------------------- #
+def _hybrid_moe_cfg(dtype):
+    import dataclasses
+    return dataclasses.replace(get_config("granite_4_0_h_small", smoke=True),
+                               dtype=dtype)
+
+
+def test_hybrid_moe_ffn_takes_no_host_sync_on_card(cuda_device):
+    """One smoke layer's FFN half (routing, dispatch, the grouped expert
+    products, combine, the shared expert), forward and backward, with
+    CUDA sync debugging raising on any synchronizing operation; the
+    products ran grouped (two launches)."""
+    from repro_torch.kernels.moe_experts.ops import moe_experts
+    from repro_torch.models import granite_hybrid
+
+    cfg = _hybrid_moe_cfg("bfloat16")
+    p = granite_hybrid.init(0, cfg, device=cuda_device)["layers"][0]
+    for t in (*p["moe"].values(), *p["shared"].values(), p["ln2"]):
+        t.requires_grad_(True)
+    x = torch.randn(2, 64, cfg.d_model, device=cuda_device,
+                    dtype=torch.bfloat16, requires_grad=True)
+    g = torch.randn_like(x)
+    before = moe_experts.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = granite_hybrid.ffn_apply(p, x, cfg)
+        out.backward(g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert moe_experts.launches - before == 2
+    assert torch.isfinite(x.grad.float()).all()
+    assert torch.isfinite(p["moe"]["w1"].grad.float()).all()
+
+
+@pytest.mark.parametrize("held_rows", [0, 7, 300])
+def test_moe_experts_grouped_route_matches_plain_on_card(cuda_device,
+                                                         held_rows):
+    """bf16 ``torch._grouped_mm`` products against the plain route, forward
+    and backward, over the rows that belong to an expert (none, a few,
+    all but the tail)."""
+    from repro_torch.kernels.moe_experts.ops import moe_experts
+
+    gen = torch.Generator(device=cuda_device).manual_seed(held_rows)
+    n, d, f, rows = 4, 64, 32, 320
+    x = torch.randn(rows, d, device=cuda_device, generator=gen)
+    w1 = torch.randn(n, d, 2 * f, device=cuda_device, generator=gen) * 0.1
+    w2 = torch.randn(n, f, d, device=cuda_device, generator=gen) * 0.1
+    cuts = sorted(torch.randint(0, held_rows + 1, (n - 1,),
+                                generator=gen, device=cuda_device).tolist())
+    offs = torch.tensor(cuts + [held_rows], dtype=torch.int32,
+                        device=cuda_device)
+    dy = torch.randn(rows, d, device=cuda_device, generator=gen)
+    out = {}
+    for impl in ("grouped", "plain"):
+        ts = [t.to(torch.bfloat16).requires_grad_(True) for t in (x, w1, w2)]
+        y = moe_experts(*ts, offs, impl=impl)
+        y[:held_rows].backward(dy[:held_rows].to(torch.bfloat16))
+        out[impl] = [y[:held_rows]] + [ts[0].grad[:held_rows]] + \
+            [t.grad for t in ts[1:]]
+    for a, b in zip(out["grouped"], out["plain"]):
+        a, b = a.float(), b.float()
+        assert float((a - b).norm()) <= 2e-2 * float(b.norm()) + 1e-6
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_hybrid_moe_train_step_kernel_path_matches_plain_path_on_card(
+        cuda_device, dtype, tol):
+    """Two ``build_train_step`` steps of the smoke granite-4.0-h-small: the
+    kernels' path (scan, conv and flash kernels, grouped expert products in
+    bf16) against the plain path (``attention_impl="einsum"``), both on
+    the card: loss and grad norm within ``tol``, the first-step gradients
+    of all leaves together (as the SSM test above)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distribution.steps import (
+        build_train_step,
+        init_train_state,
+    )
+    from repro_torch.optim.optimizers import AdamWConfig, tree_leaves
+
+    import dataclasses
+    shape = ShapeConfig("t", 128, 4, "train", microbatches=2)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, 512, (2, 2, 128)).astype(np.int32),
+                "targets": rng.integers(0, 512, (2, 2, 128)).astype(np.int32),
+                "mask": np.ones((2, 2, 128), np.float32)} for _ in range(2)]
+    cfg = _hybrid_moe_cfg(dtype)
+    runs = {}
+    for path, c in (("kernel", cfg), ("plain", dataclasses.replace(
+            cfg, attention_impl="einsum"))):
+        state = init_train_state(c, seed=0, device=cuda_device)
+        step, _, _ = build_train_step(c, None, shape,
+                                      AdamWConfig(warmup_steps=1))
+        metrics, grads = [], None
+        for b in batches:
+            state, m = step(state, {k: torch.from_numpy(v).to(cuda_device)
+                                    for k, v in b.items()})
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+            if grads is None:
+                grads = torch.cat([t.float().flatten() for t in
+                                   tree_leaves(state["opt"]["m"])])
+        torch.cuda.synchronize()
+        runs[path] = (metrics, grads)
+    (mk, gk), (mp, gp) = runs["kernel"], runs["plain"]
+    np.testing.assert_allclose(mk, mp, rtol=tol)
+    assert float((gk - gp).norm() / gp.norm()) <= tol
